@@ -1,0 +1,476 @@
+"""Smoke test of the PyTorch port on one NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each of which fails the script on error:
+
+1. Print the card (``nvidia-smi`` name and power limit) and the versions,
+   then build every CUDA kernel of the port from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, all at once) and print the build time.
+2. Hold each kernel against its plain PyTorch version on the card: at the
+   shapes the serving run below gives it, at larger chatglm3-6b shapes, and
+   at ragged shapes (lengths that are not multiples of the tile, a row whose
+   cache slots are all empty). One JSON line per case with the largest
+   error, the kernel's time, the plain version's and, where one PyTorch call
+   computes the same function, that call's (``library_ms``, timed here as a
+   yardstick; the port never calls it).
+3. Serve full-width, full-depth chatglm3-6b (random bf16 weights from
+   ``--seed``) through ``ServingEngine.generate`` with the kernels on: 8
+   prompts x 4 samples, prompt length 256, 32 new tokens; once with the
+   dense-slot backend and once with the paged-block backend. The launch
+   counts are set to 0 just before each run and read just after; the run
+   fails unless every kernel of its mode launched.
+4. f32 parity at full width, 2 layers: the kernel path and the plain path
+   (``use_kernel=False``) serve the same prompts greedily, dense and paged,
+   and must give the same tokens and log-probabilities within 1e-3.
+5. Print the ``kernels`` JSON line, the card again, and as the last line
+   ``{"ok": true, "device": {...}}``.
+
+It exits non-zero, and prints no result, without a CUDA device or outside a
+checkout of the repository.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and FLOP/s by type
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+L2_BYTES = 50 * 2 ** 20
+
+SERVE = dict(arch="chatglm3-6b", requests=8, samples=4, prompt_len=256,
+             max_new=32, kv_block_size=16, temperature=0.8)
+SOURCES = {
+    "flash_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:79"),
+    "decode_attention": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:69"),
+    "paged_decode_attention": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:164"),
+}
+
+
+def emit(tag: str, obj) -> None:
+    print(f"[{tag}] " + json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ----------------------------------------------------------------- timing
+
+def time_ms(fn, arg_sets, iters: int) -> float:
+    """Mean device time of ``fn(*args)`` with CUDA events, cycling through
+    ``arg_sets`` (copies of the inputs that together exceed L2, so each call
+    finds its inputs cold, as a layer of the model does)."""
+    for i in range(3):
+        fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def copies_past_l2(args, cap: int = 64):
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor))
+    n = min(cap, max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+    return [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args) for _ in range(n - 1)]
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# ------------------------------------------------------------ kernel cases
+
+def randn(g, shape, dtype):
+    return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+
+def flash_case(g, B, S, H, Hkv, D, Dv, dtype, window=None):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k = randn(g, (B, S, H, D), dtype), randn(g, (B, S, Hkv, D), dtype)
+    v = randn(g, (B, S, Hkv, Dv), dtype)
+    pairs = sum(min(i + 1, window or i + 1) for i in range(S))
+    case = dict(args=(q, k, v), kw=dict(window=window),
+                kernel=flash_attention, plain=flash_attention_ref,
+                bytes=nbytes(q, k, v) + B * S * H * Dv * q.element_size(),
+                flops=2 * B * H * pairs * (D + Dv),
+                shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D, Dv=Dv, window=window))
+    if window is None and D == Dv:
+        case["library"] = lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+    return case
+
+
+def decode_case(g, B, W, H, Hkv, D, filled, dtype, empty_row=False,
+                window=None):
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cache
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    q = randn(g, (B, 1, H, D), dtype)
+    kc, vc = randn(g, (B, W, Hkv, D), dtype), randn(g, (B, W, Hkv, D), dtype)
+    pos = torch.full((B, W), -1, dtype=torch.int32, device="cuda")
+    pos[:, :filled] = torch.arange(filled, dtype=torch.int32, device="cuda")
+    if empty_row:
+        pos[-1] = -1
+    q_pos = torch.full((B,), filled - 1, dtype=torch.int32, device="cuda")
+    valid = (pos >= 0) & (pos <= q_pos[:, None])
+    if window is not None:
+        valid &= pos > q_pos[:, None] - window
+    n_valid = int(valid.sum())
+    row = Hkv * D * kc.element_size()
+    case = dict(args=(q, kc, vc, pos, q_pos), kw=dict(window=window),
+                kernel=decode_attention_cache, plain=decode_attention_ref,
+                bytes=2 * nbytes(q) + nbytes(pos, q_pos) + 2 * n_valid * row,
+                flops=2 * n_valid * (H // Hkv) * Hkv * 2 * D,
+                shape=dict(B=B, W=W, H=H, Hkv=Hkv, D=D, filled=filled,
+                           empty_row=empty_row, window=window))
+    if not empty_row and window is None:
+        mask = valid[:, None, None, :]
+
+        def library(q, kc, vc, pos, q_pos):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+        case["library"] = library
+    return case
+
+
+def paged_case(g, B, H, Hkv, D, bs, plen, max_new, samples, step, dtype,
+               empty_row=False):
+    """Pools and tables laid out by the serving backend's own
+    `build_paged_layout` (prefix blocks shared across ``samples`` repeats),
+    filled up to position ``plen + step - 1``."""
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_ref
+    from repro_torch.serving.backend import BlockAllocator, build_paged_layout
+    n_req = B // samples
+    alloc = BlockAllocator(10 ** 6, bs)
+    lay = build_paged_layout(alloc, plen, max_new, [samples] * n_req)
+    table = torch.as_tensor(lay.decode_table, device="cuda")
+    nb = table.shape[1]
+    P = lay.n_pool_blocks
+    last = plen + step - 1
+    pos = torch.full((P + nb, bs), -1, dtype=torch.int32, device="cuda")
+    logical = torch.arange(nb * bs, device="cuda")
+    keep = logical <= last
+    for b in range(B):
+        blk = table[b].long().repeat_interleave(bs)
+        pos[blk[keep], (logical % bs)[keep]] = logical[keep].int()
+    if empty_row:
+        # the last sequence reads blocks of its own that hold no token
+        table[-1] = torch.arange(P, P + nb, dtype=torch.int32, device="cuda")
+    P += nb
+    q = randn(g, (B, 1, H, D), dtype)
+    kp, vp = randn(g, (P, bs, Hkv, D), dtype), randn(g, (P, bs, Hkv, D), dtype)
+    q_pos = torch.full((B,), last, dtype=torch.int32, device="cuda")
+    flat = pos[table.long()].reshape(B, -1)
+    n_valid = int(((flat >= 0) & (flat <= q_pos[:, None])).sum())
+    # bytes: every pool slot the tables reach read once, shared prefix
+    # blocks included once
+    used = torch.unique(table.long())
+    n_slots = int(((pos[used] >= 0) & (pos[used] <= last)).sum())
+    row = Hkv * D * kp.element_size()
+    return dict(args=(q, kp, vp, pos, table, q_pos), kw={},
+                kernel=paged_decode_attention,
+                plain=paged_decode_attention_ref,
+                bytes=2 * nbytes(q) + nbytes(table, q_pos)
+                + used.numel() * bs * 4 + 2 * n_slots * row,
+                flops=2 * n_valid * H * 2 * D,
+                shape=dict(B=B, H=H, Hkv=Hkv, D=D, bs=bs, nb=nb,
+                           pool_blocks=P, q_pos=last, empty_row=empty_row))
+
+
+def run_case(name: str, label: str, case, dtype, iters: int) -> dict:
+    kern, plain, kw = case["kernel"], case["plain"], case["kw"]
+    args = case["args"]
+    out = kern(*args, **kw)
+    torch.cuda.synchronize()
+    ref = plain(*args, **kw)
+    tol = TOL[dtype]
+    err = (out.float() - ref.float()).abs()
+    ok = bool(torch.isfinite(out.float()).all()) and bool(
+        (err <= tol + tol * ref.float().abs()).all())
+    if case["shape"].get("empty_row"):
+        ok = ok and bool((out[-1] == 0).all())
+    sets = copies_past_l2(args)
+    res = dict(kernel=name, case=label, dtype=str(dtype).split(".")[-1],
+               shape=case["shape"], max_abs_err=float(err.max()), tol=tol,
+               ok=ok,
+               kernel_ms=time_ms(lambda *a: kern(*a, **kw), sets, iters),
+               plain_ms=time_ms(lambda *a: plain(*a, **kw), sets,
+                                max(2, iters // 4)),
+               library_ms=(time_ms(case["library"], sets, iters)
+                           if "library" in case else None))
+    t_bytes = case["bytes"] / PEAK_BYTES_S * 1e3
+    t_ops = case["flops"] / PEAK_FLOPS[dtype] * 1e3
+    res.update(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=case["bytes"], flops=case["flops"])
+    emit("kernel-check", res)
+    if not ok:
+        raise AssertionError(f"{name} {label} {res['dtype']}: kernel and "
+                             f"plain version disagree (max abs err "
+                             f"{res['max_abs_err']:.3e}, tol {tol})")
+    return res
+
+
+def check_kernels(seed: int) -> dict:
+    """Phase 2. Returns the result of each kernel at its main-path shape."""
+    from repro_torch.kernels import KERNELS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+    H, Hkv, D = 32, 2, 128                          # chatglm3-6b attention
+    R, k, plen, new = (SERVE["requests"], SERVE["samples"],
+                       SERVE["prompt_len"], SERVE["max_new"])
+    B, W, bs = R * k, plen + new, SERVE["kv_block_size"]
+    step = new // 2                                 # mid-decode fill level
+    main = {}
+    for dtype in (bf, f32):
+        tag = "main" if dtype == bf else "main-f32"
+        r = run_case("flash_attention", tag,
+                     flash_case(g, B, plen, H, Hkv, D, D, dtype), dtype, 20)
+        main.setdefault("flash_attention", r)
+        r = run_case("decode_attention", tag,
+                     decode_case(g, B, W, H, Hkv, D, plen + step, dtype),
+                     dtype, 50)
+        main.setdefault("decode_attention", r)
+        r = run_case("paged_decode_attention", tag,
+                     paged_case(g, B, H, Hkv, D, bs, plen, new, k, step,
+                                dtype), dtype, 50)
+        main.setdefault("paged_decode_attention", r)
+    # larger chatglm3-6b shapes
+    run_case("flash_attention", "S2048",
+             flash_case(g, 4, 2048, H, Hkv, D, D, bf), bf, 5)
+    run_case("decode_attention", "W2048",
+             decode_case(g, 32, 2048, H, Hkv, D, 2048, bf), bf, 20)
+    run_case("paged_decode_attention", "nb128",
+             paged_case(g, 32, H, Hkv, D, 16, 2040, 9, 1, 8, bf), bf, 20)
+    # ragged lengths, windows, Dv != D and all-empty rows
+    for dtype in (bf, f32):
+        run_case("flash_attention", "ragged",
+                 flash_case(g, 2, 1000, H, Hkv, D, D, dtype), dtype, 5)
+        run_case("flash_attention", "window",
+                 flash_case(g, 2, 333, 8, 2, 64, 64, dtype, window=100),
+                 dtype, 5)
+        run_case("flash_attention", "dv!=d",
+                 flash_case(g, 1, 200, 16, 1, 192, 128, dtype), dtype, 5)
+        run_case("decode_attention", "ragged+empty",
+                 decode_case(g, 5, 1001, H, Hkv, D, 777, dtype,
+                             empty_row=True), dtype, 10)
+        run_case("decode_attention", "window+empty",
+                 decode_case(g, 3, 300, 8, 2, 64, 250, dtype, empty_row=True,
+                             window=64), dtype, 10)
+        run_case("paged_decode_attention", "ragged+empty",
+                 paged_case(g, 6, H, Hkv, D, 16, 101, 30, 2, 7, dtype,
+                            empty_row=True), dtype, 10)
+    assert set(main) == set(KERNELS), (sorted(main), sorted(KERNELS))
+    return main
+
+
+# ----------------------------------------------------------------- serving
+
+def make_prompts(cfg, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=(SERVE["prompt_len"],))
+            .astype(np.int32) for _ in range(SERVE["requests"])]
+
+
+def check_results(results, cfg, n_samples: int, max_new: int) -> None:
+    assert len(results) == SERVE["requests"]
+    for r in results:
+        assert len(r.samples) == n_samples
+        for s, lp in zip(r.samples, r.logprobs):
+            assert s.shape == (max_new,), s.shape
+            assert s.min() >= 0 and s.max() < cfg.vocab_size, s
+            assert math.isfinite(lp) and lp <= 0.0, lp
+
+
+def serve(seed: int) -> dict:
+    """Phase 3: full chatglm3-6b, dense then paged. Returns the launch
+    counts of each mode's run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.serving import (ExecutionBackend, GumbelNoise,
+                                     ServingEngine)
+    cfg = get_config(SERVE["arch"])
+    model = Model(cfg, dtype=torch.bfloat16, device="cuda", use_kernel=True)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    emit("model", dict(arch=cfg.name, layers=cfg.n_layers,
+                       d_model=cfg.d_model, params=model.param_count(),
+                       dtype="bfloat16", init_s=time.perf_counter() - t0,
+                       weight_gb=torch.cuda.memory_allocated() / 1e9))
+    prompts = make_prompts(cfg, seed)
+    R, k, new = SERVE["requests"], SERVE["samples"], SERVE["max_new"]
+    want = {"dense": ("flash_attention", "decode_attention"),
+            "paged": ("flash_attention", "paged_decode_attention")}
+    counts, tokens = {}, {}
+    for mode in ("dense", "paged"):
+        kw = {}
+        if mode == "paged":
+            probe = ExecutionBackend(model, params, kv_blocks=1,
+                                     kv_block_size=SERVE["kv_block_size"])
+            kw = dict(kv_blocks=R * probe.request_blocks(
+                SERVE["prompt_len"], new, k),
+                kv_block_size=SERVE["kv_block_size"])
+        backend = ExecutionBackend(model, params, **kw)
+        engine = ServingEngine(model, params, max_new_tokens=new,
+                               temperature=SERVE["temperature"],
+                               backend=backend)
+        engine.generate(prompts[:1], n_samples=1, max_new_tokens=2)  # warm-up
+        noise = GumbelNoise(torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = engine.generate(prompts, n_samples=k, noise=noise)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts[mode] = launch_counts()
+        check_results(results, cfg, k, new)
+        tokens[mode] = np.stack([s for r in results for s in r.samples])
+        n_tok = sum(r.decode_tokens for r in results)
+        emit("serve", dict(mode=mode, requests=R, samples=k,
+                           prompt_len=SERVE["prompt_len"], max_new=new,
+                           kv_blocks=kw.get("kv_blocks"), tokens=n_tok,
+                           seconds=dt, tokens_per_s=n_tok / dt,
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           launches=counts[mode]))
+        for name in want[mode]:
+            if counts[mode][name] < 1:
+                raise AssertionError(f"{mode} serving never launched {name}")
+    emit("serve-agreement", dict(
+        dense_vs_paged_token_match=float((tokens["dense"]
+                                          == tokens["paged"]).mean())))
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def parity(seed: int) -> None:
+    """Phase 4: f32, full width, 2 layers; kernel path vs plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ExecutionBackend, ServingEngine
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), n_layers=2)
+    mk = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=True)
+    mp = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=False)
+    params = mk.init(torch.Generator(device="cuda").manual_seed(seed + 1))
+    prompts = make_prompts(cfg, seed + 1)
+    k, new = 2, 16
+    for mode in ("dense", "paged"):
+        out = {}
+        for tag, m in (("kernel", mk), ("plain", mp)):
+            kw = (dict(kv_blocks=512, kv_block_size=SERVE["kv_block_size"])
+                  if mode == "paged" else {})
+            eng = ServingEngine(m, params, max_new_tokens=new,
+                                temperature=0.0,
+                                backend=ExecutionBackend(m, params, **kw))
+            out[tag] = eng.generate(prompts, n_samples=k)
+            check_results(out[tag], cfg, k, new)
+        toks = [np.array_equal(a, b) for ra, rb in zip(out["kernel"],
+                                                      out["plain"])
+                for a, b in zip(ra.samples, rb.samples)]
+        lp_err = max(abs(a - b) for ra, rb in zip(out["kernel"],
+                                                  out["plain"])
+                     for a, b in zip(ra.logprobs, rb.logprobs))
+        emit("parity-f32", dict(mode=mode, layers=cfg.n_layers,
+                                sequences=len(toks),
+                                tokens_equal=sum(toks),
+                                max_logprob_diff=lp_err, tol=1e-3))
+        if not all(toks) or lp_err > 1e-3:
+            raise AssertionError(f"f32 parity ({mode}): {sum(toks)}/"
+                                 f"{len(toks)} sequences equal, logprob "
+                                 f"diff {lp_err:.3e}")
+
+
+# -------------------------------------------------------------------- main
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {ROOT} is not a checkout of the repository "
+              "(src/repro_torch missing)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    # exact f32 products for the f32 checks: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+
+    card = card_line()
+    print(card, flush=True)
+    emit("env", dict(python=sys.version.split()[0], torch=torch.__version__,
+                     cuda=torch.version.cuda,
+                     device=torch.cuda.get_device_name(0),
+                     count=torch.cuda.device_count(), tf32=False))
+    t0 = time.perf_counter()
+    secs = build.build(force=True)
+    emit("build", dict(wall_s=time.perf_counter() - t0, per_source_s=secs,
+                       nvcc=build.nvcc_path()))
+
+    main_cases = check_kernels(args.seed)
+    counts = serve(args.seed)
+    parity(args.seed)
+
+    kernels = []
+    for name, r in main_cases.items():
+        src, replaces = SOURCES[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=counts["dense"][name] + counts["paged"][name],
+            launches_dense=counts["dense"][name],
+            launches_paged=counts["paged"][name],
+            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=r["shape"], dtype=r["dtype"]))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,4 @@
+from repro_torch.kernels.decode_attention.ops import (decode_attention_cache,
+                                                      paged_decode_attention)
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, paged_decode_attention_ref)
