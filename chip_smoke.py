@@ -10,20 +10,28 @@ Phases, each of which fails the script on error:
 2. Hold each kernel against its plain PyTorch version on the card: at the
    shapes the serving run below gives it, at larger chatglm3-6b shapes, and
    at ragged shapes (lengths that are not multiples of the tile, a row whose
-   cache slots are all empty). One JSON line per case with the largest
-   error, the kernel's time, the plain version's and, where one PyTorch call
-   computes the same function, that call's (``library_ms``, timed here as a
-   yardstick; the port never calls it).
+   cache slots are all empty, int4 groups of 32, 24 and 8 rows). One JSON
+   line per case with the largest error, the kernel's time, the plain
+   version's and, where one PyTorch call computes the same function, that
+   call's (``library_ms``, timed here as a yardstick; the port never calls
+   it); the dequant-matmul cases add ``bf16_matmul_ms``, the bf16 product
+   over the pre-dequantized weight that a quantized layer replaces.
 3. Serve full-width, full-depth chatglm3-6b (random bf16 weights from
    ``--seed``) through ``ServingEngine.generate`` with the kernels on: 8
-   prompts x 4 samples, prompt length 256, 32 new tokens; once with the
-   dense-slot backend and once with the paged-block backend. The launch
-   counts are set to 0 just before each run and read just after; the run
-   fails unless every kernel of its mode launched.
+   prompts x 4 samples, prompt length 256, 32 new tokens; with the
+   dense-slot backend and with the paged-block backend in bf16, then paged
+   with the weights quantized on the card: int8, int4 (group 32), and int4
+   over int8 KV pools. The launch counts are set to 0 just before each run
+   and read just after; a run fails unless every kernel of its path
+   launched, each dequant kernel exactly 196 times a forward (7 linear
+   layers x 28), and, over int8 pools, the paged decode kernel not at all.
 4. f32 parity at full width, 2 layers: the kernel path and the plain path
-   (``use_kernel=False``) serve the same prompts greedily, dense and paged,
-   and must give the same tokens and log-probabilities within 1e-3.
-5. Print the ``kernels`` JSON line, the card again, and as the last line
+   (``use_kernel=False``) serve the same prompts greedily, dense and paged
+   in bf16 weights, then int8 weights (dense) and int4 weights over int8 KV
+   (paged) against the plain path over the dequantized weights; each must
+   give the same tokens and log-probabilities within 1e-3.
+5. Print the script's wall time (the build included), the ``kernels``
+   JSON line, the card again, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside a
@@ -62,7 +70,18 @@ SOURCES = {
     "paged_decode_attention": (
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:164"),
+    "dequant_matmul_int8": (
+        "src/repro_torch/csrc/dequant_matmul.cu",
+        "src/repro/kernels/dequant_matmul/dequant_matmul.py:54"),
+    "dequant_matmul_int4": (
+        "src/repro_torch/csrc/dequant_matmul.cu",
+        "src/repro/kernels/dequant_matmul/dequant_matmul.py:108"),
 }
+# chatglm3-6b linear layers (K, N) and the launches of one forward
+D_MODEL, D_FF, KV_DIM = 4096, 13696, 256
+LINEARS_PER_LAYER = 7                   # wq wk wv wo gate up down
+QUANT_RUNS = {"int8": ("int8", "bf16"), "int4": ("int4", "bf16"),
+              "int4+kv8": ("int4", "int8")}
 
 
 def emit(tag: str, obj) -> None:
@@ -212,6 +231,59 @@ def paged_case(g, B, H, Hkv, D, bs, plen, max_new, samples, step, dtype,
                            pool_blocks=P, q_pos=last, empty_row=empty_row))
 
 
+def int8pack_mm_on_cuda() -> bool:
+    """Whether this PyTorch build registers a CUDA kernel for
+    ``torch._weight_int8pack_mm`` (int8 weight-only matmul, weight stored
+    (N, K)): the int8 kernel's library yardstick."""
+    import re
+    dump = torch._C._dispatch_dump("aten::_weight_int8pack_mm")
+    return re.search(r"^CUDA:", dump, re.M) is not None
+
+
+def dequant_case(g, fmt, M, K, N, dtype, gs=32):
+    """x (M, K) @ a random (K, N) weight quantized on the card, int8 or
+    int4 with groups of ``group_size_for(K, gs)`` rows."""
+    from repro_torch.kernels.dequant_matmul.ops import (dequant_matmul_int4,
+                                                        dequant_matmul_int8)
+    from repro_torch.kernels.dequant_matmul.ref import (
+        dequant_matmul_int4_ref, dequant_matmul_int8_ref, dequantize_int4,
+        dequantize_int8)
+    from repro_torch.quant.quantize import quantize_int4, quantize_int8
+    x = randn(g, (M, K), dtype)
+    # normal * K^-1/2, as the model draws a dense weight: outputs of order one
+    w = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+    if fmt == "int8":
+        qw, scale = quantize_int8(w)
+        kern, plain, deq = (dequant_matmul_int8, dequant_matmul_int8_ref,
+                            dequantize_int8)
+    else:
+        qw, scale = quantize_int4(w, gs)
+        kern, plain, deq = (dequant_matmul_int4, dequant_matmul_int4_ref,
+                            dequantize_int4)
+    del w
+    case = dict(args=(x, qw, scale), kw={}, kernel=kern, plain=plain,
+                bytes=nbytes(x, qw, scale) + M * N * x.element_size(),
+                flops=2 * M * K * N,
+                shape=dict(M=M, K=K, N=N, fmt=fmt,
+                           group=K // scale.shape[0] if fmt == "int4"
+                           else None))
+    if dtype == torch.bfloat16:
+        # the product a quantized layer replaces: bf16 over the weight
+        # dequantized beforehand
+        case["bf16_matmul"] = (torch.matmul, (x, deq(qw, scale).to(dtype)))
+    if fmt == "int4":
+        case["library_note"] = (
+            "none: torch._weight_int4pack_mm takes asymmetric zero-points "
+            "in a tiled layout, another function")
+    elif not int8pack_mm_on_cuda():
+        case["library_note"] = ("none: this PyTorch build registers no CUDA "
+                                "kernel for torch._weight_int8pack_mm")
+    else:
+        case["library"] = (torch._weight_int8pack_mm,
+                           (x, qw.t().contiguous(), scale.to(dtype)))
+    return case
+
+
 def run_case(name: str, label: str, case, dtype, iters: int) -> dict:
     kern, plain, kw = case["kernel"], case["plain"], case["kw"]
     args = case["args"]
@@ -231,8 +303,18 @@ def run_case(name: str, label: str, case, dtype, iters: int) -> dict:
                kernel_ms=time_ms(lambda *a: kern(*a, **kw), sets, iters),
                plain_ms=time_ms(lambda *a: plain(*a, **kw), sets,
                                 max(2, iters // 4)),
-               library_ms=(time_ms(case["library"], sets, iters)
-                           if "library" in case else None))
+               library_ms=None)
+    for key in ("library", "bf16_matmul"):
+        # a yardstick: one call over its own copies of its own arguments
+        # (the weight in the layout it takes), or over the kernel's
+        fn = case.get(key)
+        if isinstance(fn, tuple):
+            fn, lib_args = fn
+            res[f"{key}_ms"] = time_ms(fn, copies_past_l2(lib_args), iters)
+        elif fn is not None:
+            res[f"{key}_ms"] = time_ms(fn, sets, iters)
+    if "library_note" in case:
+        res["library_note"] = case["library_note"]
     t_bytes = case["bytes"] / PEAK_BYTES_S * 1e3
     t_ops = case["flops"] / PEAK_FLOPS[dtype] * 1e3
     res.update(bound_ms=max(t_bytes, t_ops),
@@ -295,6 +377,28 @@ def check_kernels(seed: int) -> dict:
         run_case("paged_decode_attention", "ragged+empty",
                  paged_case(g, 6, H, Hkv, D, 16, 101, 30, 2, 7, dtype,
                             empty_row=True), dtype, 10)
+    # dequant-matmul: decode (M = 32 rows) and prefill (M = 2048, the paged
+    # prefill of 8 prompts x 256) at chatglm3-6b's widths, then ragged
+    # shapes and int4 groups of 32, 24 and 8 rows
+    rows = R * k
+    for fmt in ("int8", "int4"):
+        name = f"dequant_matmul_{fmt}"
+        for dtype in (bf, f32):
+            tag = "main" if dtype == bf else "main-f32"
+            r = run_case(name, tag, dequant_case(g, fmt, rows, D_MODEL, D_FF,
+                                                 dtype), dtype, 50)
+            main.setdefault(name, r)
+        run_case(name, "down", dequant_case(g, fmt, rows, D_FF, D_MODEL, bf),
+                 bf, 50)
+        run_case(name, "wk", dequant_case(g, fmt, rows, D_MODEL, KV_DIM, bf),
+                 bf, 50)
+        run_case(name, "prefill", dequant_case(g, fmt, R * plen, D_MODEL,
+                                               D_FF, bf), bf, 10)
+        for dtype in (bf, f32):
+            for M, K, N, gs in ((5, 48, 19, 32), (1, 32, 130, 32),
+                                (17, 96, 33, 8)):
+                run_case(name, "ragged", dequant_case(g, fmt, M, K, N, dtype,
+                                                      gs), dtype, 10)
     assert set(main) == set(KERNELS), (sorted(main), sorted(KERNELS))
     return main
 
@@ -317,14 +421,65 @@ def check_results(results, cfg, n_samples: int, max_new: int) -> None:
             assert math.isfinite(lp) and lp <= 0.0, lp
 
 
-def serve(seed: int) -> dict:
-    """Phase 3: full chatglm3-6b, dense then paged. Returns the launch
-    counts of each mode's run."""
-    from repro_torch.configs import get_config
+def serve_run(model, params, prompts, seed: int, paged: bool,
+              kv_format: str = "bf16"):
+    """One timed serve run of the SERVE requests, after a warm-up request.
+    Returns the launch counts, the sampled tokens, the model forwards and
+    the run's numbers."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import Model
     from repro_torch.serving import (ExecutionBackend, GumbelNoise,
                                      ServingEngine)
+    R, k, new = SERVE["requests"], SERVE["samples"], SERVE["max_new"]
+    kw = {}
+    if paged:
+        probe = ExecutionBackend(model, params, kv_blocks=1,
+                                 kv_block_size=SERVE["kv_block_size"])
+        kw = dict(kv_blocks=R * probe.request_blocks(SERVE["prompt_len"],
+                                                     new, k),
+                  kv_block_size=SERVE["kv_block_size"], kv_format=kv_format)
+    backend = ExecutionBackend(model, params, **kw)
+    engine = ServingEngine(model, params, max_new_tokens=new,
+                           temperature=SERVE["temperature"], backend=backend)
+    engine.generate(prompts[:1], n_samples=1, max_new_tokens=2)  # warm-up
+    noise = GumbelNoise(torch.Generator(device="cuda").manual_seed(seed))
+    forwards = [0]
+    forward = model.forward
+
+    def counted(*a, **kwa):
+        forwards[0] += 1
+        return forward(*a, **kwa)
+
+    model.forward = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = engine.generate(prompts, n_samples=k, noise=noise)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        del model.forward
+    check_results(results, model.cfg, k, new)
+    tokens = np.stack([s for r in results for s in r.samples])
+    n_tok = sum(r.decode_tokens for r in results)
+    info = dict(requests=R, samples=k, prompt_len=SERVE["prompt_len"],
+                max_new=new, kv_blocks=kw.get("kv_blocks"),
+                kv_format=kv_format, tokens=n_tok, seconds=dt,
+                tokens_per_s=n_tok / dt, forwards=forwards[0],
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=counts)
+    return counts, tokens, forwards[0], info
+
+
+def serve(seed: int) -> dict:
+    """Phase 3: full chatglm3-6b, dense then paged in bf16, then paged with
+    int8, int4 and int4 + int8-KV weights quantized on the card. Returns
+    the launch counts of each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.quant.quantize import param_bytes, quantize_model
     cfg = get_config(SERVE["arch"])
     model = Model(cfg, dtype=torch.bfloat16, device="cuda", use_kernel=True)
     t0 = time.perf_counter()
@@ -333,58 +488,61 @@ def serve(seed: int) -> dict:
     emit("model", dict(arch=cfg.name, layers=cfg.n_layers,
                        d_model=cfg.d_model, params=model.param_count(),
                        dtype="bfloat16", init_s=time.perf_counter() - t0,
-                       weight_gb=torch.cuda.memory_allocated() / 1e9))
+                       weight_gb=param_bytes(params) / 1e9))
     prompts = make_prompts(cfg, seed)
-    R, k, new = SERVE["requests"], SERVE["samples"], SERVE["max_new"]
     want = {"dense": ("flash_attention", "decode_attention"),
             "paged": ("flash_attention", "paged_decode_attention")}
     counts, tokens = {}, {}
     for mode in ("dense", "paged"):
-        kw = {}
-        if mode == "paged":
-            probe = ExecutionBackend(model, params, kv_blocks=1,
-                                     kv_block_size=SERVE["kv_block_size"])
-            kw = dict(kv_blocks=R * probe.request_blocks(
-                SERVE["prompt_len"], new, k),
-                kv_block_size=SERVE["kv_block_size"])
-        backend = ExecutionBackend(model, params, **kw)
-        engine = ServingEngine(model, params, max_new_tokens=new,
-                               temperature=SERVE["temperature"],
-                               backend=backend)
-        engine.generate(prompts[:1], n_samples=1, max_new_tokens=2)  # warm-up
-        noise = GumbelNoise(torch.Generator(device="cuda").manual_seed(seed))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        results = engine.generate(prompts, n_samples=k, noise=noise)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts[mode] = launch_counts()
-        check_results(results, cfg, k, new)
-        tokens[mode] = np.stack([s for r in results for s in r.samples])
-        n_tok = sum(r.decode_tokens for r in results)
-        emit("serve", dict(mode=mode, requests=R, samples=k,
-                           prompt_len=SERVE["prompt_len"], max_new=new,
-                           kv_blocks=kw.get("kv_blocks"), tokens=n_tok,
-                           seconds=dt, tokens_per_s=n_tok / dt,
-                           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                           launches=counts[mode]))
+        counts[mode], tokens[mode], _, info = serve_run(
+            model, params, prompts, seed, paged=mode == "paged")
+        emit("serve", dict(mode=mode, weights="bf16", **info))
         for name in want[mode]:
             if counts[mode][name] < 1:
                 raise AssertionError(f"{mode} serving never launched {name}")
     emit("serve-agreement", dict(
         dense_vs_paged_token_match=float((tokens["dense"]
                                           == tokens["paged"]).mean())))
+
+    per_forward = LINEARS_PER_LAYER * cfg.n_layers
+    for run, (wfmt, kv_format) in QUANT_RUNS.items():
+        t0 = time.perf_counter()
+        qparams = quantize_model(params, wfmt, 32)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        c, toks, fwd, info = serve_run(model, qparams, prompts, seed,
+                                       paged=True, kv_format=kv_format)
+        counts[run] = c
+        emit("serve", dict(mode="paged", weights=wfmt, quantize_s=quant_s,
+                           weight_gb=param_bytes(qparams) / 1e9,
+                           token_match_vs_bf16_paged=float(
+                               (toks == tokens["paged"]).mean()), **info))
+        name = f"dequant_matmul_{wfmt}"
+        if c[name] != per_forward * fwd:
+            raise AssertionError(f"{run}: {name} launched {c[name]} times, "
+                                 f"want {per_forward} x {fwd} forwards")
+        if c["flash_attention"] < 1:
+            raise AssertionError(f"{run}: never launched flash_attention")
+        paged_launches = c["paged_decode_attention"]
+        if (kv_format == "int8") != (paged_launches == 0):
+            raise AssertionError(
+                f"{run}: paged_decode_attention launched {paged_launches} "
+                f"times over {kv_format} pools (int8 pools take the plain "
+                "path, bf16 pools the kernel)")
+        del qparams
+        torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     return counts
 
 
 def parity(seed: int) -> None:
-    """Phase 4: f32, full width, 2 layers; kernel path vs plain path."""
+    """Phase 4: f32, full width, 2 layers; kernel path vs plain path, in
+    f32 weights and, quantized, against the plain path over the dequantized
+    weights (the reference's contract: quantized == dequantized)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
+    from repro_torch.quant.quantize import dequantize_model, quantize_model
     from repro_torch.serving import ExecutionBackend, ServingEngine
     cfg = dataclasses.replace(get_config(SERVE["arch"]), n_layers=2)
     mk = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=True)
@@ -392,14 +550,21 @@ def parity(seed: int) -> None:
     params = mk.init(torch.Generator(device="cuda").manual_seed(seed + 1))
     prompts = make_prompts(cfg, seed + 1)
     k, new = 2, 16
-    for mode in ("dense", "paged"):
+    runs = [("f32", "dense", "bf16", params, params),
+            ("f32", "paged", "bf16", params, params)]
+    for wfmt, mode, kv_format in (("int8", "dense", "bf16"),
+                                  ("int4", "paged", "int8")):
+        qp = quantize_model(params, wfmt, 32)
+        runs.append((wfmt, mode, kv_format, qp,
+                     dequantize_model(qp, torch.float32)))
+    for weights, mode, kv_format, kparams, pparams in runs:
         out = {}
-        for tag, m in (("kernel", mk), ("plain", mp)):
-            kw = (dict(kv_blocks=512, kv_block_size=SERVE["kv_block_size"])
-                  if mode == "paged" else {})
-            eng = ServingEngine(m, params, max_new_tokens=new,
+        for tag, m, prm in (("kernel", mk, kparams), ("plain", mp, pparams)):
+            kw = (dict(kv_blocks=512, kv_block_size=SERVE["kv_block_size"],
+                       kv_format=kv_format) if mode == "paged" else {})
+            eng = ServingEngine(m, prm, max_new_tokens=new,
                                 temperature=0.0,
-                                backend=ExecutionBackend(m, params, **kw))
+                                backend=ExecutionBackend(m, prm, **kw))
             out[tag] = eng.generate(prompts, n_samples=k)
             check_results(out[tag], cfg, k, new)
         toks = [np.array_equal(a, b) for ra, rb in zip(out["kernel"],
@@ -408,19 +573,21 @@ def parity(seed: int) -> None:
         lp_err = max(abs(a - b) for ra, rb in zip(out["kernel"],
                                                   out["plain"])
                      for a, b in zip(ra.logprobs, rb.logprobs))
-        emit("parity-f32", dict(mode=mode, layers=cfg.n_layers,
-                                sequences=len(toks),
-                                tokens_equal=sum(toks),
+        emit("parity-f32", dict(mode=mode, weights=weights,
+                                kv_format=kv_format, layers=cfg.n_layers,
+                                sequences=len(toks), tokens_equal=sum(toks),
                                 max_logprob_diff=lp_err, tol=1e-3))
         if not all(toks) or lp_err > 1e-3:
-            raise AssertionError(f"f32 parity ({mode}): {sum(toks)}/"
-                                 f"{len(toks)} sequences equal, logprob "
-                                 f"diff {lp_err:.3e}")
+            raise AssertionError(f"f32 parity ({mode}, {weights} weights, "
+                                 f"{kv_format} KV): {sum(toks)}/{len(toks)} "
+                                 f"sequences equal, logprob diff "
+                                 f"{lp_err:.3e}")
 
 
 # -------------------------------------------------------------------- main
 
 def main() -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -455,15 +622,19 @@ def main() -> int:
     kernels = []
     for name, r in main_cases.items():
         src, replaces = SOURCES[name]
-        kernels.append(dict(
+        by_run = {run: c[name] for run, c in counts.items()}
+        entry = dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts["dense"][name] + counts["paged"][name],
-            launches_dense=counts["dense"][name],
-            launches_paged=counts["paged"][name],
+            launches=sum(by_run.values()), launches_by_run=by_run,
             max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            shape=r["shape"], dtype=r["dtype"]))
+            shape=r["shape"], dtype=r["dtype"])
+        for key in ("bf16_matmul_ms", "library_note"):
+            if key in r:
+                entry[key] = r[key]
+        kernels.append(entry)
+    emit("done", dict(wall_s=time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,13 @@ and ``l{i}`` keys, the ``prefix`` list stays a list, ``{"w","b"}`` dense
 dicts keep the ``(d_in, d_out)`` layout, and a tied-embedding model simply
 has no ``lm_head``. Every leaf is checked against `Model.param_shapes` of
 the port, so a tree of another arch or layout raises instead of loading.
+
+Weight-only quantized dense dicts (``{"qw","scale"[,"b"]}``, from the
+reference's ``quantize_model``) load too: int8 and uint8 weights keep their
+dtype and the scales stay f32 whatever ``dtype`` says; their shapes are
+derived from the dense shape ``(..., K, N)``: int8 ``qw (..., K, N)``,
+``scale (..., N)``; int4 ``qw (..., K//2, N)``, ``scale (..., G, N)`` with
+``G = K // group_size_for(K, group_size)``.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Model
+from repro_torch.quant.quantize import DEFAULT_GROUP_SIZE, group_size_for
 
 
 def _to_tensor(a: Any, device: torch.device, dtype) -> torch.Tensor:
@@ -31,35 +39,57 @@ def _to_tensor(a: Any, device: torch.device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
+def _quantized_shapes(node: Dict, shape: Dict, group_size: int,
+                      path: str) -> Dict:
+    """The shapes a quantized dict must have, from its dense shapes; the
+    format is the weight's dtype (int8, or uint8 for packed int4)."""
+    if not isinstance(shape, dict) or "w" not in shape:
+        raise ValueError(f"{path}: a quantized dict where the port expects "
+                         f"{shape}")
+    *lead, K, N = shape["w"]
+    lead = tuple(lead)
+    dt = np.asarray(node["qw"]).dtype
+    if dt == np.int8:
+        qshape = {"qw": lead + (K, N), "scale": lead + (N,)}
+    elif dt == np.uint8:
+        G = K // group_size_for(K, group_size)
+        qshape = {"qw": lead + (K // 2, N), "scale": lead + (G, N)}
+    else:
+        raise ValueError(f"{path}: quantized weight dtype {dt} (want int8 or "
+                         "uint8)")
+    return {**{k: v for k, v in shape.items() if k != "w"}, **qshape}
+
+
 def params_from_jax(np_tree: Dict, cfg: ArchConfig, device: DeviceLike = "cuda",
-                    dtype: Optional[torch.dtype] = None) -> Dict:
+                    dtype: Optional[torch.dtype] = None,
+                    group_size: int = DEFAULT_GROUP_SIZE) -> Dict:
     """The reference's params (numpy leaves) as the port's params. Floating
-    leaves are cast to ``dtype`` when given."""
+    leaves are cast to ``dtype`` when given, except quantization scales,
+    which stay f32. ``group_size`` is the int4 group size the tree was
+    quantized with."""
     dev = resolve_device(device)
     shapes = Model(cfg, device="cpu").param_shapes()
 
-    def walk(node, shape, path: str):
+    def walk(node, shape, path: str, dt):
         if isinstance(node, dict):
             if "qw" in node:
-                raise NotImplementedError(
-                    f"{path}: quantized dense dicts ({{'qw','scale'}}) arrive "
-                    "with the quantization slice of the port")
+                shape = _quantized_shapes(node, shape, group_size, path)
             if not isinstance(shape, dict) or set(node) != set(shape):
                 raise ValueError(f"{path}: keys {sorted(node)} do not match "
                                  f"the port's {sorted(shape) if isinstance(shape, dict) else shape}")
-            return {k: walk(v, shape[k], f"{path}/{k}")
+            return {k: walk(v, shape[k], f"{path}/{k}",
+                            None if "qw" in node and k == "scale" else dt)
                     for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             if not isinstance(shape, list) or len(node) != len(shape):
                 raise ValueError(f"{path}: {len(node)} entries, the port "
                                  f"expects {shape}")
-            return [walk(v, s, f"{path}[{i}]")
+            return [walk(v, s, f"{path}[{i}]", dt)
                     for i, (v, s) in enumerate(zip(node, shape))]
-        t = _to_tensor(node, dev, dtype)
+        t = _to_tensor(node, dev, dt)
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{path}: shape {tuple(t.shape)}, the port "
                              f"expects {tuple(shape)}")
         return t
 
-    return walk(np_tree, shapes, "params")
-
+    return walk(np_tree, shapes, "params", dtype)

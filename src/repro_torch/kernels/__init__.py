@@ -6,6 +6,8 @@ launches, so a run can show that the main path went through the kernels.
 """
 from repro_torch.kernels.decode_attention.ops import (decode_attention_cache,
                                                       paged_decode_attention)
+from repro_torch.kernels.dequant_matmul.ops import (dequant_matmul_int4,
+                                                    dequant_matmul_int8)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 #: kernel name -> wrapper carrying its ``launches`` count
@@ -13,6 +15,8 @@ KERNELS = {
     "flash_attention": flash_attention,
     "decode_attention": decode_attention_cache,
     "paged_decode_attention": paged_decode_attention,
+    "dequant_matmul_int8": dequant_matmul_int8,
+    "dequant_matmul_int4": dequant_matmul_int4,
 }
 
 

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch chatglm3-6b --requests 8 --samples 4 --prompt-len 256 \
-        --max-new 32 [--kv-blocks 192]
+        --max-new 32 [--kv-blocks 192] [--quant int4] [--kv-int8]
 
 Takes the flags of ``repro_torch.launch.serve``. Serves the requests once
 unprofiled (the timed run, reported as the launcher reports it), then the

@@ -2,15 +2,21 @@
 greedy orchestration plan and safety monitoring in the loop.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
-        --requests 8 --samples 4 --prompt-len 256 --max-new 32 --kv-blocks 256
+        --requests 8 --samples 4 --prompt-len 256 --max-new 32 --kv-blocks 256 \
+        [--quant int8|int4 [--group-size 32]] [--kv-int8]
 
 Weights are random, drawn from a seeded ``torch.Generator``. On ``cuda``
 (the default) the model runs in bf16 with ``use_kernel=True``: prefill goes
 through the flash attention kernel and decode through the dense or paged
 decode kernel; the kernels are built and one short request is served before
-the timed run. ``--device cpu`` runs the plain PyTorch path; ``--smoke``
-serves the arch's reduced config in f32. ``repro_torch.launch.profile_serve``
-takes the same flags and says where the device time goes.
+the timed run. ``--quant int8|int4`` quantizes the weights after init
+(`repro_torch.quant.quantize_model`): every linear layer then runs a
+dequant-matmul kernel. ``--kv-int8`` keeps the paged KV pools in int8, which
+the paged decode kernel does not read: decode attention then takes the plain
+gather path, as in the reference. ``--device cpu`` runs the plain PyTorch
+path; ``--smoke`` serves the arch's reduced config in f32.
+``repro_torch.launch.profile_serve`` takes the same flags and says where the
+device time goes.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.models import Model
 from repro_torch.models.cache import paged_supported
-from repro_torch.quant import quant_workload
+from repro_torch.quant import param_bytes, quant_workload, quantize_model
 from repro_torch.serving import ExecutionBackend, GumbelNoise, ServingEngine
 
 
@@ -48,6 +54,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "across repeated samples; supported archs only)")
     ap.add_argument("--kv-block-size", type=int, default=16,
                     help="paged KV cache: token slots per block")
+    ap.add_argument("--quant", default="bf16",
+                    choices=["bf16", "int8", "int4"],
+                    help="weight-only serving format (repro_torch.quant): "
+                         "linear layers run the dequant-matmul kernels")
+    ap.add_argument("--group-size", type=int, default=32,
+                    help="int4 quantization group size along d_in")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="store the paged KV cache int8 (needs --kv-blocks; "
+                         "halves cache bytes per token slot)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels on) or cpu (plain PyTorch path)")
     return ap.parse_args(argv)
@@ -57,6 +72,8 @@ def setup(args: argparse.Namespace) -> Callable[[], Tuple[list, float]]:
     """Build the model, plan the workload, draw the prompts and, on the
     card, build and warm the kernels. Returns ``serve()``, which serves the
     requests once and gives ``(results, wall seconds)``."""
+    if args.kv_int8 and args.kv_blocks is None:
+        raise SystemExit("--kv-int8 requires --kv-blocks (paged cache)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -68,12 +85,19 @@ def setup(args: argparse.Namespace) -> Callable[[], Tuple[list, float]]:
     params = model.init(gen)
     print(f"[model] {cfg.name}: {model.param_count() / 1e9:.3f} B params, "
           f"{model.dtype}, device={dev}, kernels={'on' if on_card else 'off'}")
+    if args.quant != "bf16":
+        before = param_bytes(params)
+        params = quantize_model(params, args.quant, args.group_size)
+        print(f"[quant] weights {args.quant}: {before / 1e6:.1f} MB -> "
+              f"{param_bytes(params) / 1e6:.1f} MB")
+    kv_format = "int8" if args.kv_int8 else "bf16"
 
     # --- QEIL plan for this workload (simulated edge platform profile)
     w = quant_workload(Workload(batch=args.requests,
                                 prompt_tokens=args.prompt_len,
                                 decode_tokens=args.max_new,
-                                samples=args.samples), "bf16")
+                                samples=args.samples), args.quant,
+                       kv_format=kv_format)
     plan = GreedyOrchestrator(EDGE_PLATFORM,
                               Constraints(latency_budget_factor=1.0)
                               ).assign(cfg, w)
@@ -105,10 +129,11 @@ def setup(args: argparse.Namespace) -> Callable[[], Tuple[list, float]]:
             raise SystemExit(f"--kv-blocks: arch {cfg.name!r} unsupported "
                              "for paging")
         backend = ExecutionBackend(model, params, kv_blocks=args.kv_blocks,
-                                   kv_block_size=args.kv_block_size)
+                                   kv_block_size=args.kv_block_size,
+                                   kv_format=kv_format)
         print(f"[kv] paged cache: {args.kv_blocks} blocks x "
-              f"{args.kv_block_size} slots ({backend.kv_token_bytes} "
-              "B/token)")
+              f"{args.kv_block_size} slots ({kv_format}, "
+              f"{backend.kv_token_bytes} B/token)")
     engine = ServingEngine(model, params, max_new_tokens=args.max_new,
                            temperature=args.temperature, backend=backend)
     if on_card:

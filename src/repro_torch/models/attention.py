@@ -4,7 +4,10 @@ dense ring cache or a paged block pool. Ported from ``repro.models.attention``.
 The plain PyTorch path here is the semantics the kernels are held to; with
 ``use_kernel`` the hand-written Hopper kernels in `repro_torch.kernels` take
 fresh prefill (flash attention) and single-token decode (dense ring and
-paged). On CPU tensors the kernel wrappers run their plain versions.
+paged over bf16 pools). On CPU tensors the kernel wrappers run their plain
+versions. Paged pools may be int8 (``kv_dtype=torch.int8`` in
+`repro_torch.models.cache.make_cache`): keys and values quantize on fill and
+dequantize on read, through the gather path, as in the reference.
 
 Cache writes happen in place (``tensor[idx] = ...``) where the reference
 builds a new array with ``.at[].set``: the cache dict passed in is the one
@@ -216,7 +219,8 @@ def gqa_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         # the table-indexed pools (kernel) or the gathered pools (plain)
         new_cache = _fill_cache_paged(cache, k, v, pos1d, block_table)
         ck, cv, cpos = new_cache["k"], new_cache["v"], new_cache["pos"]
-        if use_kernel and S == 1:
+        quantized = ck.dtype == torch.int8
+        if use_kernel and not quantized and S == 1:
             from repro_torch.kernels.decode_attention import ops as da_ops
             out = da_ops.paged_decode_attention(
                 q, ck, cv, cpos, block_table, pos1d[:, 0].contiguous(),
@@ -224,12 +228,22 @@ def gqa_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         else:
             # gather the sequence's blocks in logical order and slice to the
             # exact cache length: element for element the dense decode path
+            # (int8 pools dequantize here; the paged kernel reads bf16 pools
+            # only, as in the reference, so quantized caches take this path)
             bt = block_table.long()
             kc = ck[bt].reshape(B, -1, *ck.shape[2:])
             vc = cv[bt].reshape(B, -1, *cv.shape[2:])
             pc = cpos[bt].reshape(B, -1)
             if kv_len is not None:
                 kc, vc, pc = kc[:, :kv_len], vc[:, :kv_len], pc[:, :kv_len]
+            if quantized:
+                # dequantize after the slice: elementwise, so the same
+                # values as the reference's dequantize-then-slice
+                n = kc.shape[1]
+                ksc = new_cache["k_scale"][bt].reshape(B, -1, ck.shape[2])
+                vsc = new_cache["v_scale"][bt].reshape(B, -1, cv.shape[2])
+                kc = (kc.float() * ksc[:, :n, :, None]).to(q.dtype)
+                vc = (vc.float() * vsc[:, :n, :, None]).to(q.dtype)
             ok = (pc[:, None, :] >= 0) & (pc[:, None, :] <= pos1d[:, :, None])
             out = sdpa(q, kc, vc, ok, scale)
         y = dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd))
@@ -282,17 +296,35 @@ def _fill_cache_paged(cache: Dict, k, v, pos1d,
                       block_table: torch.Tensor) -> Dict:
     """Write keys/values through the block table into paged pools, in place:
     position p lands in pool block ``table[b, p // bs]`` row ``p % bs``.
-    Every row owns distinct blocks, so the scatter's indices stay unique."""
+    Every row owns distinct blocks, so the scatter's indices stay unique.
+
+    int8 pools (``cache["k"].dtype == int8``) quantize on fill: each written
+    slot stores ``round(k / scale)`` per kv head with ``scale = absmax /
+    127``, scattered into ``k_scale`` / ``v_scale`` alongside."""
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-    if ck.dtype == torch.int8:
-        raise NotImplementedError("int8 KV pools arrive with the "
-                                  "quantization slice of the port")
     bs = ck.shape[1]
     bidx = torch.arange(pos1d.shape[0], device=k.device)[:, None]
     pos_l = pos1d.long()
     blk = block_table.long()[bidx, pos_l // bs]
     row = pos_l % bs
-    ck[blk, row] = k.to(ck.dtype)
-    cv[blk, row] = v.to(cv.dtype)
+    if ck.dtype == torch.int8:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        ck[blk, row] = kq
+        cv[blk, row] = vq
+        cache["k_scale"][blk, row] = ks
+        cache["v_scale"][blk, row] = vs
+    else:
+        ck[blk, row] = k.to(ck.dtype)
+        cv[blk, row] = v.to(cv.dtype)
     cpos[blk, row] = pos1d.to(torch.int32)
     return cache
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per-(token, kv-head) quantization over the head dim:
+    x (B, S, n_kv, hd) -> (q int8, scale f32 (B, S, n_kv))."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale

@@ -15,8 +15,13 @@ every ``blocks`` leaf carries a leading super-block axis. Unlike the JAX
 reference, the port writes caches in place (see `copy_cache_blocks` and
 ``models.attention``).
 
-MLA latent caches, SSM state, cross-attention K/V and int8 KV pools arrive
-with later slices of the port and raise here.
+int8 KV (``kv_dtype=torch.int8``, paged only): k/v pools are int8 with f32
+per-(block, slot, kv-head) scales ``k_scale`` / ``v_scale``
+``(n_blocks, block_size, n_kv)`` beside them; `copy_cache_blocks` moves the
+scales with the blocks.
+
+MLA latent caches, SSM state and cross-attention K/V arrive with later
+slices of the port and raise here.
 """
 from __future__ import annotations
 
@@ -75,17 +80,24 @@ def _entry_shapes(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
     if cfg.cross_attention and cfg.cross_kv_cache:
         raise NotImplementedError("cross-attention K/V caches arrive with "
                                   "the cross-attention slice of the port")
-    if kv_dtype is not None:
-        raise NotImplementedError("quantized (int8) KV pools arrive with the "
-                                  "quantization slice of the port")
     if paged is not None:
         lead = (paged.n_blocks, paged.block_size)
+        el_dtype = dtype if kv_dtype is None else kv_dtype
     else:
+        if kv_dtype is not None:
+            raise ValueError("kv_dtype (quantized KV) requires the paged "
+                             "layout")
         W = min(cache_len, cfg.attn_window) if cfg.attn_window else cache_len
         lead = (batch, W)
-    return {"k": (lead + (cfg.n_kv_heads, cfg.hd), dtype),
-            "v": (lead + (cfg.n_kv_heads, cfg.hd), dtype),
-            "pos": (lead, torch.int32)}
+        el_dtype = dtype
+    shapes = {"k": (lead + (cfg.n_kv_heads, cfg.hd), el_dtype),
+              "v": (lead + (cfg.n_kv_heads, cfg.hd), el_dtype),
+              "pos": (lead, torch.int32)}
+    if el_dtype == torch.int8:
+        # int8 KV: per-(block, slot, kv-head) dequant scales
+        shapes["k_scale"] = (lead + (cfg.n_kv_heads,), torch.float32)
+        shapes["v_scale"] = (lead + (cfg.n_kv_heads,), torch.float32)
+    return shapes
 
 
 def make_cache(cfg: ArchConfig, batch: int, cache_len: int,

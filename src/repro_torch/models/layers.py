@@ -7,6 +7,8 @@ the reference's distributions (normal * d_in^-1/2 for dense and head weights,
 normal * 0.02 for embeddings, ones for norms, zeros for biases); the draws
 themselves differ from JAX's, so parity tests convert the reference's params
 instead (`repro_torch.convert`). ``*_shapes`` give shapes without allocating.
+A weight-only quantized dense dict (``{"qw", "scale"[, "b"]}``, from
+`repro_torch.quant.quantize_model`) goes through `dense` like any other.
 """
 from __future__ import annotations
 
@@ -55,10 +57,10 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "qw" in p:
-        # weight-only quantized layer: the fused dequant-matmul dispatch point
-        raise NotImplementedError("quantized dense layers ({'qw','scale'}) "
-                                  "arrive with the quantization slice of the "
-                                  "port")
+        # weight-only quantized layer: the dequant-matmul kernel on the card,
+        # its plain version on the CPU (picked by the tensors' device)
+        from repro_torch.quant.quantize import qdense
+        return qdense(p, x)
     y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]

@@ -27,9 +27,10 @@ callable ``(shape, device) -> tensor`` the caller injects (a test can feed
 plain argmax and draws nothing.
 
 The reference's ``jax.jit`` step functions are plain methods here, and the
-KV cache is updated in place. The resident prefix pool, chunked prefill and
-speculative decode arrive with later slices of the port; their constructor
-arguments raise until then.
+KV cache is updated in place. ``kv_format="int8"`` (paged mode only) keeps
+the KV pools in int8 with per-slot scales. The resident prefix pool,
+chunked prefill and speculative decode arrive with later slices of the port;
+their constructor arguments raise until then.
 """
 from __future__ import annotations
 
@@ -316,8 +317,12 @@ class ExecutionBackend:
                            "prefix-pool")
         if prefill_chunk is not None:
             raise _not_yet("chunked prefill (prefill_chunk)", "prefix-pool")
-        if kv_format != "bf16":
-            raise _not_yet(f"kv_format={kv_format!r}", "quantization")
+        if kv_format not in ("bf16", "int8"):
+            raise ValueError(f"unknown kv_format {kv_format!r} "
+                             "(supported: bf16, int8)")
+        if kv_format == "int8" and kv_blocks is None:
+            raise ValueError("kv_format='int8' requires the paged cache "
+                             "(set kv_blocks)")
         if model.cfg.n_codebooks > 1:
             raise _not_yet("multi-codebook serving", "remaining-arch-features")
         self.model = model
@@ -458,8 +463,11 @@ class ExecutionBackend:
 
     @property
     def kv_token_bytes(self) -> int:
-        """KV bytes one token position costs across the stack."""
-        el = torch.empty((), dtype=self.model.dtype).element_size()
+        """KV bytes one token position costs across the stack. int8 KV counts
+        one byte per element and, like the reference, leaves out its f32
+        per-slot scales."""
+        el = 1 if self.kv_format == "int8" else \
+            torch.empty((), dtype=self.model.dtype).element_size()
         return cache_mod.kv_bytes_per_token(self.model.cfg, el)
 
     def note_placement(self, placement) -> None:
@@ -572,8 +580,9 @@ class ExecutionBackend:
                 "blocks_free)")
         layout = build_paged_layout(self.allocator, plen, max_new, repeats)
         try:
-            cache = self.model.init_paged_cache(layout.n_pool_blocks,
-                                                layout.block_size)
+            cache = self.model.init_paged_cache(
+                layout.n_pool_blocks, layout.block_size,
+                kv_dtype=torch.int8 if self.kv_format == "int8" else None)
             # prefill rows are the unique prompts (extras per prompt as is);
             # decode rows are the tiled sequences: both tiled exactly once
             decode_extras = {k: self._tile(v, rep) for k, v in extras.items()}

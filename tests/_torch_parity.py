@@ -59,12 +59,15 @@ def f32(x) -> np.ndarray:
 
 
 def params_to_numpy(tree):
-    """The port's params as f32 numpy arrays, in the same nesting: the
-    inverse of `params_from_jax`."""
+    """The port's params as numpy arrays, in the same nesting: the inverse
+    of `params_from_jax`. Floating leaves become f32; integer leaves (the
+    int8 / uint8 weights of a quantized tree) keep their dtype."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor) and not tree.is_floating_point():
+        return tree.detach().cpu().numpy()
     return f32(tree)
 
 

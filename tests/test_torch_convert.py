@@ -73,11 +73,11 @@ def test_prefix_list_and_foreign_trees():
     bad["blocks"]["l0"]["attn"]["wq"] = {"w": wq["w"][:, :, :-1]}
     with pytest.raises(ValueError, match="shape"):
         params_from_jax(bad, tc, device="cpu")
-    # quantized dense dicts arrive with the quantization slice
+    # a quantized dense dict whose scale is not the weight's (N,) columns
     bad = jax.tree.map(lambda x: x, jp)
     bad["blocks"]["l0"]["attn"]["wq"] = {"qw": wq["w"].astype(np.int8),
                                          "scale": np.ones(4, np.float32)}
-    with pytest.raises(NotImplementedError, match="quantiz"):
+    with pytest.raises(ValueError, match="shape"):
         params_from_jax(bad, tc, device="cpu")
 
 

@@ -22,8 +22,9 @@ WORKLOADS = [
 ]
 
 
-def _plan(mod, get, quant_workload, w, fmt, factor, healthy=None):
-    wl = quant_workload(mod.Workload(**w), fmt)
+def _plan(mod, get, quant_workload, w, fmt, factor, healthy=None,
+          kv_format="bf16"):
+    wl = quant_workload(mod.Workload(**w), fmt, kv_format)
     orch = mod.GreedyOrchestrator(
         mod.EDGE_PLATFORM, mod.Constraints(latency_budget_factor=factor))
     return orch.assign(get("chatglm3-6b"), wl, healthy=healthy)
@@ -44,6 +45,15 @@ def test_greedy_orchestrator_assigns_chatglm_exactly_as_the_reference(
         w, fmt, factor):
     _same_plan(_plan(T, tget, t_quant_workload, w, fmt, factor),
                _plan(J, jget, j_quant_workload, w, fmt, factor))
+
+
+@pytest.mark.parametrize("w", WORKLOADS)
+def test_int4_weights_int8_kv_plan_equals_the_reference(w):
+    """The plan the launcher prices for ``--quant int4 --kv-int8``."""
+    _same_plan(_plan(T, tget, t_quant_workload, w, "int4", 1.0,
+                     kv_format="int8"),
+               _plan(J, jget, j_quant_workload, w, "int4", 1.0,
+                     kv_format="int8"))
 
 
 def test_reassignment_without_a_failed_device():

@@ -91,7 +91,8 @@ def test_kernel_wrappers_run_their_plain_version_only_on_cpu_tensors():
 
 def test_kernel_build_is_keyed_by_its_sources_and_lazy():
     from repro_torch.kernels import build
-    assert set(build.SOURCES) == {"flash_attention", "decode_attention"}
+    assert set(build.SOURCES) == {"flash_attention", "decode_attention",
+                                  "dequant_matmul"}
     for name, src in build.SOURCES.items():
         assert (build.CSRC / src).is_file()
         path = build.library_path(name)

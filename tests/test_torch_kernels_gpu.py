@@ -1,5 +1,5 @@
-"""The port's CUDA attention kernels against their plain PyTorch versions, on
-the card. Marked ``gpu``: they skip without a CUDA device (the kernels have
+"""The port's CUDA kernels (attention, dequant-matmul) against their plain
+PyTorch versions, on the card. Marked ``gpu``: they skip without a CUDA device (the kernels have
 no CPU mode). Run on a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
@@ -13,8 +13,13 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention_cache, paged_decode_attention)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, paged_decode_attention_ref)
+from repro_torch.kernels.dequant_matmul.ops import (  # noqa: E402
+    dequant_matmul, dequant_matmul_int4, dequant_matmul_int8)
+from repro_torch.kernels.dequant_matmul.ref import (  # noqa: E402
+    dequant_matmul_int4_ref, dequant_matmul_int8_ref)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.quant.quantize import quantize_int4, quantize_int8  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -173,3 +178,97 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     k = torch.zeros((1, 32, 8, 2), device=cuda).transpose(1, 3)
     with pytest.raises(ValueError):
         flash_attention(q, k, k)
+
+
+DQ8_SHAPES = [
+    # (M, K, N)
+    (5, 48, 19), (1, 32, 130), (9, 64, 64), (17, 96, 33),  # ragged
+    (3, 33, 17),                           # odd K: unaligned rows
+    (1, 4096, 4096),                       # one row, chatglm wq
+    (32, 4096, 256),                       # chatglm wk at decode
+    (70, 13696, 200),                      # chatglm down's K, two m tiles
+]
+DQ4_SHAPES = [
+    # (M, K, N, group size)
+    (5, 48, 19, 16), (1, 32, 130, 32), (9, 64, 64, 16), (17, 96, 33, 8),
+    (4, 48, 40, 24),                       # groups that straddle 16-row steps
+    (3, 96, 24, 24), (2, 160, 16, 32), (6, 200, 48, 8),
+    (1, 4096, 4096, 32), (32, 4096, 256, 32), (70, 13696, 200, 32),
+]
+
+
+def _weight(rng, K, N, dev, lead=()):
+    """A dense weight as the model draws it: normal * K^-1/2, so that the
+    outputs of unit-normal rows are of order one."""
+    return _randn(rng, lead + (K, N), torch.float32, dev) * K ** -0.5
+
+
+def _dq_check(cuda, kernel, plain, x, qw, scale, dtype, counter):
+    n0 = counter.launches
+    out = kernel(x, qw, scale)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == (x.shape[0], qw.shape[1])
+    _close(out, plain(x, qw, scale), dtype)
+
+
+@pytest.mark.parametrize("shape", DQ8_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dequant_matmul_int8_kernel(cuda, shape, dtype):
+    M, K, N = shape
+    rng = np.random.default_rng(4)
+    x = _randn(rng, (M, K), dtype, cuda)
+    qw, scale = quantize_int8(_weight(rng, K, N, cuda))
+    _dq_check(cuda, dequant_matmul_int8, dequant_matmul_int8_ref, x, qw,
+              scale, dtype, dequant_matmul_int8)
+
+
+@pytest.mark.parametrize("shape", DQ4_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dequant_matmul_int4_kernel(cuda, shape, dtype):
+    M, K, N, gs = shape
+    rng = np.random.default_rng(5)
+    x = _randn(rng, (M, K), dtype, cuda)
+    packed, scale = quantize_int4(_weight(rng, K, N, cuda), gs)
+    assert scale.shape == (K // gs, N)
+    _dq_check(cuda, dequant_matmul_int4, dequant_matmul_int4_ref, x, packed,
+              scale, dtype, dequant_matmul_int4)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dequant_matmul_on_a_layer_view_of_a_stacked_leaf(cuda, fmt, dtype):
+    """The model reads ``qw[i]`` / ``scale[i]`` of stacked leaves: views at
+    an offset, through the leading-dims dispatch."""
+    rng = np.random.default_rng(6)
+    w = _weight(rng, 96, 40, cuda, lead=(3,))
+    qw, scale = quantize_int8(w) if fmt == "int8" else quantize_int4(w, 24)
+    x = _randn(rng, (2, 5, 96), dtype, cuda)
+    plain = dequant_matmul_int8_ref if fmt == "int8" else \
+        dequant_matmul_int4_ref
+    for i in range(3):
+        out = dequant_matmul(x, qw[i], scale[i])
+        torch.cuda.synchronize()
+        assert out.shape == (2, 5, 40)
+        _close(out, plain(x, qw[i], scale[i]), dtype)
+
+
+def test_dequant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    rng = np.random.default_rng(7)
+    x = _randn(rng, (4, 64), torch.bfloat16, cuda)
+    qw, scale = quantize_int8(_weight(rng, 64, 32, cuda))
+    with pytest.raises(TypeError, match="scale"):
+        dequant_matmul_int8(x, qw, scale.to(torch.bfloat16))
+    packed, s4 = quantize_int4(_weight(rng, 64, 32, cuda))
+    with pytest.raises(TypeError, match="scale"):
+        dequant_matmul_int4(x, packed, s4.to(torch.bfloat16))
+    xt = _randn(rng, (64, 4), torch.bfloat16, cuda).t()
+    assert not xt.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        dequant_matmul_int8(xt, qw, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        dequant_matmul(xt, qw, scale)
+    with pytest.raises(TypeError):
+        dequant_matmul_int8(x.half(), qw, scale)
+    with pytest.raises(ValueError, match="disagree"):
+        dequant_matmul_int4(x, packed, s4[:, :16].contiguous())

@@ -31,9 +31,15 @@ def test_dense_with_and_without_bias():
         jp, tp = _both(p)
         close(T.dense(tp, torch.from_numpy(x)), J.dense(jp, jnp.asarray(x)),
               TOL)
-    with pytest.raises(NotImplementedError, match="quantiz"):
-        T.dense({"qw": torch.zeros(16, 24, dtype=torch.int8),
-                 "scale": torch.ones(24)}, torch.from_numpy(x))
+    # quantized dense dicts (int8, packed int4) dispatch on "qw", bias kept
+    from repro.quant import quantize_dense
+    for fmt in ("int8", "int4"):
+        qp = {k: np.array(v) for k, v in
+              quantize_dense({"w": jnp.asarray(w), "b": jnp.asarray(b)},
+                             fmt, 8).items()}
+        jp, tp = _both(qp)
+        close(T.dense(tp, torch.from_numpy(x)), J.dense(jp, jnp.asarray(x)),
+              TOL)
 
 
 def test_rmsnorm():

@@ -189,8 +189,7 @@ def test_metrics_and_spans_count_the_work(pair):
 
 def test_unported_backend_options_say_so(pair):
     _, _, tm, tp = pair
-    for kw in (dict(spec_n=2), dict(kv_pool=True), dict(prefill_chunk=8),
-               dict(kv_format="int8")):
+    for kw in (dict(spec_n=2), dict(kv_pool=True), dict(prefill_chunk=8)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             TBackend(tm, tp, **kw)
 
@@ -209,6 +208,21 @@ def test_launcher_serves_on_the_cpu(capsys, paged):
     assert "[serve] 2 requests x 2 samples, 12 tokens" in out
     assert ("[kv] paged cache: 32 blocks" in out) == paged
     assert "[profile]" not in out
+
+
+def test_launcher_serves_int4_weights_and_int8_kv_on_the_cpu(capsys):
+    from repro_torch.launch.serve import main
+    main(["--arch", "chatglm3-6b", "--smoke", "--device", "cpu",
+          "--requests", "2", "--samples", "2", "--prompt-len", "7",
+          "--max-new", "3", "--quant", "int4", "--group-size", "16",
+          "--kv-int8", "--kv-blocks", "32", "--kv-block-size", "4"])
+    out = capsys.readouterr().out
+    assert "[quant] weights int4: " in out and " MB -> " in out
+    assert "[kv] paged cache: 32 blocks x 4 slots (int8, " in out
+    assert "[serve] 2 requests x 2 samples, 12 tokens" in out
+    with pytest.raises(SystemExit, match="--kv-blocks"):
+        main(["--arch", "chatglm3-6b", "--smoke", "--device", "cpu",
+              "--kv-int8"])
 
 
 def test_profile_serve_takes_the_launcher_flags_on_the_cpu(capsys):
