@@ -8,28 +8,36 @@ Phases, each of which fails the script on error:
    then build every CUDA kernel of the port from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once) and print the build time.
 2. Hold each kernel against its plain PyTorch version on the card: at the
-   shapes the serving run below gives it, at larger chatglm3-6b shapes, and
+   shapes the serving runs below give it, at larger chatglm3-6b shapes, and
    at ragged shapes (lengths that are not multiples of the tile, a row whose
-   cache slots are all empty, int4 groups of 32, 24 and 8 rows). One JSON
-   line per case with the largest error, the kernel's time, the plain
-   version's and, where one PyTorch call computes the same function, that
-   call's (``library_ms``, timed here as a yardstick; the port never calls
-   it); the dequant-matmul cases add ``bf16_matmul_ms``, the bf16 product
-   over the pre-dequantized weight that a quantized layer replaces.
+   cache slots are all empty, int4 groups of 32, 24 and 8 rows, the MoE
+   kernel test shapes of the reference). One JSON line per case with the
+   largest error, the kernel's time, the plain version's and, where one
+   PyTorch call computes the same function, that call's (``library_ms``,
+   timed here as a yardstick; the port never calls it: ``torch.bmm`` for
+   the grouped expert GEMM); the dequant-matmul cases add
+   ``bf16_matmul_ms``, the bf16 product over the pre-dequantized weight that
+   a quantized layer replaces.
 3. Serve full-width, full-depth chatglm3-6b (random bf16 weights from
    ``--seed``) through ``ServingEngine.generate`` with the kernels on: 8
    prompts x 4 samples, prompt length 256, 32 new tokens; with the
    dense-slot backend and with the paged-block backend in bf16, then paged
    with the weights quantized on the card: int8, int4 (group 32), and int4
-   over int8 KV pools. The launch counts are set to 0 just before each run
-   and read just after; a run fails unless every kernel of its path
-   launched, each dequant kernel exactly 196 times a forward (7 linear
-   layers x 28), and, over int8 pools, the paged decode kernel not at all.
-4. f32 parity at full width, 2 layers: the kernel path and the plain path
-   (``use_kernel=False``) serve the same prompts greedily, dense and paged
-   in bf16 weights, then int8 weights (dense) and int4 weights over int8 KV
-   (paged) against the plain path over the dequantized weights; each must
-   give the same tokens and log-probabilities within 1e-3.
+   over int8 KV pools. Then the same traffic through full-width, full-depth
+   granite-moe-3b-a800m (dense and paged) and deepseek-v2-lite-16b (dense:
+   its MLA cache has no paged layout). The launch counts are set to 0 just
+   before each run and read just after; a run fails unless every kernel of
+   its path launched, each dequant kernel exactly 196 times a forward (7
+   linear layers x 28), over int8 pools the paged decode kernel not at all,
+   and the MoE kernel exactly 3 times per MoE layer a forward (96 for
+   granite, 78 for deepseek).
+4. f32 parity at full width, 2 layers (3 for deepseek: its dense layer and
+   2 MoE layers): the kernel path and the plain path (``use_kernel=False``)
+   serve the same prompts greedily, chatglm3-6b dense and paged in f32
+   weights, then int8 weights (dense) and int4 weights over int8 KV (paged)
+   against the plain path over the dequantized weights, then granite (dense
+   and paged) and deepseek (dense); each must give the same tokens and
+   log-probabilities within 1e-3.
 5. Print the script's wall time (the build included), the ``kernels``
    JSON line, the card again, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -76,12 +84,21 @@ SOURCES = {
     "dequant_matmul_int4": (
         "src/repro_torch/csrc/dequant_matmul.cu",
         "src/repro/kernels/dequant_matmul/dequant_matmul.py:108"),
+    "moe_gemm": (
+        "src/repro_torch/csrc/moe_gemm.cu",
+        "src/repro/kernels/moe_gemm/moe_gemm.py:39"),
 }
 # chatglm3-6b linear layers (K, N) and the launches of one forward
 D_MODEL, D_FF, KV_DIM = 4096, 13696, 256
 LINEARS_PER_LAYER = 7                   # wq wk wv wo gate up down
 QUANT_RUNS = {"int8": ("int8", "bf16"), "int4": ("int4", "bf16"),
               "int4+kv8": ("int4", "int8")}
+# the MoE serves: arch -> (run-name prefix, backends); the MLA cache of
+# deepseek has no paged layout
+MOE_SERVES = {"granite-moe-3b-a800m": ("granite", ("dense", "paged")),
+              "deepseek-v2-lite-16b": ("deepseek", ("dense",))}
+ATTN_KERNELS = {"dense": ("flash_attention", "decode_attention"),
+                "paged": ("flash_attention", "paged_decode_attention")}
 
 
 def emit(tag: str, obj) -> None:
@@ -284,6 +301,20 @@ def dequant_case(g, fmt, M, K, N, dtype, gs=32):
     return case
 
 
+def moe_case(g, E, C, D, F, dtype):
+    """x (E, C, d) @ w (E, d, f) per expert, w drawn as the model draws an
+    expert weight (normal * d^-1/2)."""
+    from repro_torch.kernels.moe_gemm.ops import moe_gemm
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    x = randn(g, (E, C, D), dtype)
+    w = (torch.randn((E, D, F), generator=g, device="cuda")
+         * D ** -0.5).to(dtype)
+    return dict(args=(x, w), kw={}, kernel=moe_gemm, plain=moe_gemm_ref,
+                bytes=nbytes(x, w) + E * C * F * x.element_size(),
+                flops=2 * E * C * D * F, library=torch.bmm,
+                shape=dict(E=E, C=C, d=D, f=F))
+
+
 def run_case(name: str, label: str, case, dtype, iters: int) -> dict:
     kern, plain, kw = case["kernel"], case["plain"], case["kw"]
     args = case["args"]
@@ -399,6 +430,41 @@ def check_kernels(seed: int) -> dict:
                                 (17, 96, 33, 8)):
                 run_case(name, "ragged", dequant_case(g, fmt, M, K, N, dtype,
                                                       gs), dtype, 10)
+    # the MoE serves' attention: granite (hd 64, 24 heads over 8 kv heads)
+    # at its dense and paged shapes; deepseek's MLA prefill (D = 128 + 64,
+    # Dv = 128, one query head a kv head)
+    run_case("flash_attention", "granite",
+             flash_case(g, B, plen, 24, 8, 64, 64, bf), bf, 20)
+    run_case("flash_attention", "mla",
+             flash_case(g, B, plen, 16, 16, 192, 128, bf), bf, 10)
+    run_case("decode_attention", "granite",
+             decode_case(g, B, W, 24, 8, 64, plen + step, bf), bf, 50)
+    run_case("paged_decode_attention", "granite",
+             paged_case(g, B, 24, 8, 64, bs, plen, new, k, step, bf), bf, 50)
+    # the grouped expert GEMM at the serves' shapes (E, C, d, f): granite
+    # gate/up at decode (C = 8 of 32 sequences x top-8 / 40 experts), its
+    # down, paged prefill (C = 512) and dense prefill (C = 2048); deepseek
+    # gate/up at decode (C = 6) and dense prefill (C = 960); then the
+    # reference's kernel-test shapes, ragged in every dim
+    for dtype in (bf, f32):
+        tag = "main" if dtype == bf else "main-f32"
+        r = run_case("moe_gemm", tag, moe_case(g, 40, 8, 1536, 512, dtype),
+                     dtype, 50)
+        main.setdefault("moe_gemm", r)
+    for label, shape, iters in (("granite-down", (40, 8, 512, 1536), 50),
+                                ("granite-paged-prefill",
+                                 (40, 512, 1536, 512), 20),
+                                ("granite-dense-prefill",
+                                 (40, 2048, 1536, 512), 10),
+                                ("deepseek-decode", (64, 6, 2048, 1408), 30),
+                                ("deepseek-prefill", (64, 960, 2048, 1408),
+                                 5)):
+        run_case("moe_gemm", label, moe_case(g, *shape, bf), bf, iters)
+    for dtype in (bf, f32):
+        for shape in ((4, 32, 64, 128), (8, 100, 48, 96), (2, 8, 16, 8),
+                      (3, 130, 130, 70)):
+            run_case("moe_gemm", "ragged", moe_case(g, *shape, dtype), dtype,
+                     10)
     assert set(main) == set(KERNELS), (sorted(main), sorted(KERNELS))
     return main
 
@@ -536,6 +602,97 @@ def serve(seed: int) -> dict:
     return counts
 
 
+def serve_moe(seed: int) -> dict:
+    """Phase 3, MoE: full granite-moe-3b-a800m dense and paged, then full
+    deepseek-v2-lite-16b dense, bf16, the chatglm traffic. Returns the
+    launch counts of each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.quant.quantize import param_bytes
+    counts = {}
+    for arch, (short, modes) in MOE_SERVES.items():
+        cfg = get_config(arch)
+        model = Model(cfg, dtype=torch.bfloat16, device="cuda",
+                      use_kernel=True)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        # gate, up and down: three grouped GEMMs in every MoE layer
+        per_forward = 3 * sum(cfg.is_moe_layer(i)
+                              for i in range(cfg.n_layers))
+        emit("model", dict(arch=cfg.name, layers=cfg.n_layers,
+                           d_model=cfg.d_model, params=model.param_count(),
+                           active_params=model.active_param_count(),
+                           dtype="bfloat16", init_s=time.perf_counter() - t0,
+                           weight_gb=param_bytes(params) / 1e9,
+                           moe_gemm_per_forward=per_forward))
+        prompts = make_prompts(cfg, seed)
+        tokens = {}
+        for mode in modes:
+            run = f"{short}-{mode}"
+            c, tokens[mode], fwd, info = serve_run(
+                model, params, prompts, seed, paged=mode == "paged")
+            counts[run] = c
+            emit("serve", dict(arch=cfg.name, mode=mode, weights="bf16",
+                               **info))
+            if c["moe_gemm"] != per_forward * fwd:
+                raise AssertionError(f"{run}: moe_gemm launched "
+                                     f"{c['moe_gemm']} times, want "
+                                     f"{per_forward} x {fwd} forwards")
+            # MLA decode has no kernel (as in the reference): its prefill
+            # is the flash kernel at D = 192, Dv = 128
+            want = ("flash_attention",) if cfg.mla else ATTN_KERNELS[mode]
+            for name in want:
+                if c[name] < 1:
+                    raise AssertionError(f"{run}: never launched {name}")
+        if len(modes) == 2:
+            # information, not a gate: dense prefills the 32 tiled rows and
+            # paged the 8 unique prompts, so capacity and drops differ
+            emit("serve-agreement", dict(
+                arch=cfg.name, dense_vs_paged_token_match=float(
+                    (tokens["dense"] == tokens["paged"]).mean())))
+        del params, model
+        torch.cuda.empty_cache()
+    return counts
+
+
+def compare_paths(cfg, mk, mp, kparams, pparams, prompts, mode: str,
+                  weights: str, kv_format: str = "bf16") -> None:
+    """Greedy serve through the kernel path (``mk``) and the plain path
+    (``mp``): the same tokens and log-probabilities within 1e-3, or raise.
+    For an MoE arch the kernel path must have run the MoE kernel."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ExecutionBackend, ServingEngine
+    k, new = 2, 16
+    out = {}
+    for tag, m, prm in (("kernel", mk, kparams), ("plain", mp, pparams)):
+        kw = (dict(kv_blocks=512, kv_block_size=SERVE["kv_block_size"],
+                   kv_format=kv_format) if mode == "paged" else {})
+        eng = ServingEngine(m, prm, max_new_tokens=new, temperature=0.0,
+                            backend=ExecutionBackend(m, prm, **kw))
+        reset_launch_counts()
+        out[tag] = eng.generate(prompts, n_samples=k)
+        if tag == "kernel" and cfg.moe is not None \
+                and launch_counts()["moe_gemm"] < 1:
+            raise AssertionError(f"{cfg.name} parity: the kernel path never "
+                                 "launched moe_gemm")
+        check_results(out[tag], cfg, k, new)
+    toks = [np.array_equal(a, b) for ra, rb in zip(out["kernel"],
+                                                  out["plain"])
+            for a, b in zip(ra.samples, rb.samples)]
+    lp_err = max(abs(a - b) for ra, rb in zip(out["kernel"], out["plain"])
+                 for a, b in zip(ra.logprobs, rb.logprobs))
+    emit("parity-f32", dict(arch=cfg.name, mode=mode, weights=weights,
+                            kv_format=kv_format, layers=cfg.n_layers,
+                            sequences=len(toks), tokens_equal=sum(toks),
+                            max_logprob_diff=lp_err, tol=1e-3))
+    if not all(toks) or lp_err > 1e-3:
+        raise AssertionError(f"f32 parity ({cfg.name} {mode}, {weights} "
+                             f"weights, {kv_format} KV): {sum(toks)}/"
+                             f"{len(toks)} sequences equal, logprob diff "
+                             f"{lp_err:.3e}")
+
+
 def parity(seed: int) -> None:
     """Phase 4: f32, full width, 2 layers; kernel path vs plain path, in
     f32 weights and, quantized, against the plain path over the dequantized
@@ -543,45 +700,35 @@ def parity(seed: int) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.quant.quantize import dequantize_model, quantize_model
-    from repro_torch.serving import ExecutionBackend, ServingEngine
     cfg = dataclasses.replace(get_config(SERVE["arch"]), n_layers=2)
     mk = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=True)
     mp = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=False)
     params = mk.init(torch.Generator(device="cuda").manual_seed(seed + 1))
     prompts = make_prompts(cfg, seed + 1)
-    k, new = 2, 16
-    runs = [("f32", "dense", "bf16", params, params),
-            ("f32", "paged", "bf16", params, params)]
+    for mode in ("dense", "paged"):
+        compare_paths(cfg, mk, mp, params, params, prompts, mode, "f32")
     for wfmt, mode, kv_format in (("int8", "dense", "bf16"),
                                   ("int4", "paged", "int8")):
         qp = quantize_model(params, wfmt, 32)
-        runs.append((wfmt, mode, kv_format, qp,
-                     dequantize_model(qp, torch.float32)))
-    for weights, mode, kv_format, kparams, pparams in runs:
-        out = {}
-        for tag, m, prm in (("kernel", mk, kparams), ("plain", mp, pparams)):
-            kw = (dict(kv_blocks=512, kv_block_size=SERVE["kv_block_size"],
-                       kv_format=kv_format) if mode == "paged" else {})
-            eng = ServingEngine(m, prm, max_new_tokens=new,
-                                temperature=0.0,
-                                backend=ExecutionBackend(m, prm, **kw))
-            out[tag] = eng.generate(prompts, n_samples=k)
-            check_results(out[tag], cfg, k, new)
-        toks = [np.array_equal(a, b) for ra, rb in zip(out["kernel"],
-                                                      out["plain"])
-                for a, b in zip(ra.samples, rb.samples)]
-        lp_err = max(abs(a - b) for ra, rb in zip(out["kernel"],
-                                                  out["plain"])
-                     for a, b in zip(ra.logprobs, rb.logprobs))
-        emit("parity-f32", dict(mode=mode, weights=weights,
-                                kv_format=kv_format, layers=cfg.n_layers,
-                                sequences=len(toks), tokens_equal=sum(toks),
-                                max_logprob_diff=lp_err, tol=1e-3))
-        if not all(toks) or lp_err > 1e-3:
-            raise AssertionError(f"f32 parity ({mode}, {weights} weights, "
-                                 f"{kv_format} KV): {sum(toks)}/{len(toks)} "
-                                 f"sequences equal, logprob diff "
-                                 f"{lp_err:.3e}")
+        compare_paths(cfg, mk, mp, qp, dequantize_model(qp, torch.float32),
+                      prompts, mode, wfmt, kv_format)
+        del qp
+    del params
+    torch.cuda.empty_cache()
+    # the MoE archs, full width: granite at 2 layers, deepseek at its dense
+    # layer + 2 MoE layers
+    for arch, (_, modes) in MOE_SERVES.items():
+        full = get_config(arch)
+        n_prefix = full.moe.first_dense
+        cfg = dataclasses.replace(full, n_layers=n_prefix + 2)
+        mk = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=True)
+        mp = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=False)
+        params = mk.init(torch.Generator(device="cuda").manual_seed(seed + 1))
+        prompts = make_prompts(cfg, seed + 1)
+        for mode in modes:
+            compare_paths(cfg, mk, mp, params, params, prompts, mode, "f32")
+        del params
+        torch.cuda.empty_cache()
 
 
 # -------------------------------------------------------------------- main
@@ -617,6 +764,7 @@ def main() -> int:
 
     main_cases = check_kernels(args.seed)
     counts = serve(args.seed)
+    counts.update(serve_moe(args.seed))
     parity(args.seed)
 
     kernels = []

@@ -9,6 +9,7 @@ from repro_torch.kernels.decode_attention.ops import (decode_attention_cache,
 from repro_torch.kernels.dequant_matmul.ops import (dequant_matmul_int4,
                                                     dequant_matmul_int8)
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.moe_gemm.ops import moe_gemm
 
 #: kernel name -> wrapper carrying its ``launches`` count
 KERNELS = {
@@ -17,6 +18,7 @@ KERNELS = {
     "paged_decode_attention": paged_decode_attention,
     "dequant_matmul_int8": dequant_matmul_int8,
     "dequant_matmul_int4": dequant_matmul_int4,
+    "moe_gemm": moe_gemm,
 }
 
 

@@ -30,6 +30,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "decode_attention": "decode_attention.cu",
     "dequant_matmul": "dequant_matmul.cu",
+    "moe_gemm": "moe_gemm.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -7,9 +7,11 @@
 Takes the flags of ``repro_torch.launch.serve``. Serves the requests once
 unprofiled (the timed run, reported as the launcher reports it), then the
 same requests once more under ``torch.profiler``, which slows the host. It
-prints, as ``[profile] {json}``, the device time of the top kernels and the
-device's busy share: the profiled run's device time over the timed run's
-wall time.
+prints, as ``[profile] {json}``, the device time of the top kernels, the
+device time of each of the port's own kernels (``port_kernels``, by source:
+``moe_gemm``, ``flash_attention``, ...) whether or not it is among the top,
+and the device's busy share: the profiled run's device time over the timed
+run's wall time.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.launch.serve import parse_args, report, setup
 
 
@@ -34,11 +37,19 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
             and not getattr(e, "is_user_annotation", False)]
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
+    port = {}
+    for source in build.SOURCES:     # kernel names carry their source's name
+        hits = [r for r in rows if source in r[0]]
+        if hits:
+            us = sum(r[1] for r in hits)
+            port[source] = {"device_ms": us / 1e3, "share": us / busy_us,
+                            "count": sum(r[2] for r in hits)}
     return {"wall_s": wall_s, "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall_s if rows else None,
             "kernels": [{"name": k[:120], "device_ms": us / 1e3,
                          "share": us / busy_us, "count": n}
-                        for k, us, n in rows[:top]]}
+                        for k, us, n in rows[:top]],
+            "port_kernels": port}
 
 
 def main(argv: Optional[List[str]] = None) -> None:

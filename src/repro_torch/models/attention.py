@@ -1,5 +1,6 @@
-"""GQA attention (llama/qwen/yi/chatglm): train, prefill and decode, over a
-dense ring cache or a paged block pool. Ported from ``repro.models.attention``.
+"""GQA attention (llama/qwen/yi/chatglm) and MLA (DeepSeek-V2): train,
+prefill and decode, over a dense ring cache or (GQA) a paged block pool.
+Ported from ``repro.models.attention``.
 
 The plain PyTorch path here is the semantics the kernels are held to; with
 ``use_kernel`` the hand-written Hopper kernels in `repro_torch.kernels` take
@@ -13,8 +14,14 @@ Cache writes happen in place (``tensor[idx] = ...``) where the reference
 builds a new array with ``.at[].set``: the cache dict passed in is the one
 returned, its tensors updated.
 
-MLA (DeepSeek-V2) and cross-attention (musicgen) arrive with later slices;
-their parameter shapes are here so that parameter counts cover every arch.
+MLA caches only the compressed latent ``c_kv`` and the shared rope key;
+its prefill decompresses them and runs the flash kernel with
+``use_kernel`` (head dims D = nope + rope, Dv = v_head_dim), and its decode
+is plain PyTorch, absorbed (W_uk folded into q) or not, as in the reference,
+which has no decode kernel for it.
+
+Cross-attention (musicgen) arrives with a later slice; its parameter shapes
+are here so that parameter counts cover every arch.
 """
 from __future__ import annotations
 
@@ -68,11 +75,21 @@ def cross_attn_shapes(cfg: ArchConfig) -> Dict[str, Shapes]:
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype, device,
               stack: Tuple[int, ...] = ()) -> Params:
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention arrives with the MLA slice "
-                                  "of the port")
-    hd = cfg.hd
     kw = dict(dtype=dtype, device=device, stack=stack)
+    if cfg.mla is not None:
+        m = cfg.mla
+        qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+        H = cfg.n_heads
+        return {
+            "wq": dense_init(gen, cfg.d_model, H * qd, **kw),
+            "w_dkv": dense_init(gen, cfg.d_model, m.kv_lora_rank, **kw),
+            "w_krope": dense_init(gen, cfg.d_model, m.qk_rope_head_dim, **kw),
+            "w_uk": dense_init(gen, m.kv_lora_rank, H * m.qk_nope_head_dim,
+                               **kw),
+            "w_uv": dense_init(gen, m.kv_lora_rank, H * m.v_head_dim, **kw),
+            "wo": dense_init(gen, H * m.v_head_dim, cfg.d_model, **kw),
+        }
+    hd = cfg.hd
     return {
         "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd,
                          bias=cfg.qkv_bias, **kw),
@@ -328,3 +345,101 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) / 127.0
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
+
+
+# =============================================================================
+# MLA attention (DeepSeek-V2): latent KV cache
+# =============================================================================
+
+def mla_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor,
+                cache: Optional[Dict] = None,
+                absorbed_decode: bool = True,
+                use_kernel: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Multi-head Latent Attention.
+
+    The cache stores only the compressed latent ``c_kv`` (rank kv_lora) plus
+    the shared rope key. Absorbed decode scores in latent space (W_uk folded
+    into q, W_uv applied after), so a step reads O(S * (kv_lora + rope_hd))
+    cache bytes instead of O(S * 2 * H * hd). Cache writes happen in place.
+    """
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nd, rd, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    scale = 1.0 / np.sqrt(nd + rd)
+    pos1d = positions[..., 0] if positions.dim() == 3 else positions
+
+    q = dense(p["wq"], x).reshape(B, S, H, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, pos1d, cfg.rope_theta)
+
+    c_kv = dense(p["w_dkv"], x)                       # (B, S, r)
+    k_rope = dense(p["w_krope"], x).reshape(B, S, 1, rd)
+    k_rope = apply_rope(k_rope, pos1d, cfg.rope_theta)
+
+    if cache is not None and S == 1:
+        cc, cr, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
+        W = cc.shape[1]
+        slot = (pos1d % W).long()
+        bidx = torch.arange(B, device=x.device)[:, None]
+        cc[bidx, slot] = c_kv.to(cc.dtype)
+        cr[bidx, slot] = k_rope[:, :, 0].to(cr.dtype)
+        cpos[bidx, slot] = pos1d.to(torch.int32)
+        ok = (cpos[:, None, :] >= 0) & (cpos[:, None, :] <= pos1d[:, :, None])
+        if cfg.attn_window is not None:
+            ok &= cpos[:, None, :] > pos1d[:, :, None] - cfg.attn_window
+
+        if absorbed_decode:
+            w_uk = p["w_uk"]["w"].reshape(m.kv_lora_rank, H, nd)
+            q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(),
+                                 w_uk.float())
+            ccf = cc.float()
+            scores = torch.einsum("bshr,bkr->bhsk", q_lat, ccf)
+            scores = scores + torch.einsum("bshr,bkr->bhsk", q_rope.float(),
+                                           cr.float())
+            scores = torch.where(ok[:, None], scores * scale,
+                                 torch.full_like(scores, NEG_INF))
+            probs = torch.softmax(scores, dim=-1)
+            ctx_lat = torch.einsum("bhsk,bkr->bshr", probs, ccf)  # (B,S,H,r)
+            w_uv = p["w_uv"]["w"].reshape(m.kv_lora_rank, H, vd)
+            out = torch.einsum("bshr,rhv->bshv", ctx_lat,
+                               w_uv.float()).to(x.dtype)
+        else:
+            k_nope = dense(p["w_uk"], cc).reshape(B, -1, H, nd)
+            vv = dense(p["w_uv"], cc).reshape(B, -1, H, vd)
+            k_full = torch.cat([k_nope,
+                                cr[:, :, None].expand(B, W, H, rd)], dim=-1)
+            q_full = torch.cat([q_nope, q_rope], dim=-1)
+            out = sdpa(q_full, k_full, vv, ok, scale)
+        y = dense(p["wo"], out.reshape(B, S, H * vd))
+        return y, cache
+
+    # ---- train / prefill: decompress the latent to full keys and values
+    k_nope = dense(p["w_uk"], c_kv).reshape(B, S, H, nd)
+    vv = dense(p["w_uv"], c_kv).reshape(B, S, H, vd)
+    k_full = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    if use_kernel:
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        out = fa_ops.flash_attention(q_full, k_full, vv,
+                                     window=cfg.attn_window, scale=scale)
+    elif S * S > BLOCKED_THRESHOLD:
+        out = sdpa_causal_blocked(q_full, k_full, vv, pos1d, cfg.attn_window,
+                                  scale)
+    else:
+        mask = causal_mask(pos1d, pos1d, cfg.attn_window)
+        out = sdpa(q_full, k_full, vv, mask, scale)
+    if cache is not None:
+        cc, cr, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
+        W = cc.shape[1]
+        c_w, kr_w, pos_w = c_kv, k_rope[:, :, 0], pos1d
+        if S > W:
+            c_w, kr_w, pos_w = c_w[:, -W:], kr_w[:, -W:], pos_w[:, -W:]
+        slot = (pos_w % W).long()
+        bidx = torch.arange(B, device=x.device)[:, None]
+        cc[bidx, slot] = c_w.to(cc.dtype)
+        cr[bidx, slot] = kr_w.to(cr.dtype)
+        cpos[bidx, slot] = pos_w.to(torch.int32)
+    y = dense(p["wo"], out.reshape(B, S, H * vd))
+    return y, cache

@@ -4,18 +4,19 @@ A *super-block* is one period of ``cfg.pattern``; the model stacks
 ``n_scanned_super_blocks`` of them (params carry a leading super-block axis)
 and loops over them. Ported from ``repro.models.blocks``.
 
-This slice of the port runs attention + dense MLP sublayers. The MoE FFN,
-the Mamba-2 (SSM) mixer and cross-attention raise `NotImplementedError`
-naming the slice they arrive with; their parameter shapes are here so that
-parameter counts cover every arch.
+This slice of the port runs attention (GQA or MLA) with a dense MLP or a
+MoE FFN. The Mamba-2 (SSM) mixer and cross-attention raise
+`NotImplementedError` naming the slice they arrive with; their parameter
+shapes are here so that parameter counts cover every arch.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Params, dense_shapes, mlp, mlp_init,
                                        mlp_shapes, rmsnorm, rmsnorm_init)
@@ -86,11 +87,9 @@ def super_block_shapes(cfg: ArchConfig, n_prefix: int) -> Dict:
 
 # --------------------------------------------------------------------------- init
 
-def _unported(cfg: ArchConfig, mixer: str, ffn: str) -> Optional[str]:
+def _unported(cfg: ArchConfig, mixer: str) -> Optional[str]:
     if mixer != "a":
         return "the Mamba-2 (SSM) mixer arrives with the SSM slice of the port"
-    if ffn == "moe":
-        return "the MoE FFN arrives with the MLA/MoE slice of the port"
     if cfg.cross_attention:
         return ("cross-attention arrives with the remaining-arch-features "
                 "slice of the port")
@@ -100,13 +99,16 @@ def _unported(cfg: ArchConfig, mixer: str, ffn: str) -> Optional[str]:
 def sublayer_init(gen: torch.Generator, cfg: ArchConfig, mixer: str,
                   ffn: str, dtype, device,
                   stack: Tuple[int, ...] = ()) -> Params:
-    why = _unported(cfg, mixer, ffn)
+    why = _unported(cfg, mixer)
     if why:
         raise NotImplementedError(why)
     d = cfg.d_model
     p: Params = {"ln1": rmsnorm_init(d, dtype, device, stack),
                  "attn": attn.attn_init(gen, cfg, dtype, device, stack)}
-    if cfg.d_ff > 0:
+    if ffn == "moe":
+        p["ln2"] = rmsnorm_init(d, dtype, device, stack)
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device, stack)
+    elif cfg.d_ff > 0:
         p["ln2"] = rmsnorm_init(d, dtype, device, stack)
         p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_variant, dtype, device,
                             stack)
@@ -127,23 +129,33 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                      block_table: Optional[torch.Tensor] = None,
                      kv_len: Optional[int] = None,
                      decode: bool = False
-                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    why = _unported(cfg, mixer, "moe" if "moe" in p else "mlp")
+                     ) -> Tuple[torch.Tensor, Optional[Dict],
+                                Union[torch.Tensor, float]]:
+    """Returns (x, cache, aux loss): the MoE FFN's aux loss (a 0-d f32
+    tensor), else 0.0, which launches nothing."""
+    why = _unported(cfg, mixer)
     if why:
         raise NotImplementedError(why)
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention arrives with the MLA slice "
-                                  "of the port")
+    aux = 0.0
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, new_cache = attn.gqa_forward(p["attn"], cfg, h, positions, cache,
-                                    use_kernel=use_kernel,
-                                    block_table=block_table, kv_len=kv_len,
-                                    decode=decode)
+    if cfg.mla is not None:
+        y, new_cache = attn.mla_forward(p["attn"], cfg, h, positions, cache,
+                                        absorbed_decode=cfg.mla_absorbed,
+                                        use_kernel=use_kernel)
+    else:
+        y, new_cache = attn.gqa_forward(p["attn"], cfg, h, positions, cache,
+                                        use_kernel=use_kernel,
+                                        block_table=block_table,
+                                        kv_len=kv_len, decode=decode)
     x = x + y
-    if "mlp" in p:
+    if "moe" in p:
+        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        y, aux = moe_mod.moe_forward(p["moe"], cfg, h, use_kernel=use_kernel)
+        x = x + y
+    elif "mlp" in p:
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = x + mlp(p["mlp"], h, cfg.mlp_variant)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def super_block_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -152,16 +164,20 @@ def super_block_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                         block_table: Optional[torch.Tensor] = None,
                         kv_len: Optional[int] = None,
                         decode: bool = False
-                        ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                        ) -> Tuple[torch.Tensor, Optional[Dict],
+                                   Union[torch.Tensor, float]]:
     """One period of the layer pattern. cache is {"l{i}": sub-cache} or None;
-    sub-caches are updated in place."""
+    sub-caches are updated in place. The aux loss sums over the period."""
+    aux_total = 0.0
     new_cache = {} if cache is not None else None
     for i, mixer in enumerate(cfg.pattern):
         key = f"l{i}"
         sub_cache = cache.get(key) if cache is not None else None
-        x, nc = sublayer_forward(p[key], cfg, x, positions, mixer, sub_cache,
-                                 use_kernel, block_table=block_table,
-                                 kv_len=kv_len, decode=decode)
+        x, nc, aux = sublayer_forward(p[key], cfg, x, positions, mixer,
+                                      sub_cache, use_kernel,
+                                      block_table=block_table, kv_len=kv_len,
+                                      decode=decode)
         if new_cache is not None:
             new_cache[key] = nc
-    return x, new_cache
+        aux_total = aux_total + aux
+    return x, new_cache, aux_total

@@ -20,7 +20,9 @@ per-(block, slot, kv-head) scales ``k_scale`` / ``v_scale``
 ``(n_blocks, block_size, n_kv)`` beside them; `copy_cache_blocks` moves the
 scales with the blocks.
 
-MLA latent caches, SSM state and cross-attention K/V arrive with later
+MLA entries (dense only, as in the reference): the latent ``c_kv``
+``(B, W, kv_lora)``, the shared rope key ``k_rope`` ``(B, W, rope_hd)`` and
+``pos`` ``(B, W)``. SSM state and cross-attention K/V arrive with later
 slices of the port and raise here.
 """
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ArchConfig
 
 
@@ -74,9 +77,6 @@ def _entry_shapes(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
     if mixer != "a":
         raise NotImplementedError("SSM caches arrive with the SSM slice of "
                                   "the port")
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA latent caches arrive with the MLA "
-                                  "slice of the port")
     if cfg.cross_attention and cfg.cross_kv_cache:
         raise NotImplementedError("cross-attention K/V caches arrive with "
                                   "the cross-attention slice of the port")
@@ -90,6 +90,11 @@ def _entry_shapes(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
         W = min(cache_len, cfg.attn_window) if cfg.attn_window else cache_len
         lead = (batch, W)
         el_dtype = dtype
+        if cfg.mla is not None:
+            m = cfg.mla
+            return {"c_kv": (lead + (m.kv_lora_rank,), dtype),
+                    "k_rope": (lead + (m.qk_rope_head_dim,), dtype),
+                    "pos": (lead, torch.int32)}
     shapes = {"k": (lead + (cfg.n_kv_heads, cfg.hd), el_dtype),
               "v": (lead + (cfg.n_kv_heads, cfg.hd), el_dtype),
               "pos": (lead, torch.int32)}
@@ -101,14 +106,16 @@ def _entry_shapes(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
 
 
 def make_cache(cfg: ArchConfig, batch: int, cache_len: int,
-               dtype=torch.bfloat16, device="cpu",
+               dtype=torch.bfloat16, device: DeviceLike = "cuda",
                paged: Optional[PagedLayout] = None, kv_dtype=None) -> Dict:
-    """Full-model cache: {"prefix": [...], "blocks": stacked entries}.
+    """Full-model cache: {"prefix": [...], "blocks": stacked entries}, on
+    ``device`` (the card unless the caller asks for ``"cpu"``).
 
     With ``paged`` the attention entries become block pools (see module
     docstring); ``batch``/``cache_len`` are then ignored: capacity lives in
     the block table the caller maintains. k/v start at zero and pos at -1.
     """
+    device = resolve_device(device)
     if paged is not None and not paged_supported(cfg):
         raise ValueError(f"paged KV cache unsupported for arch {cfg.name!r} "
                          "(needs all-attention pattern, no MLA, no window, "

@@ -95,6 +95,18 @@ class Model:
             total += n
         return total
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only top-k + shared
+        experts)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if cfg.moe is None:
+            return total
+        m = cfg.moe
+        per_expert = 3 * cfg.d_model * cfg.expert_ff()
+        n_moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+        return total - n_moe_layers * per_expert * (m.n_experts - m.top_k)
+
     def init(self, generator: torch.Generator) -> Dict:
         """Random parameters with the reference's distributions, drawn from
         ``generator`` (which must live on the model's device)."""
@@ -184,18 +196,22 @@ class Model:
 
         kw = dict(use_kernel=self.use_kernel, block_table=block_table,
                   kv_len=kv_len, decode=decode)
-        # ---- prefix layers (unrolled)
+        aux_total = 0.0            # a tensor once an MoE layer adds to it
+        # ---- prefix layers (unrolled; deepseek's leading dense layer)
         for i, (mixer, _ffn) in enumerate(self._prefix_kinds()):
             sub_cache = cache["prefix"][i] if cache is not None else None
-            h, _ = blk.sublayer_forward(params["prefix"][i], cfg, h, positions,
-                                        mixer, sub_cache, **kw)
+            h, _, aux = blk.sublayer_forward(params["prefix"][i], cfg, h,
+                                             positions, mixer, sub_cache, **kw)
+            aux_total = aux_total + aux
 
         # ---- stacked super-blocks: a loop in place of the reference's scan
         for i in range(cache_mod.n_scanned_super_blocks(cfg)):
             sub_cache = (_index(cache["blocks"], i) if cache is not None
                          else None)
-            h, _ = blk.super_block_forward(_index(params["blocks"], i), cfg,
-                                           h, positions, sub_cache, **kw)
+            h, _, aux = blk.super_block_forward(
+                _index(params["blocks"], i), cfg, h, positions, sub_cache,
+                **kw)
+            aux_total = aux_total + aux
 
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
         if cfg.tie_embeddings:
@@ -209,5 +225,6 @@ class Model:
             pad_mask = torch.arange(cfg.padded_vocab,
                                     device=dev) >= cfg.vocab_size
             logits = logits.masked_fill(pad_mask, -1e9)
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
-        return logits, cache, aux
+        if not isinstance(aux_total, torch.Tensor):      # no MoE layer
+            aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+        return logits, cache, aux_total

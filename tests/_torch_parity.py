@@ -2,6 +2,8 @@
 inputs in the JAX reference (`repro`) and the PyTorch port (`repro_torch`),
 both on the CPU. Weights are initialised by the reference and converted;
 inputs are numpy arrays from a seed, handed to both."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -25,16 +27,19 @@ DENSE_GQA = ["chatglm3-6b", "qwen2-72b", "yi-34b", "deepseek-coder-33b"]
 
 def configs(name: str, **overrides):
     """(reference config, port config): the fixture, or an arch's reduced
-    config; ``overrides`` replace fields of both."""
+    config; ``overrides`` replace fields of both (a dict replaces fields of
+    a nested config, as ``moe=dict(capacity_factor=0.5)``)."""
     if name == "fixture":
         kw = {**FIXTURE, **overrides}
         return JArchConfig(**kw), TArchConfig(**kw)
     jc, tc = jget(name).reduced(), tget(name).reduced()
-    if overrides:
-        import dataclasses
-        jc = dataclasses.replace(jc, **overrides)
-        tc = dataclasses.replace(tc, **overrides)
-    return jc, tc
+
+    def replace(cfg):
+        kw = {k: dataclasses.replace(getattr(cfg, k), **v)
+              if isinstance(v, dict) else v for k, v in overrides.items()}
+        return dataclasses.replace(cfg, **kw)
+
+    return replace(jc), replace(tc)
 
 
 def to_numpy(tree):
@@ -73,3 +78,50 @@ def params_to_numpy(tree):
 
 def close(a, b, tol: float) -> None:
     np.testing.assert_allclose(f32(a), f32(b), rtol=tol, atol=tol)
+
+
+def close_trees(port_tree, ref_tree, tol: float) -> None:
+    """Every leaf of a port tree (tensors) against the same leaf of a
+    reference tree (jax or numpy arrays), in flattening order."""
+    ref = jax.tree.leaves(to_numpy(ref_tree))
+    got = jax.tree.leaves(jax.tree.map(f32, port_tree))
+    assert len(ref) == len(got)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, f32(b), rtol=tol, atol=tol)
+
+
+def tokens(vocab: int, shape, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(
+        np.int32)
+
+
+def check_forward(pair, steps, make_cache, tol: float) -> None:
+    """Run ``steps`` [(tokens, positions, block_table, kv_len)] through the
+    reference's `Model.forward` and each port model of ``pair`` =
+    (reference model, params, [port models], port params): every step's
+    logits and aux loss match, and so does the cache, which the port fills
+    in place (``make_cache(model)`` gives a fresh one, or None)."""
+    jm, jp, ports, tp = pair
+
+    def batch(toks, pos, table, lib):
+        b = {"tokens": toks, "positions": pos, "block_table": table}
+        conv = jnp.asarray if lib == "jax" else torch.from_numpy
+        return {k: conv(v) for k, v in b.items() if v is not None}
+
+    jc = make_cache(jm)
+    jout = []
+    for toks, pos, table, kv_len in steps:
+        jl, jc, ja = jm.forward(jp, batch(toks, pos, table, "jax"), jc,
+                                kv_len=kv_len)
+        jout.append((jl, ja))
+    for tm in ports:
+        tc0 = tc = make_cache(tm)
+        for (toks, pos, table, kv_len), (jl, ja) in zip(steps, jout):
+            tl, tc, ta = tm.forward(tp, batch(toks, pos, table, "torch"), tc,
+                                    kv_len=kv_len)
+            assert tl.shape == jl.shape
+            close(tl, jl, tol)
+            close(ta, ja, tol)
+        assert tc is tc0
+        if tc is not None:
+            close_trees(tc, jc, tol)

@@ -17,7 +17,8 @@ def _leaves_with_paths(tree):
     return jax.tree_util.tree_flatten_with_path(tree)[0]
 
 
-@pytest.mark.parametrize("name", ["fixture"] + DENSE_GQA)
+@pytest.mark.parametrize("name", ["fixture"] + DENSE_GQA +
+                         ["granite-moe-3b-a800m"])
 def test_every_leaf_round_trips(name):
     jc, tc = configs(name)
     jp = to_numpy(JModel(jc, dtype=jnp.float32).init(jax.random.key(3)))

@@ -18,9 +18,11 @@ PORT = ROOT / "src" / "repro_torch"
 MODULES = [
     "repro_torch", "repro_torch.configs", "repro_torch.convert",
     "repro_torch.core", "repro_torch.kernels", "repro_torch.kernels.build",
-    "repro_torch.launch.serve", "repro_torch.models",
+    "repro_torch.kernels.moe_gemm", "repro_torch.launch.serve",
+    "repro_torch.launch.profile_serve", "repro_torch.models",
     "repro_torch.models.attention", "repro_torch.models.cache",
-    "repro_torch.obs", "repro_torch.quant", "repro_torch.serving",
+    "repro_torch.models.moe", "repro_torch.obs", "repro_torch.quant",
+    "repro_torch.serving",
 ]
 FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)"
@@ -74,6 +76,21 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
         decode_attention_cache(q, q, q, q, q)
 
 
+def test_make_cache_defaults_to_the_card():
+    """`make_cache` resolves its device as every entry point does: the card
+    unless the caller asks for the CPU, and without a card it raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.cache import make_cache
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    cache = make_cache(cfg, 1, 8, torch.float32, device="cpu")
+    assert cache["blocks"]["l0"]["k"].device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available; pass "
+                       "device='cpu' to run the port on the CPU"):
+        make_cache(cfg, 1, 8)
+
+
 def test_kernel_wrappers_run_their_plain_version_only_on_cpu_tensors():
     from repro_torch.kernels import (KERNELS, launch_counts,
                                      reset_launch_counts)
@@ -92,7 +109,7 @@ def test_kernel_wrappers_run_their_plain_version_only_on_cpu_tensors():
 def test_kernel_build_is_keyed_by_its_sources_and_lazy():
     from repro_torch.kernels import build
     assert set(build.SOURCES) == {"flash_attention", "decode_attention",
-                                  "dequant_matmul"}
+                                  "dequant_matmul", "moe_gemm"}
     for name, src in build.SOURCES.items():
         assert (build.CSRC / src).is_file()
         path = build.library_path(name)

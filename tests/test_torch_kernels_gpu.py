@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (attention, dequant-matmul) against their plain
+"""The port's CUDA kernels (attention, dequant-matmul, MoE grouped GEMM) against their plain
 PyTorch versions, on the card. Marked ``gpu``: they skip without a CUDA device (the kernels have
 no CPU mode). Run on a machine with an H100:
 
@@ -19,6 +19,8 @@ from repro_torch.kernels.dequant_matmul.ref import (  # noqa: E402
     dequant_matmul_int4_ref, dequant_matmul_int8_ref)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm.ops import moe_gemm  # noqa: E402
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
 from repro_torch.quant.quantize import quantize_int4, quantize_int8  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -272,3 +274,61 @@ def test_dequant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         dequant_matmul_int8(x.half(), qw, scale)
     with pytest.raises(ValueError, match="disagree"):
         dequant_matmul_int4(x, packed, s4[:, :16].contiguous())
+
+
+MOE_SHAPES = [
+    # (E, C, d, f): the reference's kernel-test shapes, all but the first
+    # ragged somewhere
+    (4, 32, 64, 128), (8, 100, 48, 96), (2, 8, 16, 8), (3, 130, 130, 70),
+    (2, 5, 33, 17),                        # odd d and f: unaligned rows
+    # the serve shapes: granite gate/up at decode, paged and dense prefill,
+    # granite down at decode; deepseek gate/up at decode and dense prefill
+    (40, 8, 1536, 512), (40, 512, 1536, 512), (40, 2048, 1536, 512),
+    (40, 8, 512, 1536), (64, 6, 2048, 1408), (64, 960, 2048, 1408),
+]
+
+
+@pytest.mark.parametrize("shape", MOE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_gemm_kernel(cuda, shape, dtype):
+    E, C, D, F = shape
+    rng = np.random.default_rng(8)
+    x = _randn(rng, (E, C, D), dtype, cuda)
+    w = _weight(rng, D, F, cuda, lead=(E,)).to(dtype)
+    n0 = moe_gemm.launches
+    out = moe_gemm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gemm.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == (E, C, F)
+    _close(out, moe_gemm_ref(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_gemm_on_a_layer_view_of_a_stacked_leaf(cuda, dtype):
+    """The model reads ``gate[i]`` of a stacked (layers, E, d, f) leaf: a
+    view at an offset."""
+    rng = np.random.default_rng(9)
+    w = _weight(rng, 96, 40, cuda, lead=(3, 4)).to(dtype)
+    x = _randn(rng, (4, 7, 96), dtype, cuda)
+    for i in range(3):
+        out = moe_gemm(x, w[i])
+        torch.cuda.synchronize()
+        _close(out, moe_gemm_ref(x, w[i]), dtype)
+
+
+def test_moe_gemm_refuses_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(10)
+    x = _randn(rng, (2, 4, 32), torch.bfloat16, cuda)
+    w = _randn(rng, (2, 32, 16), torch.bfloat16, cuda)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        moe_gemm(x, w.float())
+    with pytest.raises(TypeError):
+        moe_gemm(x.half(), w.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gemm(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError, match="disagree"):
+        moe_gemm(x, w[:1].contiguous())
+    with pytest.raises(ValueError, match="disagree"):
+        moe_gemm(x, w[:, :16].contiguous())
+    with pytest.raises(ValueError, match="disagree"):
+        moe_gemm(x[0], w[0])
