@@ -15,7 +15,10 @@ Phases, each of which fails the script on error:
    largest error, the kernel's time, the plain version's and, where one
    PyTorch call computes the same function, that call's (``library_ms``,
    timed here as a yardstick; the port never calls it: ``torch.bmm`` for
-   the grouped expert GEMM); the dequant-matmul cases add
+   the grouped expert GEMM; none for the SSD chunk); the SSD chunk cases
+   (the mamba2 and jamba serve shapes, mamba2 heads over four chunks with
+   a padded tail, the reference's ragged kernel-test shapes) draw their
+   inputs as a Mamba-2 layer makes them; the dequant-matmul cases add
    ``bf16_matmul_ms``, the bf16 product over the pre-dequantized weight that
    a quantized layer replaces.
 3. Serve full-width, full-depth chatglm3-6b (random bf16 weights from
@@ -25,19 +28,31 @@ Phases, each of which fails the script on error:
    with the weights quantized on the card: int8, int4 (group 32), and int4
    over int8 KV pools. Then the same traffic through full-width, full-depth
    granite-moe-3b-a800m (dense and paged) and deepseek-v2-lite-16b (dense:
-   its MLA cache has no paged layout). The launch counts are set to 0 just
+   its MLA cache has no paged layout). Then, dense only (an SSM layer has
+   no paged layout, as in the reference), full-width, full-depth
+   mamba2-370m (48 Mamba-2 layers) and full-width jamba-v0.1-52b cut to 16
+   of its 32 layers (two of its four 8-layer super-blocks, about 52 GB of
+   bf16 weights: the whole model does not fit one 80 GB card), every
+   earlier model freed first. The launch counts are set to 0 just
    before each run and read just after; a run fails unless every kernel of
    its path launched, each dequant kernel exactly 196 times a forward (7
    linear layers x 28), over int8 pools the paged decode kernel not at all,
    and the MoE kernel exactly 3 times per MoE layer a forward (96 for
-   granite, 78 for deepseek).
+   granite, 78 for deepseek); the SSM serves fail unless the SSD kernel
+   launched once per Mamba layer (at the one prefill: the decode steps take
+   the recurrence), the flash kernel once per attention layer, the dense
+   decode kernel once per attention layer a decode step and the MoE kernel
+   3 times per MoE layer a forward: mamba2 48 SSD launches and no attention
+   kernel, jamba 14 / 2 / 62 / 768.
 4. f32 parity at full width, 2 layers (3 for deepseek: its dense layer and
    2 MoE layers): the kernel path and the plain path (``use_kernel=False``)
    serve the same prompts greedily, chatglm3-6b dense and paged in f32
    weights, then int8 weights (dense) and int4 weights over int8 KV (paged)
    against the plain path over the dequantized weights, then granite (dense
-   and paged) and deepseek (dense); each must give the same tokens and
-   log-probabilities within 1e-3.
+   and paged) and deepseek (dense), then mamba2 (2 layers) and, last, jamba
+   at one super-block (8 layers, about 53 GB of f32 weights), both over
+   prompts of 300 tokens, which cross a 256-row chunk and pad a tail; each
+   must give the same tokens and log-probabilities within 1e-3.
 5. Print the script's wall time (the build included), the ``kernels``
    JSON line, the card again, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -87,6 +102,9 @@ SOURCES = {
     "moe_gemm": (
         "src/repro_torch/csrc/moe_gemm.cu",
         "src/repro/kernels/moe_gemm/moe_gemm.py:39"),
+    "ssd_scan": (
+        "src/repro_torch/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/ssd_scan.py:54"),
 }
 # chatglm3-6b linear layers (K, N) and the launches of one forward
 D_MODEL, D_FF, KV_DIM = 4096, 13696, 256
@@ -99,6 +117,14 @@ MOE_SERVES = {"granite-moe-3b-a800m": ("granite", ("dense", "paged")),
               "deepseek-v2-lite-16b": ("deepseek", ("dense",))}
 ATTN_KERNELS = {"dense": ("flash_attention", "decode_attention"),
                 "paged": ("flash_attention", "paged_decode_attention")}
+# the SSM serves (dense only): arch -> (run name, layers served; jamba's 32
+# layers hold 103 GB of bf16 weights, so it serves 2 of its 4 super-blocks)
+SSM_SERVES = {"mamba2-370m": ("mamba2-dense", 48),
+              "jamba-v0.1-52b": ("jamba-dense", 16)}
+# the f32 parity of the SSM archs: layers, and a prompt length that crosses
+# a 256-row chunk and pads a tail
+SSM_PARITY = {"mamba2-370m": 2, "jamba-v0.1-52b": 8}
+SSM_PARITY_PROMPT = 300
 
 
 def emit(tag: str, obj) -> None:
@@ -315,16 +341,71 @@ def moe_case(g, E, C, D, F, dtype):
                 shape=dict(E=E, C=C, d=D, f=F))
 
 
+def ssd_case(g, B, L, H, P, N, chunk, dtype):
+    """The SSD chunk kernel's six inputs as a Mamba-2 layer makes them: x,
+    B and C silu'd conv outputs (x a slice of the conv output, B and C one
+    group broadcast over the heads by a stride-0 view), dt the softplus of
+    a unit normal plus the model's dt_bias (the inverse softplus of a
+    log-uniform dt in [1e-3, 0.1]), A = -exp(A_log) = -(1..H), so the
+    decays underflow as in a real prefill; padded and cut into chunks as
+    `ssd_chunked` does. Bytes count the group tensors B and C once, dt and
+    cs (dA is not read), and the f32 outputs; operations count the causal
+    pairs of the valid rows (2N + 2P each) and the state (2PN a row)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    xbc = F.silu(torch.randn((B, L, H * P + 2 * N), generator=g,
+                             device="cuda")).to(dtype)
+    x = xbc[..., :H * P].reshape(B, L, H, P)
+    Bm = xbc[..., H * P:H * P + N][:, :, None].expand(B, L, H, N)
+    Cm = xbc[..., H * P + N:][:, :, None].expand(B, L, H, N)
+    lo, hi = math.log(1e-3), math.log(0.1)
+    dt0 = torch.exp(torch.rand(H, generator=g, device="cuda") * (hi - lo)
+                    + lo)
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt = torch.logaddexp(torch.randn((B, L, H), generator=g, device="cuda")
+                         + dt_bias, torch.zeros((), device="cuda"))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
+    pad = (-L) % chunk
+    if pad:
+        x, dt, Bm, Cm = (F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+                         for a in (x, dt, Bm, Cm))
+    nc = x.shape[1] // chunk
+    xc, dtc, Bc, Cc = (a.reshape((B, nc, chunk) + tuple(a.shape[2:]))
+                       for a in (x, dt, Bm, Cm))
+    dA = dtc * A
+    dA_cs = torch.cumsum(dA, dim=2)
+    el = xc.element_size()
+    bc_heads = 1 if Bc.stride(3) == 0 else H
+    valid = [min(chunk, L - c * chunk) for c in range(nc)]
+    pairs = sum(q * (q + 1) // 2 for q in valid)
+    return dict(args=(xc, dtc, dA, dA_cs, Bc, Cc), kw={}, kernel=ssd_chunk,
+                plain=ssd_chunk_ref,
+                bytes=(B * L * H * P + 2 * B * L * bc_heads * N) * el
+                + 2 * 4 * B * L * H + 4 * B * nc * chunk * H * P
+                + 4 * B * nc * H * P * N,
+                flops=B * H * (pairs * (2 * N + 2 * P) + 2 * L * P * N),
+                # outputs are f32 and the arithmetic after the loads f32
+                tol=TOL[torch.float32],
+                library_note=("none: no one PyTorch call computes the "
+                              "masked decay product"),
+                shape=dict(B=B, L=L, H=H, P=P, N=N, chunk=chunk, nc=nc))
+
+
 def run_case(name: str, label: str, case, dtype, iters: int) -> dict:
     kern, plain, kw = case["kernel"], case["plain"], case["kw"]
     args = case["args"]
     out = kern(*args, **kw)
     torch.cuda.synchronize()
     ref = plain(*args, **kw)
-    tol = TOL[dtype]
-    err = (out.float() - ref.float()).abs()
-    ok = bool(torch.isfinite(out.float()).all()) and bool(
-        (err <= tol + tol * ref.float().abs()).all())
+    outs, refs = ((out, ref) if isinstance(out, tuple)
+                  else ((out,), (ref,)))
+    tol = case.get("tol", TOL[dtype])
+    errs = [(o.float() - r.float()).abs() for o, r in zip(outs, refs)]
+    err = torch.cat([e.flatten() for e in errs])
+    ok = all(bool(torch.isfinite(o.float()).all())
+             and bool((e <= tol + tol * r.float().abs()).all())
+             for o, r, e in zip(outs, refs, errs))
     if case["shape"].get("empty_row"):
         ok = ok and bool((out[-1] == 0).all())
     sets = copies_past_l2(args)
@@ -350,7 +431,10 @@ def run_case(name: str, label: str, case, dtype, iters: int) -> dict:
     t_ops = case["flops"] / PEAK_FLOPS[dtype] * 1e3
     res.update(bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bytes=case["bytes"], flops=case["flops"])
+               bytes=case["bytes"], flops=case["flops"],
+               # the same operations at the f32 rate outside the tensor
+               # cores, where a kernel computing in f32 FMAs runs
+               f32_ops_ms=case["flops"] / PEAK_FLOPS[torch.float32] * 1e3)
     emit("kernel-check", res)
     if not ok:
         raise AssertionError(f"{name} {label} {res['dtype']}: kernel and "
@@ -465,16 +549,34 @@ def check_kernels(seed: int) -> dict:
                       (3, 130, 130, 70)):
             run_case("moe_gemm", "ragged", moe_case(g, *shape, dtype), dtype,
                      10)
+    # the SSD chunk (B, L, H, P, N, chunk): the mamba2 serve's prefill (the
+    # 32 tiled rows of 256 tokens, one chunk), jamba's (128 heads), mamba2
+    # heads over four chunks with the last padded by 24, and the
+    # reference's kernel-test shapes (the last ragged: H = 3, P = 8)
+    for dtype in (bf, f32):
+        tag = "main" if dtype == bf else "main-f32"
+        r = run_case("ssd_scan", tag,
+                     ssd_case(g, B, plen, 32, 64, 128, 256, dtype), dtype, 20)
+        main.setdefault("ssd_scan", r)
+    run_case("ssd_scan", "jamba", ssd_case(g, B, plen, 128, 64, 128, 256, bf),
+             bf, 10)
+    run_case("ssd_scan", "4-chunks-padded",
+             ssd_case(g, 4, 1000, 32, 64, 128, 256, bf), bf, 10)
+    for dtype in (bf, f32):
+        for shape in ((2, 32, 2, 16, 16, 8), (1, 64, 4, 32, 64, 16),
+                      (2, 24, 3, 8, 16, 8)):
+            run_case("ssd_scan", "ragged", ssd_case(g, *shape, dtype), dtype,
+                     10)
     assert set(main) == set(KERNELS), (sorted(main), sorted(KERNELS))
     return main
 
 
 # ----------------------------------------------------------------- serving
 
-def make_prompts(cfg, seed: int):
+def make_prompts(cfg, seed: int, plen: int = SERVE["prompt_len"]):
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, cfg.vocab_size, size=(SERVE["prompt_len"],))
-            .astype(np.int32) for _ in range(SERVE["requests"])]
+    return [rng.integers(0, cfg.vocab_size, size=(plen,)).astype(np.int32)
+            for _ in range(SERVE["requests"])]
 
 
 def check_results(results, cfg, n_samples: int, max_new: int) -> None:
@@ -656,11 +758,58 @@ def serve_moe(seed: int) -> dict:
     return counts
 
 
+def serve_ssm(seed: int) -> dict:
+    """Phase 3, SSM: full mamba2-370m, then full-width jamba-v0.1-52b at 16
+    layers, dense, bf16, the chatglm traffic. Returns the launch counts of
+    each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.quant.quantize import param_bytes
+    counts = {}
+    for arch, (run, layers) in SSM_SERVES.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        model = Model(cfg, dtype=torch.bfloat16, device="cuda",
+                      use_kernel=True)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        mixers = [cfg.pattern[i % len(cfg.pattern)]
+                  for i in range(cfg.n_layers)]
+        n_ssm, n_attn = mixers.count("m"), mixers.count("a")
+        n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+        emit("model", dict(arch=cfg.name, layers=cfg.n_layers,
+                           full_layers=get_config(arch).n_layers,
+                           d_model=cfg.d_model, params=model.param_count(),
+                           dtype="bfloat16", init_s=time.perf_counter() - t0,
+                           weight_gb=param_bytes(params) / 1e9,
+                           mamba_layers=n_ssm, attention_layers=n_attn,
+                           moe_layers=n_moe))
+        prompts = make_prompts(cfg, seed)
+        c, _, fwd, info = serve_run(model, params, prompts, seed,
+                                    paged=False)
+        counts[run] = c
+        emit("serve", dict(arch=cfg.name, mode="dense", weights="bf16",
+                           layers=cfg.n_layers, **info))
+        # one prefill forward, then decode forwards: the SSD kernel runs at
+        # the prefill only, the decode kernel at every decode step
+        want = {"ssd_scan": n_ssm, "flash_attention": n_attn,
+                "decode_attention": n_attn * (fwd - 1),
+                "moe_gemm": 3 * n_moe * fwd}
+        for name, n in want.items():
+            if c[name] != n:
+                raise AssertionError(f"{run}: {name} launched {c[name]} "
+                                     f"times over {fwd} forwards, want {n}")
+        del params, model
+        torch.cuda.empty_cache()
+    return counts
+
+
 def compare_paths(cfg, mk, mp, kparams, pparams, prompts, mode: str,
                   weights: str, kv_format: str = "bf16") -> None:
     """Greedy serve through the kernel path (``mk``) and the plain path
     (``mp``): the same tokens and log-probabilities within 1e-3, or raise.
-    For an MoE arch the kernel path must have run the MoE kernel."""
+    For an MoE (SSM) arch the kernel path must have run the MoE (SSD)
+    kernel."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import ExecutionBackend, ServingEngine
     k, new = 2, 16
@@ -672,10 +821,11 @@ def compare_paths(cfg, mk, mp, kparams, pparams, prompts, mode: str,
                             backend=ExecutionBackend(m, prm, **kw))
         reset_launch_counts()
         out[tag] = eng.generate(prompts, n_samples=k)
-        if tag == "kernel" and cfg.moe is not None \
-                and launch_counts()["moe_gemm"] < 1:
-            raise AssertionError(f"{cfg.name} parity: the kernel path never "
-                                 "launched moe_gemm")
+        for name, used in (("moe_gemm", cfg.moe is not None),
+                           ("ssd_scan", cfg.ssm is not None)):
+            if tag == "kernel" and used and launch_counts()[name] < 1:
+                raise AssertionError(f"{cfg.name} parity: the kernel path "
+                                     f"never launched {name}")
         check_results(out[tag], cfg, k, new)
     toks = [np.array_equal(a, b) for ra, rb in zip(out["kernel"],
                                                   out["plain"])
@@ -684,6 +834,7 @@ def compare_paths(cfg, mk, mp, kparams, pparams, prompts, mode: str,
                  for a, b in zip(ra.logprobs, rb.logprobs))
     emit("parity-f32", dict(arch=cfg.name, mode=mode, weights=weights,
                             kv_format=kv_format, layers=cfg.n_layers,
+                            prompt_len=len(prompts[0]),
                             sequences=len(toks), tokens_equal=sum(toks),
                             max_logprob_diff=lp_err, tol=1e-3))
     if not all(toks) or lp_err > 1e-3:
@@ -729,6 +880,18 @@ def parity(seed: int) -> None:
             compare_paths(cfg, mk, mp, params, params, prompts, mode, "f32")
         del params
         torch.cuda.empty_cache()
+    # the SSM archs, full width, dense, over prompts that cross a chunk:
+    # mamba2 at 2 layers, then jamba at one super-block (about 53 GB of f32
+    # weights, with nothing else left on the card)
+    for arch, layers in SSM_PARITY.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        mk = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=True)
+        mp = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=False)
+        params = mk.init(torch.Generator(device="cuda").manual_seed(seed + 1))
+        prompts = make_prompts(cfg, seed + 1, SSM_PARITY_PROMPT)
+        compare_paths(cfg, mk, mp, params, params, prompts, "dense", "f32")
+        del params
+        torch.cuda.empty_cache()
 
 
 # -------------------------------------------------------------------- main
@@ -765,6 +928,7 @@ def main() -> int:
     main_cases = check_kernels(args.seed)
     counts = serve(args.seed)
     counts.update(serve_moe(args.seed))
+    counts.update(serve_ssm(args.seed))
     parity(args.seed)
 
     kernels = []

@@ -15,6 +15,9 @@ dtype and the scales stay f32 whatever ``dtype`` says; their shapes are
 derived from the dense shape ``(..., K, N)``: int8 ``qw (..., K, N)``,
 ``scale (..., N)``; int4 ``qw (..., K//2, N)``, ``scale (..., G, N)`` with
 ``G = K // group_size_for(K, group_size)``.
+
+The Mamba-2 leaves ``A_log``, ``dt_bias`` and ``D`` stay f32 whatever
+``dtype`` says, as the reference keeps them in every model dtype.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Model
+from repro_torch.models.ssm import F32_KEYS
 from repro_torch.quant.quantize import DEFAULT_GROUP_SIZE, group_size_for
 
 
@@ -64,9 +68,10 @@ def params_from_jax(np_tree: Dict, cfg: ArchConfig, device: DeviceLike = "cuda",
                     dtype: Optional[torch.dtype] = None,
                     group_size: int = DEFAULT_GROUP_SIZE) -> Dict:
     """The reference's params (numpy leaves) as the port's params. Floating
-    leaves are cast to ``dtype`` when given, except quantization scales,
-    which stay f32. ``group_size`` is the int4 group size the tree was
-    quantized with."""
+    leaves are cast to ``dtype`` when given, except quantization scales and
+    the SSM's f32 leaves (`repro_torch.models.ssm.F32_KEYS`), which stay
+    f32. ``group_size`` is the int4 group size the tree was quantized
+    with."""
     dev = resolve_device(device)
     shapes = Model(cfg, device="cpu").param_shapes()
 
@@ -78,7 +83,8 @@ def params_from_jax(np_tree: Dict, cfg: ArchConfig, device: DeviceLike = "cuda",
                 raise ValueError(f"{path}: keys {sorted(node)} do not match "
                                  f"the port's {sorted(shape) if isinstance(shape, dict) else shape}")
             return {k: walk(v, shape[k], f"{path}/{k}",
-                            None if "qw" in node and k == "scale" else dt)
+                            None if ("qw" in node and k == "scale")
+                            or k in F32_KEYS else dt)
                     for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             if not isinstance(shape, list) or len(node) != len(shape):

@@ -10,6 +10,7 @@ from repro_torch.kernels.dequant_matmul.ops import (dequant_matmul_int4,
                                                     dequant_matmul_int8)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.moe_gemm.ops import moe_gemm
+from repro_torch.kernels.ssd_scan.ops import ssd_chunk
 
 #: kernel name -> wrapper carrying its ``launches`` count
 KERNELS = {
@@ -19,6 +20,7 @@ KERNELS = {
     "dequant_matmul_int8": dequant_matmul_int8,
     "dequant_matmul_int4": dequant_matmul_int4,
     "moe_gemm": moe_gemm,
+    "ssd_scan": ssd_chunk,
 }
 
 

@@ -31,6 +31,7 @@ SOURCES = {
     "decode_attention": "decode_attention.cu",
     "dequant_matmul": "dequant_matmul.cu",
     "moe_gemm": "moe_gemm.cu",
+    "ssd_scan": "ssd_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -13,8 +13,14 @@ the timed run. ``--quant int8|int4`` quantizes the weights after init
 (`repro_torch.quant.quantize_model`): every linear layer then runs a
 dequant-matmul kernel. ``--kv-int8`` keeps the paged KV pools in int8, which
 the paged decode kernel does not read: decode attention then takes the plain
-gather path, as in the reference. ``--device cpu`` runs the plain PyTorch
-path; ``--smoke`` serves the arch's reduced config in f32.
+gather path, as in the reference. MoE archs run their expert products
+through the grouped-GEMM kernel, and Mamba-2 layers (``--arch mamba2-370m``,
+``--arch jamba-v0.1-52b``) their prefill through the SSD chunk kernel; archs
+without a paged layout (MLA, SSM) serve dense only and refuse
+``--kv-blocks``. The launcher serves the full depth of the arch, and all 32
+layers of jamba-v0.1-52b (103 GB of bf16 weights) do not fit one 80 GB
+card. ``--device cpu`` runs the plain PyTorch path; ``--smoke`` serves the
+arch's reduced config in f32.
 ``repro_torch.launch.profile_serve`` takes the same flags and says where the
 device time goes.
 """

@@ -4,10 +4,11 @@ A *super-block* is one period of ``cfg.pattern``; the model stacks
 ``n_scanned_super_blocks`` of them (params carry a leading super-block axis)
 and loops over them. Ported from ``repro.models.blocks``.
 
-This slice of the port runs attention (GQA or MLA) with a dense MLP or a
-MoE FFN. The Mamba-2 (SSM) mixer and cross-attention raise
-`NotImplementedError` naming the slice they arrive with; their parameter
-shapes are here so that parameter counts cover every arch.
+Each layer mixes with attention (GQA or MLA, mixer ``"a"``) or a Mamba-2
+block (mixer ``"m"``), then runs a dense MLP, a MoE FFN (`cfg.is_moe_layer`)
+or, for pure-Mamba stacks (``d_ff == 0``), no FFN. Cross-attention raises
+`NotImplementedError` naming the slice it arrives with; its parameter shapes
+are here so that parameter counts cover every arch.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Params, dense_shapes, mlp, mlp_init,
                                        mlp_shapes, rmsnorm, rmsnorm_init)
@@ -42,32 +44,13 @@ def _moe_shapes(cfg: ArchConfig) -> Dict:
     return s
 
 
-def _ssm_shapes(cfg: ArchConfig) -> Dict:
-    s = cfg.ssm
-    d_in = cfg.d_inner
-    H = cfg.ssm_heads
-    conv_ch = d_in + 2 * s.n_groups * s.d_state
-    if cfg.ssm_split_proj:
-        proj = {"in_proj_z": dense_shapes(cfg.d_model, d_in),
-                "in_proj_x": dense_shapes(cfg.d_model, d_in),
-                "in_proj_bc": dense_shapes(cfg.d_model,
-                                           2 * s.n_groups * s.d_state),
-                "in_proj_dt": dense_shapes(cfg.d_model, H)}
-    else:
-        proj = {"in_proj": dense_shapes(
-            cfg.d_model, 2 * d_in + 2 * s.n_groups * s.d_state + H)}
-    return {**proj, "conv_w": (s.d_conv, conv_ch), "conv_b": (conv_ch,),
-            "A_log": (H,), "dt_bias": (H,), "D": (H,),
-            "norm_scale": (d_in,), "out_proj": dense_shapes(d_in, cfg.d_model)}
-
-
 def sublayer_shapes(cfg: ArchConfig, mixer: str, ffn: str) -> Dict:
     d = cfg.d_model
     s: Dict = {"ln1": {"scale": (d,)}}
     if mixer == "a":
         s["attn"] = attn.attn_shapes(cfg)
     else:
-        s["ssm"] = _ssm_shapes(cfg)
+        s["ssm"] = ssm_mod.ssm_shapes(cfg)
     if cfg.cross_attention:
         s["ln_x"] = {"scale": (d,)}
         s["cross"] = attn.cross_attn_shapes(cfg)
@@ -87,9 +70,7 @@ def super_block_shapes(cfg: ArchConfig, n_prefix: int) -> Dict:
 
 # --------------------------------------------------------------------------- init
 
-def _unported(cfg: ArchConfig, mixer: str) -> Optional[str]:
-    if mixer != "a":
-        return "the Mamba-2 (SSM) mixer arrives with the SSM slice of the port"
+def _unported(cfg: ArchConfig) -> Optional[str]:
     if cfg.cross_attention:
         return ("cross-attention arrives with the remaining-arch-features "
                 "slice of the port")
@@ -99,12 +80,15 @@ def _unported(cfg: ArchConfig, mixer: str) -> Optional[str]:
 def sublayer_init(gen: torch.Generator, cfg: ArchConfig, mixer: str,
                   ffn: str, dtype, device,
                   stack: Tuple[int, ...] = ()) -> Params:
-    why = _unported(cfg, mixer)
+    why = _unported(cfg)
     if why:
         raise NotImplementedError(why)
     d = cfg.d_model
-    p: Params = {"ln1": rmsnorm_init(d, dtype, device, stack),
-                 "attn": attn.attn_init(gen, cfg, dtype, device, stack)}
+    p: Params = {"ln1": rmsnorm_init(d, dtype, device, stack)}
+    if mixer == "a":
+        p["attn"] = attn.attn_init(gen, cfg, dtype, device, stack)
+    else:
+        p["ssm"] = ssm_mod.ssm_init(gen, cfg, dtype, device, stack)
     if ffn == "moe":
         p["ln2"] = rmsnorm_init(d, dtype, device, stack)
         p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device, stack)
@@ -133,12 +117,15 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                                 Union[torch.Tensor, float]]:
     """Returns (x, cache, aux loss): the MoE FFN's aux loss (a 0-d f32
     tensor), else 0.0, which launches nothing."""
-    why = _unported(cfg, mixer)
+    why = _unported(cfg)
     if why:
         raise NotImplementedError(why)
     aux = 0.0
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if cfg.mla is not None:
+    if mixer != "a":
+        y, new_cache = ssm_mod.ssm_forward(p["ssm"], cfg, h, cache,
+                                           use_kernel=use_kernel)
+    elif cfg.mla is not None:
         y, new_cache = attn.mla_forward(p["attn"], cfg, h, positions, cache,
                                         absorbed_decode=cfg.mla_absorbed,
                                         use_kernel=use_kernel)

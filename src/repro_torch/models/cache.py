@@ -22,8 +22,12 @@ scales with the blocks.
 
 MLA entries (dense only, as in the reference): the latent ``c_kv``
 ``(B, W, kv_lora)``, the shared rope key ``k_rope`` ``(B, W, rope_hd)`` and
-``pos`` ``(B, W)``. SSM state and cross-attention K/V arrive with later
-slices of the port and raise here.
+``pos`` ``(B, W)``.
+
+Mamba-2 (SSM) entries (dense only, as in the reference): the state ``ssm``
+``(B, H, P, N)`` in f32 and the conv tail ``conv`` ``(B, d_conv - 1, Ch)``
+in the model dtype, both starting at zero. Cross-attention K/V arrive with a
+later slice of the port and raise here.
 """
 from __future__ import annotations
 
@@ -75,8 +79,11 @@ def _entry_shapes(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
                   dtype, paged: Optional[PagedLayout], kv_dtype):
     """{name: (shape, dtype)} of one layer's cache entry."""
     if mixer != "a":
-        raise NotImplementedError("SSM caches arrive with the SSM slice of "
-                                  "the port")
+        s = cfg.ssm
+        conv_ch = cfg.d_inner + 2 * s.n_groups * s.d_state
+        return {"ssm": ((batch, cfg.ssm_heads, s.headdim, s.d_state),
+                        torch.float32),
+                "conv": ((batch, s.d_conv - 1, conv_ch), dtype)}
     if cfg.cross_attention and cfg.cross_kv_cache:
         raise NotImplementedError("cross-attention K/V caches arrive with "
                                   "the cross-attention slice of the port")
@@ -178,7 +185,8 @@ def paged_cache_bytes(cfg: ArchConfig, n_blocks: int, block_size: int,
 def cache_bytes(cfg: ArchConfig, batch: int, cache_len: int,
                 bytes_per_el: int = 2) -> int:
     """Analytic dense cache size (the orchestrator's memory constraint),
-    counted from shapes without allocating."""
+    counted from shapes without allocating: int32 and f32 leaves (positions,
+    SSM state) at 4 bytes, the others at ``bytes_per_el``."""
     period = len(cfg.pattern)
     mixers = ([cfg.pattern[i % period] for i in range(n_prefix_layers(cfg))]
               + list(cfg.pattern) * n_scanned_super_blocks(cfg))
@@ -189,5 +197,6 @@ def cache_bytes(cfg: ArchConfig, batch: int, cache_len: int,
             n = 1
             for s in shape:
                 n *= s
-            total += n * (4 if dt == torch.int32 else bytes_per_el)
+            total += n * (4 if dt in (torch.int32, torch.float32)
+                          else bytes_per_el)
     return total

@@ -18,7 +18,8 @@ def _leaves_with_paths(tree):
 
 
 @pytest.mark.parametrize("name", ["fixture"] + DENSE_GQA +
-                         ["granite-moe-3b-a800m"])
+                         ["granite-moe-3b-a800m", "mamba2-370m",
+                          "jamba-v0.1-52b"])
 def test_every_leaf_round_trips(name):
     jc, tc = configs(name)
     jp = to_numpy(JModel(jc, dtype=jnp.float32).init(jax.random.key(3)))
@@ -32,6 +33,12 @@ def test_every_leaf_round_trips(name):
         assert got.dtype == np.float32, path
         np.testing.assert_array_equal(got, ref, err_msg=str(path))
     n_super = tc.n_layers // len(tc.pattern)
+    if tc.ssm is not None:        # mamba2: every layer; jamba: l0 of 8
+        assert tp["blocks"]["l0"]["ssm"]["A_log"].shape == \
+            (n_super, tc.ssm_heads)
+        assert shapes["blocks"]["l0"]["ssm"]["in_proj"]["w"] == \
+            tuple(tp["blocks"]["l0"]["ssm"]["in_proj"]["w"].shape)
+        return
     assert tp["blocks"]["l0"]["attn"]["wq"]["w"].shape == \
         (n_super, tc.d_model, tc.n_heads * tc.hd)
     assert shapes["blocks"]["l0"]["attn"]["wq"]["w"] == \
@@ -50,6 +57,23 @@ def test_bf16_leaves_convert_exactly():
                                      _leaves_with_paths(params_to_numpy(tp))):
         np.testing.assert_array_equal(got, ref.astype(np.float32),
                                       err_msg=str(path))
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "jamba-v0.1-52b"])
+def test_bf16_conversion_keeps_the_ssm_f32_leaves(name):
+    """``A_log``, ``dt_bias`` and ``D`` stay f32 under ``dtype=bf16``, as
+    the reference keeps them in a bf16 model; the other leaves are bf16."""
+    jc, tc = configs(name)
+    jp = to_numpy(JModel(jc, dtype=jnp.bfloat16).init(jax.random.key(4)))
+    tp = params_from_jax(jp, tc, device="cpu", dtype=torch.bfloat16)
+    ssm = tp["blocks"]["l0"]["ssm"]
+    for k in ("A_log", "dt_bias", "D"):
+        assert jp["blocks"]["l0"]["ssm"][k].dtype == np.float32
+        assert ssm[k].dtype == torch.float32, k
+        np.testing.assert_array_equal(ssm[k].numpy(),
+                                      jp["blocks"]["l0"]["ssm"][k])
+    assert ssm["in_proj"]["w"].dtype == ssm["conv_w"].dtype == \
+        tp["embed"]["table"].dtype == torch.bfloat16
 
 
 def test_tied_embeddings_have_no_lm_head():

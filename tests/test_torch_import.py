@@ -18,10 +18,12 @@ PORT = ROOT / "src" / "repro_torch"
 MODULES = [
     "repro_torch", "repro_torch.configs", "repro_torch.convert",
     "repro_torch.core", "repro_torch.kernels", "repro_torch.kernels.build",
-    "repro_torch.kernels.moe_gemm", "repro_torch.launch.serve",
+    "repro_torch.kernels.moe_gemm", "repro_torch.kernels.ssd_scan",
+    "repro_torch.launch.serve",
     "repro_torch.launch.profile_serve", "repro_torch.models",
     "repro_torch.models.attention", "repro_torch.models.cache",
-    "repro_torch.models.moe", "repro_torch.obs", "repro_torch.quant",
+    "repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.obs",
+    "repro_torch.quant",
     "repro_torch.serving",
 ]
 FORBIDDEN = re.compile(
@@ -109,7 +111,7 @@ def test_kernel_wrappers_run_their_plain_version_only_on_cpu_tensors():
 def test_kernel_build_is_keyed_by_its_sources_and_lazy():
     from repro_torch.kernels import build
     assert set(build.SOURCES) == {"flash_attention", "decode_attention",
-                                  "dequant_matmul", "moe_gemm"}
+                                  "dequant_matmul", "moe_gemm", "ssd_scan"}
     for name, src in build.SOURCES.items():
         assert (build.CSRC / src).is_file()
         path = build.library_path(name)

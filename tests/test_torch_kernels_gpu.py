@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (attention, dequant-matmul, MoE grouped GEMM) against their plain
-PyTorch versions, on the card. Marked ``gpu``: they skip without a CUDA device (the kernels have
+"""The port's CUDA kernels (attention, dequant-matmul, MoE grouped GEMM, Mamba-2 SSD chunk)
+against their plain PyTorch versions, on the card. Marked ``gpu``: they skip without a CUDA device (the kernels have
 no CPU mode). Run on a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
@@ -21,6 +21,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm.ops import moe_gemm  # noqa: E402
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import ssd_chunk  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.quant.quantize import quantize_int4, quantize_int8  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -332,3 +335,102 @@ def test_moe_gemm_refuses_what_the_kernel_does_not_take(cuda):
         moe_gemm(x, w[:, :16].contiguous())
     with pytest.raises(ValueError, match="disagree"):
         moe_gemm(x[0], w[0])
+
+
+# ------------------------------------------------------------ Mamba-2 SSD chunk
+
+SSD_SHAPES = [
+    # (B, L, H, P, N, chunk): the reference's kernel-test shapes (the last
+    # ragged: three chunks of 8 rows, H = 3, P = 8)
+    (2, 32, 2, 16, 16, 8), (1, 64, 4, 32, 64, 16), (2, 24, 3, 8, 16, 8),
+    (2, 40, 16, 32, 16, 32),               # reduced mamba2: a padded tail
+    (1, 100, 2, 70, 130, 96),              # P, N and Q past one tile
+    # the serve shapes: mamba2-370m and jamba-v0.1-52b prefill (32 rows of
+    # 256), and mamba2 heads over four chunks, the last padded by 24
+    (32, 256, 32, 64, 128, 256), (32, 256, 128, 64, 128, 256),
+    (2, 1000, 32, 64, 128, 256),
+]
+
+
+def _ssd_inputs(B, L, H, P, N, chunk, dtype, dev, seed=11):
+    """Inputs as a Mamba-2 layer makes them: x, B and C silu'd (x a slice of
+    the conv output, B and C one group broadcast over the heads by a stride-0
+    view), dt = softplus(u + dt_bias) with dt_bias the inverse softplus of a
+    log-uniform dt in [1e-3, 0.1], A = -(1..H); padded and cut into chunks
+    as `ssd_chunked` does. Returns the kernel's six model-layout inputs."""
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(seed)
+    xbc = F.silu(torch.randn((B, L, H * P + 2 * N), generator=g)).to(dev, dtype)
+    x = xbc[..., :H * P].reshape(B, L, H, P)
+    Bm = xbc[..., H * P:H * P + N][:, :, None].expand(B, L, H, N)
+    Cm = xbc[..., H * P + N:][:, :, None].expand(B, L, H, N)
+    dt0 = torch.exp(torch.rand(H, generator=g) * float(np.log(100.0)) + float(np.log(1e-3)))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt = torch.logaddexp(torch.randn((B, L, H), generator=g) + dt_bias,
+                         torch.zeros(())).to(dev)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    pad = (-L) % chunk
+    if pad:
+        x, dt, Bm, Cm = (F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) for a in (x, dt, Bm, Cm))
+    nc = x.shape[1] // chunk
+    xc, dtc, Bc, Cc = (a.reshape((B, nc, chunk) + tuple(a.shape[2:])) for a in (x, dt, Bm, Cm))
+    dA = dtc * A
+    return xc, dtc, dA, torch.cumsum(dA, dim=2), Bc, Cc
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_chunk_kernel(cuda, shape, dtype):
+    """Both outputs are f32 and the kernel's arithmetic after the loads is
+    f32, so bf16 inputs are held to the f32 tolerance too."""
+    args = _ssd_inputs(*shape, dtype, cuda)
+    n0 = ssd_chunk.launches
+    y, st = ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == n0 + 1
+    y_ref, st_ref = ssd_chunk_ref(*args)
+    assert y.dtype == st.dtype == torch.float32
+    assert y.shape == y_ref.shape and st.shape == st_ref.shape
+    _close(y, y_ref, torch.float32)
+    _close(st, st_ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_chunked_kernel_path_equals_the_plain_path(cuda, dtype):
+    """The scan around the kernel: padding, the inter-chunk carry from an
+    initial state, and the output cast, over contiguous (copied) inputs and
+    over the strided views the model passes."""
+    B, L, H, P, N, chunk = 2, 300, 8, 64, 128, 256
+    xc, dtc, dA, _, Bc, Cc = _ssd_inputs(B, L, H, P, N, chunk, dtype, cuda)
+    x = xc.reshape(B, -1, H, P)[:, :L]
+    dt = dtc.reshape(B, -1, H)[:, :L].contiguous()
+    Bm, Cm = Bc.reshape(B, -1, H, N)[:, :L], Cc.reshape(B, -1, H, N)[:, :L]
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=cuda)
+    state = torch.randn((B, H, P, N), device=cuda) * 0.1
+    for args in ((x, dt, A, Bm, Cm), (x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous())):
+        y0, s0 = ssd_chunked(*args, chunk, state, use_kernel=False)
+        n0 = ssd_chunk.launches
+        y1, s1 = ssd_chunked(*args, chunk, state, use_kernel=True)
+        torch.cuda.synchronize()
+        assert ssd_chunk.launches == n0 + 1
+        assert y1.dtype == dtype
+        _close(y1.float(), y0.float(), dtype)
+        _close(s1, s0, torch.float32)
+
+
+def test_ssd_chunk_refuses_what_the_kernel_does_not_take(cuda):
+    xc, dtc, dA, cs, Bc, Cc = _ssd_inputs(1, 16, 2, 8, 16, 8, torch.bfloat16, cuda)
+    with pytest.raises(TypeError, match="dt dtype"):
+        ssd_chunk(xc, dtc.double(), dA, cs, Bc, Cc)
+    with pytest.raises(TypeError, match="B dtype"):
+        ssd_chunk(xc, dtc, dA, cs, Bc.float(), Cc)
+    with pytest.raises(TypeError, match="unsupported"):
+        ssd_chunk(xc.half(), dtc, dA, cs, Bc.half(), Cc.half())
+    with pytest.raises(ValueError, match="last axis of x"):
+        ssd_chunk(xc.transpose(3, 4).contiguous().transpose(3, 4), dtc, dA, cs, Bc, Cc)
+    with pytest.raises(ValueError, match="dA_cs is not contiguous"):
+        ssd_chunk(xc, dtc, dA, cs.transpose(2, 3).contiguous().transpose(2, 3), Bc, Cc)
+    with pytest.raises(ValueError, match="disagree"):
+        ssd_chunk(xc, dtc, dA, cs, Bc[..., :8], Cc)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_chunk(xc, dtc[:, :, :4], dA, cs, Bc, Cc)

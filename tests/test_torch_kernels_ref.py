@@ -22,6 +22,10 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
+from repro.kernels.ssd_scan.ops import ssd_chunk as jssd_chunk  # noqa: E402
+from repro.kernels.ssd_scan.ref import ssd_chunk_ref as jssd_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref  # noqa: E402
 
 TOL = 1e-4
 
@@ -190,3 +194,46 @@ def test_plain_versions_keep_the_input_dtype(dtype):
     out = decode_attention_ref(args[0].to(dtype), args[1].to(dtype),
                                args[2].to(dtype), args[3], args[4])
     assert out.dtype == dtype and out.shape == (2, 1, 4, 8)
+
+
+SSD_SHAPES = [
+    # (B, L, H, P, N, chunk): tests/test_kernels.py's shapes
+    (2, 32, 2, 16, 16, 8),
+    (1, 64, 4, 32, 64, 16),
+    (2, 24, 3, 8, 16, 8),
+]
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_chunk_plain_matches_the_pallas_kernel_and_oracle(shape):
+    """Model layout (B, nc, Q, H, ...) against the reference's wrapper (its
+    Pallas kernel in interpret mode) and, moved to the TPU kernel's
+    (B*H, nc, Q, ...) layout, against its jnp oracle."""
+    B, L, H, P, N, chunk = shape
+    nc, Q = L // chunk, chunk
+    x, dt_raw, a_raw, Bm, Cm = _inputs(11, (B, nc, Q, H, P), (B, nc, Q, H),
+                                       (H,), (B, nc, Q, H, N),
+                                       (B, nc, Q, H, N))
+    dt = np.log1p(np.exp(dt_raw)).astype(np.float32)
+    dA = dt * -np.exp(a_raw)
+    dAcs = np.cumsum(dA, axis=2, dtype=np.float32)
+    args = (x, dt, dA, dAcs, Bm, Cm)
+    y, st = ssd_chunk_ref(*_t(*args))
+    assert y.shape == (B, nc, Q, H, P) and st.shape == (B, nc, H, P, N)
+    jy, jst = jssd_chunk(*map(jnp.asarray, args))
+    close(y, jy, TOL)
+    close(st, jst, TOL)
+
+    def to_bh(a, width):
+        return jnp.moveaxis(jnp.asarray(a), 3, 1).reshape(
+            (B * H, nc, Q, width))
+    ry, rst = jssd_ref(to_bh(x, P), to_bh(dt[..., None], 1),
+                       to_bh(dA[..., None], 1), to_bh(dAcs[..., None], 1),
+                       to_bh(Bm, N), to_bh(Cm, N))
+    close(y, jnp.moveaxis(ry.reshape(B, H, nc, Q, P), 1, 3), TOL)
+    close(st, rst.reshape(B, H, nc, P, N).transpose(0, 2, 1, 3, 4), TOL)
+    # the wrapper takes the plain version on CPU tensors, and counts nothing
+    n0 = launch_counts()["ssd_scan"]
+    for got, ref in zip(ssd_ops.ssd_chunk(*_t(*args)), (y, st)):
+        assert torch.equal(got, ref)
+    assert launch_counts()["ssd_scan"] == n0

@@ -161,15 +161,12 @@ def test_model_variants_train_and_decode(overrides):
 def test_unported_archs_say_which_slice_brings_them():
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    ssm = r"the Mamba-2 \(SSM\) mixer arrives with the SSM slice of the port"
     cross = ("cross-attention arrives with the remaining-arch-features "
              "slice of the port")
-    for name, message in [("mamba2-370m", ssm), ("jamba-v0.1-52b", ssm),
-                          ("musicgen-medium", cross)]:
-        cfg = get_config(name).reduced()
-        with pytest.raises(NotImplementedError, match=message):
-            Model(cfg, dtype=torch.float32, device="cpu").init(
-                torch.Generator().manual_seed(0))
+    cfg = get_config("musicgen-medium").reduced()
+    with pytest.raises(NotImplementedError, match=cross):
+        Model(cfg, dtype=torch.float32, device="cpu").init(
+            torch.Generator().manual_seed(0))
 
 
 def test_port_init_serves_its_own_weights():
