@@ -6,21 +6,26 @@ Phases, each of which fails the script on error:
 
 1. Print the card (``nvidia-smi`` name and power limit) and the versions,
    then build every CUDA kernel of the port from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all at once) and print the build time.
+   (one ``nvcc`` per source, all at once) and print the build time. Count
+   the tensor-core instructions (``HGMMA``, ``HMMA``) of each kernel in the
+   flash library's SASS (``cuobjdump -sass``): the run fails if the bf16
+   flash kernel has none.
 2. Hold each kernel against its plain PyTorch version on the card: at the
    shapes the serving runs below give it, at larger chatglm3-6b shapes, and
-   at ragged shapes (lengths that are not multiples of the tile, a row whose
-   cache slots are all empty, int4 groups of 32, 24 and 8 rows, the MoE
-   kernel test shapes of the reference). One JSON line per case with the
-   largest error, the kernel's time, the plain version's and, where one
-   PyTorch call computes the same function, that call's (``library_ms``,
-   timed here as a yardstick; the port never calls it: ``torch.bmm`` for
-   the grouped expert GEMM; none for the SSD chunk); the SSD chunk cases
-   (the mamba2 and jamba serve shapes, mamba2 heads over four chunks with
-   a padded tail, the reference's ragged kernel-test shapes) draw their
-   inputs as a Mamba-2 layer makes them; the dequant-matmul cases add
-   ``bf16_matmul_ms``, the bf16 product over the pre-dequantized weight that
-   a quantized layer replaces.
+   at ragged shapes (lengths that are not multiples of the tile, sequence
+   lengths at the flash kernel's 64-row tile edges, cache lengths where the
+   dense decode kernel's planner changes its number of splits and splits
+   that hold no valid slot, a row whose cache slots are all empty, int4
+   groups of 32, 24 and 8 rows, the MoE kernel test shapes of the
+   reference). One JSON line per case with the largest error, the kernel's
+   time, the plain version's and, where one PyTorch call computes the same
+   function, that call's (``library_ms``, timed here as a yardstick; the
+   port never calls it: ``torch.bmm`` for the grouped expert GEMM; none for
+   the SSD chunk); the SSD chunk cases (the mamba2 and jamba serve shapes,
+   mamba2 heads over four chunks with a padded tail, the reference's ragged
+   kernel-test shapes) draw their inputs as a Mamba-2 layer makes them; the
+   dequant-matmul cases add ``bf16_matmul_ms``, the bf16 product over the
+   pre-dequantized weight that a quantized layer replaces.
 3. Serve full-width, full-depth chatglm3-6b (random bf16 weights from
    ``--seed``) through ``ServingEngine.generate`` with the kernels on: 8
    prompts x 4 samples, prompt length 256, 32 new tokens; with the
@@ -129,6 +134,43 @@ SSM_PARITY_PROMPT = 300
 
 def emit(tag: str, obj) -> None:
     print(f"[{tag}] " + json.dumps(obj), flush=True)
+
+
+def tensor_core_sass(lib: Path) -> dict:
+    """The tensor-core instructions (``HGMMA``: wgmma; ``HMMA``: mma.sync)
+    of each kernel in a built library's SASS, by function."""
+    import re
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                if re.search(rf"\b{op}\.", line):
+                    counts[fn][op] += 1
+    return counts
+
+
+def check_flash_sass() -> dict:
+    """Fail unless the bf16 flash kernel runs on the tensor cores."""
+    from repro_torch.kernels import build
+    counts = tensor_core_sass(build.library_path("flash_attention"))
+    tc = {fn: c for fn, c in counts.items()
+          if "flash_attention_tc_kernel" in fn}
+    res = dict(library="flash_attention", by_kernel=counts,
+               bf16_kernel_tensor_core_ops=sum(sum(c.values())
+                                               for c in tc.values()))
+    emit("sass", res)
+    if not tc or res["bf16_kernel_tensor_core_ops"] == 0:
+        raise AssertionError("the bf16 flash kernel has no HGMMA / HMMA in "
+                             "its SASS")
+    return res
 
 
 def card_line() -> str:
@@ -467,6 +509,29 @@ def check_kernels(seed: int) -> dict:
                      paged_case(g, B, H, Hkv, D, bs, plen, new, k, step,
                                 dtype), dtype, 50)
         main.setdefault("paged_decode_attention", r)
+    # the flash kernel's 64-row tile and two-stage ring edges, a window that
+    # crosses kv tiles; the dense decode kernel at the serve batch where the
+    # wrapper's planner changes its split (and one slot before), and with
+    # splits that hold no valid slot (100 of 288 filled)
+    from repro_torch.kernels.decode_attention.ops import split_plan
+    for dtype in (bf, f32):
+        plans = [split_plan(B, w, H, Hkv, D, D, dtype, torch.device("cuda"))
+                 for w in range(1, W + 1)]
+        edges = [w for w in range(2, W + 1) if plans[w - 1] != plans[w - 2]]
+        emit("decode-split-edges", dict(dtype=str(dtype).split(".")[-1],
+                                        edges={w: plans[w - 1]
+                                               for w in edges}))
+        for S in (1, 63, 65, 127, 129, 257):
+            run_case("flash_attention", f"edge-S{S}",
+                     flash_case(g, 2, S, 8, 2, D, D, dtype), dtype, 5)
+        run_case("flash_attention", "window-crosses-tiles",
+                 flash_case(g, 2, 300, 8, 2, D, D, dtype, window=100),
+                 dtype, 5)
+        for w in sorted({x for e in edges for x in (e - 1, e)}):
+            run_case("decode_attention", f"split-W{w}",
+                     decode_case(g, B, w, H, Hkv, D, w, dtype), dtype, 10)
+        run_case("decode_attention", "empty-splits",
+                 decode_case(g, B, W, H, Hkv, D, 100, dtype), dtype, 20)
     # larger chatglm3-6b shapes
     run_case("flash_attention", "S2048",
              flash_case(g, 4, 2048, H, Hkv, D, D, bf), bf, 5)
@@ -924,6 +989,7 @@ def main() -> int:
     secs = build.build(force=True)
     emit("build", dict(wall_s=time.perf_counter() - t0, per_source_s=secs,
                        nvcc=build.nvcc_path()))
+    check_flash_sass()
 
     main_cases = check_kernels(args.seed)
     counts = serve(args.seed)

@@ -12,26 +12,59 @@
 // elements, i.e. O(Sq) FLOPs per byte -- above the ~295 FLOP/byte ridge from a
 // few hundred tokens on.
 //
-// What the design does about it:
-//  * One block per (64-query tile, head, batch); the TPU's sequential kv grid
-//    axis becomes a loop inside the block over 64-key tiles, with the running
-//    (m, l) per row and the f32 output accumulator in shared memory.
-//  * The causal and window bounds cut the loop: tiles wholly above the
-//    diagonal or left of the window are never loaded, halving causal work.
+// Two kernels, chosen by the input type:
+//
+// bf16: the tensor cores (`flash_attention_tc_kernel`).
+//  * One block per (64-query tile, head, batch): one consumer warpgroup and
+//    one producer warp. The TPU's sequential kv grid axis becomes the
+//    consumer's loop over 64-key tiles; the query tiles run longest first.
+//  * S = Q . K^T is a wgmma (m64n64k16) with Q and K tiles in shared memory;
+//    the f32 accumulator is the score tile, and the online softmax runs on
+//    it in registers (row max and row sum across the four threads of a row
+//    by shuffles; exp2 of scores pre-scaled by log2(e)). P is rounded to
+//    bf16 in registers and is the A operand of O += P . V (a register-A
+//    wgmma); V is read from shared memory through the transpose mode of
+//    16-bit wgmma. O stays in registers across the kv loop. Rounding P to
+//    bf16 departs from the TPU kernel's f32 `p @ v` by about 2^-9 relative.
+//  * Q, K and V arrive by TMA (4-D tensor maps over the (B, S, heads, D)
+//    layout, built on the host with cuTensorMapEncodeTiled from libcuda,
+//    linked with -lcuda) in 64-column, 128-byte swizzled tiles. K/V tiles
+//    fill a ring of two stages, each with a full and an empty mbarrier: the
+//    producer keeps the next tile in flight while the consumers compute.
+//  * Ragged Sq and Sk, and head dims that are no multiple of 64, are zero
+//    filled by TMA out of bounds (D = 48 is three 16-wide k steps of a
+//    zero-padded 64-column tile); nothing is padded or copied on the host.
+//  * The causal and window bounds cut the kv loop; only tiles that cross
+//    the diagonal, the window's edge or Sk are masked element by element. A
+//    row with nothing valid comes out 0 through the TPU kernel's m_safe /
+//    alpha / max(l, 1e-20) guard.
+//  * Tried and measured no faster at chatglm's prefill (PERF.md):
+//    persistent blocks with a double-buffered Q, and running one tile's
+//    softmax while the previous tile's P . V is on the tensor cores. Not
+//    tried: a second consumer warpgroup (128 query rows a block), packing
+//    the query heads of a kv head into one block, 128-key tiles.
+//
+// f32: scalar f32 FMAs (`flash_attention_kernel<float>`), kept for the f32
+// checks that hold the kernel to its plain version at 1e-4: TF32 tensor
+// cores keep about three decimal digits.
+//  * One block per (64-query tile, head, batch), the running (m, l) per row
+//    and the f32 output accumulator in shared memory.
 //  * Each thread computes a 4x4 tile of scores and a 4 x (Dv/16) tile of the
 //    output from shared memory; K rows are padded to D + 1 floats so the 16
 //    keys a warp reads at one depth fall in 16 different banks.
 //  * Ragged Sq and Sk are masked in the kernel (k_pos < Sk, q rows >= Sq are
-//    not written); nothing is padded or copied. A row with nothing valid
-//    comes out 0 through the TPU kernel's m_safe / alpha / max(l, 1e-20)
-//    guard.
-// Simple first: scalar f32 FMAs, not the tensor cores. Moving the two
-// products to wgmma on bf16 tiles is the work that makes it fast.
+//    not written), and the causal and window bounds cut the kv loop.
+#include <cuda.h>
+
+#include <cstdint>
+
 #include "common.cuh"
 
 using namespace repro;
 
 namespace {
+
+// ------------------------------------------------------------------ f32
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
@@ -170,23 +203,388 @@ __global__ void flash_attention_kernel(const T* __restrict__ q, const T* __restr
   }
 }
 
-size_t smem_bytes(int D, int Dv) {
+size_t f32_smem_bytes(int D, int Dv) {
   return sizeof(float) * ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * Dv +
                           (size_t)BQ * (BK + 1) + (size_t)BQ * Dv + 3 * (size_t)BQ);
 }
 
-template <typename T>
+
+// ------------------------------------------------------- bf16, tensor cores
+
+namespace tc {
+
+constexpr int BM = 64;                 // query rows per block: one wgmma M
+constexpr int BN = 64;                 // keys per kv tile
+constexpr int CHUNK = 64;              // head-dim columns per 128-byte tile row
+constexpr int TILE_BYTES = 64 * 128;   // one 64-row, 64-column bf16 tile
+constexpr int STAGES = 2;              // K/V ring depth
+constexpr int CONSUMERS = 128;         // one warpgroup
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a 4-D tensor map (64 columns x 1 head x 64 rows x 1 batch) into
+// shared memory; completion is counted on ``bar`` in bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(head), "r"(row),
+      "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte swizzled tile (1024-byte
+// aligned): lbo / sbo in bytes.
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup's wgmma are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D (64 x 64, f32, registers) (+)= A (64 x 16, shared) . B (64 x 16, shared)^T, both
+// K-major in 128-byte swizzled tiles; accumulate = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da, uint64_t db,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, f32, registers) += P (64 x 16, bf16, registers) . V (16 x 64, shared,
+// MN-major in 128-byte swizzled tiles, read through the transpose mode).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32, registers) += P (64 x 16, bf16, registers) . V (16 x 128, shared,
+// MN-major in 128-byte swizzled tiles, read through the transpose mode).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+      " %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+      " %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int NV>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t db) {
+  if constexpr (NV == 64)
+    wgmma_m64n64k16_rs(o, a, db);
+  else
+    wgmma_m64n128k16_rs(o, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// NV: the width of O's accumulator, Dv rounded up to 64 or 128.
+template <int NV>
+__global__ void __launch_bounds__(THREADS, 2)
+    flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int Hkv,
+                              int D, int Dv, float scale_log2, int has_window, int window) {
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // the longest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const int nD = (D + CHUNK - 1) / CHUNK;
+  const int nDv = (Dv + CHUNK - 1) / CHUNK;
+  const int stage_bytes = (nD + nDv) * TILE_BYTES;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* ring = qs + nD * TILE_BYTES;  // stage s: nD K tiles, then nDv V tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * stage_bytes);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  // keys any row of this tile can see
+  const int k_begin = has_window ? max(0, q0 - window + 1) / BN * BN : 0;
+  const int k_end = min(Sk, min(Sq, q0 + BM));
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // producer: one thread issues every copy
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(qbar, nD * TILE_BYTES);
+      for (int c = 0; c < nD; ++c)
+        tma_load(qs + c * TILE_BYTES, &qmap, qbar, c * CHUNK, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);  // the first round passes
+        unsigned char* st = ring + s * stage_bytes;
+        const int k0 = k_begin + i * BN;
+        mbar_expect_tx(&full[s], stage_bytes);
+        for (int c = 0; c < nD; ++c)
+          tma_load(st + c * TILE_BYTES, &kmap, &full[s], c * CHUNK, kvh, k0, b);
+        for (int c = 0; c < nDv; ++c)
+          tma_load(st + (nD + c) * TILE_BYTES, &vmap, &full[s], c * CHUNK, kvh, k0, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warp w holds rows 16w .. 16w+15 of every accumulator; a thread
+  // holds rows r and r + 8 (r = 16w + lane/4), columns 8j + 2(lane%4) + {0,1}
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row_a = q0 + warp * 16 + (lane >> 2);
+  const int col_t = 2 * (lane & 3);
+
+  float oacc[NV / 2];
+#pragma unroll
+  for (int i = 0; i < NV / 2; ++i) oacc[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+  const int ksteps = (D + 15) / 16;
+
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    const unsigned char* ks = ring + s * stage_bytes;
+    const unsigned char* vs = ks + nD * TILE_BYTES;
+    const int k0 = k_begin + i * BN;
+
+    float sacc[BN / 2];
+    wgmma_fence();
+    for (int t = 0; t < ksteps; ++t) {
+      const int off = (t >> 2) * TILE_BYTES + (t & 3) * 32;
+      wgmma_m64n64k16_ss(sacc, desc(qs + off, 16, 1024), desc(ks + off, 16, 1024), t > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // mask only tiles that cross Sk, the diagonal or the window's edge
+    const bool need_mask = !(k0 + BN <= Sk && k0 + BN - 1 <= q0 &&
+                             (!has_window || k0 > q0 + BM - 1 - window));
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sacc[4 * j + e] * scale_log2;
+        if (need_mask) {
+          const int row = row_a + 8 * (e >> 1);
+          const int col = k0 + 8 * j + col_t + (e & 1);
+          bool ok = col < Sk && col <= row;
+          if (has_window) ok = ok && col > row - window;
+          x = ok ? x : NEG_INF;
+        }
+        sacc[4 * j + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float m_safe[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      m_safe[r] = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
+      alpha[r] = m_run[r] <= NEG_INF * 0.5f ? 0.f : exp2f(m_run[r] - m_safe[r]);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+    uint32_t pa[BN / 16][4];  // P as the A fragments of four k16 steps
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sacc[4 * j + e];
+        p[e] = x > NEG_INF * 0.5f ? exp2f(x - m_safe[e >> 1]) : 0.f;
+        l_run[e >> 1] += p[e];
+      }
+      pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < NV / 8; ++j) {
+      oacc[4 * j + 0] *= alpha[0];
+      oacc[4 * j + 1] *= alpha[0];
+      oacc[4 * j + 2] *= alpha[1];
+      oacc[4 * j + 3] *= alpha[1];
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BN / 16; ++t)
+      wgmma_pv<NV>(oacc, pa[t], desc(vs + t * 16 * 128, TILE_BYTES, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(&empty[s]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / fmaxf(l, 1e-20f);
+  }
+#pragma unroll
+  for (int j = 0; j < NV / 8; ++j) {
+    const int col = 8 * j + col_t;
+    if (col >= Dv) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (row < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(o + (((long long)b * Sq + row) * H + h) * Dv + col) =
+            __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv[r], oacc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+size_t smem_bytes(int D, int Dv) {
+  const size_t nD = (D + CHUNK - 1) / CHUNK, nDv = (Dv + CHUNK - 1) / CHUNK;
+  return 1024 + TILE_BYTES * (nD + STAGES * (nD + nDv)) + sizeof(uint64_t) * (2 * STAGES + 1);
+}
+
+// (B, S, heads, d) bf16 as a 4-D tensor map of 64 x 1 x 64 x 1 boxes, 128-byte
+// swizzled; out-of-bounds elements read as zeros.
+CUresult encode(CUtensorMap* map, const void* ptr, int d, int heads, int seq, int batch) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)seq * heads * d * 2};
+  const cuuint32_t box[4] = {CHUNK, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
            int Hkv, int D, int Dv, float scale, int has_window, int window, void* stream) {
+  CUtensorMap qmap, kmap, vmap;
+  CUresult r = encode(&qmap, q, D, H, Sq, B);
+  if (r == CUDA_SUCCESS) r = encode(&kmap, k, D, Hkv, Sk, B);
+  if (r == CUDA_SUCCESS) r = encode(&vmap, v, Dv, Hkv, Sk, B);
+  if (r != CUDA_SUCCESS) return (int)r;
   const size_t smem = smem_bytes(D, Dv);
-  auto kern = flash_attention_kernel<T>;
+  auto kern = Dv <= 64 ? flash_attention_tc_kernel<64> : flash_attention_tc_kernel<128>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Sq + BM - 1) / BM, H, B);
+  kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(qmap, kmap, vmap, (__nv_bfloat16*)o, Sq,
+                                                      Sk, H, Hkv, D, Dv, scale * LOG2E,
+                                                      has_window, window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+               int H, int Hkv, int D, int Dv, float scale, int has_window, int window,
+               void* stream) {
+  const size_t smem = f32_smem_bytes(D, Dv);
+  auto kern = flash_attention_kernel<float>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                                      (T*)o, Sq, Sk, H, Hkv, D, Dv, scale,
-                                                      has_window, window);
+  kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>((const float*)q, (const float*)k,
+                                                      (const float*)v, (float*)o, Sq, Sk, H,
+                                                      Hkv, D, Dv, scale, has_window, window);
   return (int)cudaGetLastError();
 }
 
@@ -196,16 +594,19 @@ extern "C" {
 
 // Shared memory one block needs; the wrapper refuses shapes above the card's
 // 227 KB per block.
-size_t flash_attention_smem_bytes(int D, int Dv) { return smem_bytes(D, Dv); }
+size_t flash_attention_smem_bytes(int D, int Dv, int is_bf16) {
+  return is_bf16 ? tc::smem_bytes(D, Dv) : f32_smem_bytes(D, Dv);
+}
 
+// bf16: the tensor-core kernel, which takes D and Dv multiples of 8 (16-byte
+// rows for TMA), Dv <= 128 and 16-byte aligned q, k, v (the wrapper checks);
+// a failed tensor-map encode returns its CUresult. f32: the scalar kernel.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                         int Sk, int H, int Hkv, int D, int Dv, float scale, int has_window,
                         int window, int is_bf16, void* stream) {
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Hkv, D, Dv, scale, has_window,
-                                 window, stream);
-  return launch<float>(q, k, v, o, B, Sq, Sk, H, Hkv, D, Dv, scale, has_window, window,
-                       stream);
+    return tc::launch(q, k, v, o, B, Sq, Sk, H, Hkv, D, Dv, scale, has_window, window, stream);
+  return launch_f32(q, k, v, o, B, Sq, Sk, H, Hkv, D, Dv, scale, has_window, window, stream);
 }
 
 }  // extern "C"

@@ -33,8 +33,10 @@ SOURCES = {
     "moe_gemm": "moe_gemm.cu",
     "ssd_scan": "ssd_scan.cu",
 }
+# -lcuda: the flash kernel encodes its TMA tensor maps with the driver's
+# cuTensorMapEncodeTiled (the card's libcuda.so.1 is loaded at run time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -3,15 +3,17 @@ versions for CPU tensors.
 
 The kernels (``repro_torch/csrc/decode_attention.cu``) replace the TPU
 kernels `decode_attention_pallas` and `paged_decode_attention_pallas` in
-``src/repro/kernels/decode_attention/decode_attention.py``. Each wrapper's
-``launches`` attribute counts its kernel's launches; the CPU path does not
-count.
+``src/repro/kernels/decode_attention/decode_attention.py``. The dense ring
+splits its slot axis across blocks (`split.plan_splits`) and merges the
+splits' partials in the same launch through a per-device workspace. Each
+wrapper's ``launches`` attribute counts its kernel's launches, one a call;
+the CPU path does not count.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -19,6 +21,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import check_launch, check_tensors, stream_of
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
+from repro_torch.kernels.decode_attention.split import plan_splits
 from repro_torch.obs.profiling import kernel_scope
 
 _P = ctypes.c_void_p
@@ -28,15 +31,60 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
-    lib.decode_attention_fwd.argtypes = [_P] * 6 + [_I] * 6 + [
-        ctypes.c_float, _I, _I, _I, _P]
+    lib.decode_attention_fwd.argtypes = [_P] * 8 + [_I] * 6 + [
+        ctypes.c_float] + [_I] * 6 + [_P]
     lib.decode_attention_fwd.restype = _I
     lib.paged_decode_attention_fwd.argtypes = [_P] * 7 + [_I] * 8 + [
         ctypes.c_float, _I, _P]
     lib.paged_decode_attention_fwd.restype = _I
     lib.decode_attention_smem_bytes.argtypes = [_I, _I, _I]
     lib.decode_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.decode_attention_split_smem_bytes.argtypes = [_I, _I, _I]
+    lib.decode_attention_split_smem_bytes.restype = ctypes.c_size_t
+    lib.decode_attention_split_blocks_per_sm.argtypes = [_I, _I, _I, _I]
+    lib.decode_attention_split_blocks_per_sm.restype = _I
     return lib
+
+
+_workspaces: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(group: int, D: int, Dv: int, is_bf16: bool) -> int:
+    return _lib().decode_attention_split_blocks_per_sm(group, D, Dv,
+                                                       int(is_bf16))
+
+
+def split_plan(B: int, W: int, H: int, Hkv: int, D: int, Dv: int,
+               dtype: torch.dtype,
+               device: torch.device) -> Tuple[int, int, int]:
+    """`plan_splits` as the dense wrapper calls it on ``device``: with the
+    card's SM count and the kernel's occupancy at these head dims."""
+    return plan_splits(B, Hkv, W, H // Hkv, _sm_count(device),
+                       _blocks_per_sm(H // Hkv, D, Dv,
+                                      dtype == torch.bfloat16))
+
+
+def _workspace(device: torch.device, n_counters: int,
+               n_part: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense kernel's scratch on ``device``, allocated once and grown
+    when a call needs more: int32 merge counters, zero between launches
+    (each launch leaves them 0), and f32 split partials. Kernels on one
+    stream share it; calls on two streams at once would race."""
+    counters, part = _workspaces.get(device, (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32,
+                               device=device)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
+                           device=device)
+    _workspaces[device] = (counters, part)
+    return counters, part
 
 
 def _check_q(op: str, q: torch.Tensor, kv_heads: int, d_k: int) -> None:
@@ -50,8 +98,7 @@ def _check_q(op: str, q: torch.Tensor, kv_heads: int, d_k: int) -> None:
         raise ValueError(f"{op}: q head dim {D} != key head dim {d_k}")
 
 
-def _check_smem(op: str, lib: ctypes.CDLL, group: int, D: int, Dv: int):
-    smem = lib.decode_attention_smem_bytes(group, D, Dv)
+def _check_smem(op: str, smem: int, group: int, D: int, Dv: int):
     if smem > build.MAX_SMEM_PER_BLOCK:
         raise ValueError(f"{op}: group {group}, D={D}, Dv={Dv} need {smem} B "
                          f"of shared memory per block "
@@ -86,17 +133,35 @@ def decode_attention_cache(q: torch.Tensor, k_cache: torch.Tensor,
     if window is not None and window < 1:
         raise ValueError(f"{op}: window {window} must be >= 1")
     H, Dv = q.shape[2], v_cache.shape[3]
+    is_bf16 = q.dtype == torch.bfloat16
+    for n, name in ((D, "D"), (Dv, "Dv")):
+        row = n * q.element_size()
+        if row % 16 or row > 1024:
+            raise ValueError(f"{op}: head dim {name}={n} gives {row}-byte "
+                             "rows; the kernel takes multiples of 16 bytes "
+                             "up to 1024")
+    for t in (q, k_cache, v_cache):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{op}: q and the caches must start on a "
+                             "16-byte boundary")
     lib = _lib()
-    _check_smem(op, lib, H // Hkv, D, Dv)
+    _check_smem(op, lib.decode_attention_split_smem_bytes(D, Dv, int(is_bf16)),
+                H // Hkv, D, Dv)
     if scale is None:
         scale = D ** -0.5
+    n_split, split_slots, n_hb = split_plan(B, W, H, Hkv, D, Dv, q.dtype,
+                                            q.device)
+    counters, part = _workspace(q.device, B * Hkv * n_hb,
+                                B * H * n_split * (Dv + 2))
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
     with kernel_scope(op, cuda=True):
         err = lib.decode_attention_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             pos.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+            part.data_ptr(), counters.data_ptr(),
             B, W, H, Hkv, D, Dv, float(scale), int(window is not None),
-            int(window or 0), int(q.dtype == torch.bfloat16), stream_of(q))
+            int(window or 0), n_split, split_slots, n_hb, int(is_bf16),
+            stream_of(q))
     check_launch(op, err)
     decode_attention_cache.launches += 1
     return out
@@ -140,7 +205,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(q_pos.shape)} disagree")
     H, Dv = q.shape[2], v_pool.shape[3]
     lib = _lib()
-    _check_smem(op, lib, H // Hkv, D, Dv)
+    _check_smem(op, lib.decode_attention_smem_bytes(H // Hkv, D, Dv),
+                H // Hkv, D, Dv)
     if scale is None:
         scale = D ** -0.5
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)

@@ -1,9 +1,13 @@
-"""Flash attention wrapper: the Hopper kernel for CUDA tensors, the plain
+"""Flash attention wrapper: the Hopper kernels for CUDA tensors, the plain
 version for CPU tensors.
 
-The kernel (``repro_torch/csrc/flash_attention.cu``) replaces the TPU kernel
+The kernels (``repro_torch/csrc/flash_attention.cu``) replace the TPU kernel
 `flash_attention_pallas` in ``src/repro/kernels/flash_attention/
-flash_attention.py``. ``flash_attention.launches`` counts the kernel's
+flash_attention.py``. The wrapper dispatches on the dtype to two
+hand-written kernels: bf16 runs on the tensor cores (wgmma, K/V by TMA),
+f32 on scalar f32 FMAs, since the f32 path is held to its plain version at
+1e-4 and TF32 tensor cores keep about three decimal digits. A CUDA tensor
+launches one of them or raises. ``flash_attention.launches`` counts the
 launches; the CPU path does not count.
 """
 from __future__ import annotations
@@ -29,9 +33,24 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P] + [_I] * 7 + [
         ctypes.c_float, _I, _I, _I, _P]
     lib.flash_attention_fwd.restype = _I
-    lib.flash_attention_smem_bytes.argtypes = [_I, _I]
+    lib.flash_attention_smem_bytes.argtypes = [_I, _I, _I]
     lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+def _check_tc_shapes(q, k, v, D: int, Dv: int) -> None:
+    """What the bf16 tensor-core kernel takes: TMA rows of a multiple of 16
+    bytes from 16-byte aligned bases, and an output accumulator of at most
+    128 columns."""
+    if D % 8 or Dv % 8:
+        raise ValueError(f"flash_attention: bf16 head dims D={D}, Dv={Dv} "
+                         "must be multiples of 8")
+    if Dv > 128:
+        raise ValueError(f"flash_attention: bf16 value head dim {Dv} > 128")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention: bf16 inputs must start on a "
+                             "16-byte boundary")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -58,8 +77,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} must be >= 1")
     Dv = v.shape[3]
+    is_bf16 = q.dtype == torch.bfloat16
+    if is_bf16:
+        _check_tc_shapes(q, k, v, D, Dv)
     lib = _lib()
-    smem = lib.flash_attention_smem_bytes(D, Dv)
+    smem = lib.flash_attention_smem_bytes(D, Dv, int(is_bf16))
     if smem > build.MAX_SMEM_PER_BLOCK:
         raise ValueError(f"flash_attention: head dims D={D}, Dv={Dv} need "
                          f"{smem} B of shared memory per block "
@@ -72,7 +94,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Sk, H, Hkv, D, Dv, float(scale),
             int(window is not None), int(window or 0),
-            int(q.dtype == torch.bfloat16), stream_of(q))
+            int(is_bf16), stream_of(q))
     check_launch("flash_attention", err)
     flash_attention.launches += 1
     return out

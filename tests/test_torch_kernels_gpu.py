@@ -62,6 +62,15 @@ FLASH_SHAPES = [
     (2, 50, 50, 4, 1, 32, 32, 8),
     (1, 70, 70, 4, 2, 48, 32, None),       # Dv != D (MLA prefill)
     (2, 200, 200, 32, 2, 128, 128, None),  # chatglm widths
+    # Sq and Sk at the 64-row tile and two-stage ring edges
+    (1, 1, 1, 4, 2, 64, 64, None), (2, 63, 63, 4, 2, 64, 64, None),
+    (1, 65, 65, 4, 2, 128, 128, None), (1, 127, 127, 8, 2, 128, 128, None),
+    (2, 129, 129, 4, 1, 64, 64, None), (1, 257, 257, 32, 2, 128, 128, None),
+    (1, 65, 129, 4, 2, 64, 64, None),      # Sq < Sk
+    (1, 129, 65, 4, 2, 64, 64, None),      # Sq > Sk: rows past Sk
+    (1, 257, 257, 16, 16, 192, 128, None),  # MLA prefill: D 192, Dv 128
+    (1, 300, 300, 8, 2, 128, 128, 100),    # a window that crosses kv tiles
+    (2, 129, 129, 4, 2, 32, 16, 70),
 ]
 
 
@@ -87,6 +96,16 @@ DECODE_SHAPES = [
     (1, 100, 8, 2, 64, 77, None),          # W not a multiple of the tile
     (2, 64, 4, 2, 32, 64, 16),             # windowed
     (3, 300, 32, 2, 128, 250, None),       # chatglm widths, ragged
+    # chatglm's serve batch (32 sequences, 2 kv heads, g = 16): one tile and
+    # one more slot, 160 and 161 slots, the serve's W = 288, and splits that
+    # hold no valid slot (the planner's change points on this card: below)
+    (32, 32, 32, 2, 128, 32, None), (32, 33, 32, 2, 128, 33, None),
+    (32, 160, 32, 2, 128, 160, None), (32, 161, 32, 2, 128, 161, None),
+    (32, 288, 32, 2, 128, 272, None), (32, 288, 32, 2, 128, 100, None),
+    (32, 2048, 32, 2, 128, 2000, None),
+    (32, 288, 24, 8, 64, 272, None),       # granite: g = 3, D = 64
+    (32, 288, 32, 8, 128, 272, None),      # jamba: g = 4
+    (32, 300, 32, 2, 128, 300, 40),        # a window inside one split
 ]
 
 
@@ -110,6 +129,55 @@ def test_decode_attention_kernel(cuda, shape, dtype):
     _close(out, decode_attention_ref(q, kc, vc, pos, q_pos, window=window),
            dtype)
     assert torch.all(out[-1] == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_where_the_plan_changes(cuda, dtype):
+    """Every cache length up to 320 slots at which the wrapper's planner
+    (this card's SM count and the kernel's occupancy) changes the split of
+    chatglm's decode batch, and the length just before it."""
+    from repro_torch.kernels.decode_attention.ops import split_plan
+    B, H, Hkv, D = 32, 32, 2, 128
+    plans = [split_plan(B, W, H, Hkv, D, D, dtype, cuda)
+             for W in range(1, 321)]
+    edges = [W for W in range(2, 321) if plans[W - 1] != plans[W - 2]]
+    assert len({p[0] for p in plans}) > 1, plans
+    rng = np.random.default_rng(13)
+    for W in sorted({w for e in edges for w in (e - 1, e)}):
+        q = _randn(rng, (B, 1, H, D), dtype, cuda)
+        kc = _randn(rng, (B, W, Hkv, D), dtype, cuda)
+        vc = _randn(rng, (B, W, Hkv, D), dtype, cuda)
+        pos = torch.arange(W, dtype=torch.int32, device=cuda).repeat(B, 1)
+        pos[1] = -1                         # a row with every slot empty
+        q_pos = torch.full((B,), W - 1, dtype=torch.int32, device=cuda)
+        out = decode_attention_cache(q, kc, vc, pos, q_pos)
+        torch.cuda.synchronize()
+        _close(out, decode_attention_ref(q, kc, vc, pos, q_pos), dtype)
+        assert torch.all(out[1] == 0)
+
+
+def test_decode_split_merge_counters_reset_between_calls(cuda):
+    """Calls in a row on different shapes: each launch's last block per
+    (sequence, kv head) merges and sets its counter back to 0, so the next
+    launch, on another grid, merges right too."""
+    from repro_torch.kernels.decode_attention.ops import split_plan
+    rng = np.random.default_rng(12)
+    shapes = [(32, 288, 32, 2, 128, 272), (3, 1001, 8, 2, 64, 777),
+              (32, 288, 32, 2, 128, 100), (8, 97, 24, 8, 64, 97)]
+    assert len({split_plan(B, W, H, Hkv, D, D, torch.bfloat16, cuda)
+                for B, W, H, Hkv, D, _ in shapes}) > 1
+    for B, W, H, Hkv, D, filled in shapes * 2:
+        q = _randn(rng, (B, 1, H, D), torch.bfloat16, cuda)
+        kc = _randn(rng, (B, W, Hkv, D), torch.bfloat16, cuda)
+        vc = _randn(rng, (B, W, Hkv, D), torch.bfloat16, cuda)
+        pos = np.full((B, W), -1, np.int32)
+        pos[:, :filled] = np.arange(filled)
+        pos = torch.from_numpy(pos).to(cuda)
+        q_pos = torch.full((B,), filled - 1, dtype=torch.int32, device=cuda)
+        out = decode_attention_cache(q, kc, vc, pos, q_pos)
+        torch.cuda.synchronize()
+        _close(out, decode_attention_ref(q, kc, vc, pos, q_pos),
+               torch.bfloat16)
 
 
 PAGED_SHAPES = [
