@@ -8,8 +8,8 @@ Phases, each of which fails the script on error:
    then build every CUDA kernel of the port from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once) and print the build time. Count
    the tensor-core instructions (``HGMMA``, ``HMMA``) of each kernel in the
-   flash library's SASS (``cuobjdump -sass``): the run fails if the bf16
-   flash kernel has none.
+   flash and MoE libraries' SASS (``cuobjdump -sass``): the run fails if
+   the bf16 flash kernel or the MoE TMA + wgmma kernel has no ``HGMMA``.
 2. Hold each kernel against its plain PyTorch version on the card: at the
    shapes the serving runs below give it, at larger chatglm3-6b shapes, and
    at ragged shapes (lengths that are not multiples of the tile, sequence
@@ -17,7 +17,10 @@ Phases, each of which fails the script on error:
    dense decode kernel's planner changes its number of splits and splits
    that hold no valid slot, a row whose cache slots are all empty, int4
    groups of 32, 24 and 8 rows, the MoE kernel test shapes of the
-   reference). One JSON line per case with the largest error, the kernel's
+   reference). The MoE and int4 cases print the route the wrapper's
+   planner took (``moe_gemm``: the TMA + wgmma kernel or the cp.async one,
+   with its tiles; int4: the split-K kernel with its strips and slices, or
+   the tiled one). One JSON line per case with the largest error, the kernel's
    time, the plain version's and, where one PyTorch call computes the same
    function, that call's (``library_ms``, timed here as a yardstick; the
    port never calls it: ``torch.bmm`` for the grouped expert GEMM; none for
@@ -57,7 +60,12 @@ Phases, each of which fails the script on error:
    and paged) and deepseek (dense), then mamba2 (2 layers) and, last, jamba
    at one super-block (8 layers, about 53 GB of f32 weights), both over
    prompts of 300 tokens, which cross a 256-row chunk and pad a tail; each
-   must give the same tokens and log-probabilities within 1e-3.
+   must give the same tokens and log-probabilities within 1e-3. Before
+   them, as information and not a gate, the same greedy comparison in
+   bf16, where the new tensor-core kernels run: granite at its 2 MoE
+   layers (dense) and chatglm3-6b at 2 layers in int4 weights (paged): the
+   share of equal tokens, the equal sequences and the largest
+   log-probability difference.
 5. Print the script's wall time (the build included), the ``kernels``
    JSON line, the card again, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -157,20 +165,22 @@ def tensor_core_sass(lib: Path) -> dict:
     return counts
 
 
-def check_flash_sass() -> dict:
-    """Fail unless the bf16 flash kernel runs on the tensor cores."""
+def check_sass() -> dict:
+    """Fail unless the bf16 flash kernel and the MoE TMA + wgmma kernel run
+    on wgmma (``HGMMA``)."""
     from repro_torch.kernels import build
-    counts = tensor_core_sass(build.library_path("flash_attention"))
-    tc = {fn: c for fn, c in counts.items()
-          if "flash_attention_tc_kernel" in fn}
-    res = dict(library="flash_attention", by_kernel=counts,
-               bf16_kernel_tensor_core_ops=sum(sum(c.values())
-                                               for c in tc.values()))
-    emit("sass", res)
-    if not tc or res["bf16_kernel_tensor_core_ops"] == 0:
-        raise AssertionError("the bf16 flash kernel has no HGMMA / HMMA in "
-                             "its SASS")
-    return res
+    out = {}
+    for lib, kernel in (("flash_attention", "flash_attention_tc_kernel"),
+                        ("moe_gemm", "moe_gemm_tc_kernel")):
+        counts = tensor_core_sass(build.library_path(lib))
+        tc = {fn: c for fn, c in counts.items() if kernel in fn}
+        res = dict(library=lib, by_kernel=counts, kernel=kernel,
+                   hgmma=sum(c["HGMMA"] for c in tc.values()))
+        emit("sass", res)
+        if not tc or res["hgmma"] == 0:
+            raise AssertionError(f"{kernel} has no HGMMA in its SASS")
+        out[lib] = res
+    return out
 
 
 def card_line() -> str:
@@ -347,6 +357,7 @@ def dequant_case(g, fmt, M, K, N, dtype, gs=32):
                             dequantize_int4)
     del w
     case = dict(args=(x, qw, scale), kw={}, kernel=kern, plain=plain,
+                route=int4_route if fmt == "int4" else None,
                 bytes=nbytes(x, qw, scale) + M * N * x.element_size(),
                 flops=2 * M * K * N,
                 shape=dict(M=M, K=K, N=N, fmt=fmt,
@@ -369,6 +380,19 @@ def dequant_case(g, fmt, M, K, N, dtype, gs=32):
     return case
 
 
+def int4_route(x, packed, scale) -> dict:
+    """The int4 wrapper's plan: the split-K kernel and its split, or the
+    tiled kernel."""
+    from repro_torch.kernels.dequant_matmul.ops import int4_plan
+    return int4_plan(x, packed, scale)._asdict()
+
+
+def moe_route(x, w) -> dict:
+    """The MoE wrapper's plan: the kernel and its tiles."""
+    from repro_torch.kernels.moe_gemm.ops import moe_plan
+    return moe_plan(x, w)._asdict()
+
+
 def moe_case(g, E, C, D, F, dtype):
     """x (E, C, d) @ w (E, d, f) per expert, w drawn as the model draws an
     expert weight (normal * d^-1/2)."""
@@ -378,6 +402,7 @@ def moe_case(g, E, C, D, F, dtype):
     w = (torch.randn((E, D, F), generator=g, device="cuda")
          * D ** -0.5).to(dtype)
     return dict(args=(x, w), kw={}, kernel=moe_gemm, plain=moe_gemm_ref,
+                route=moe_route,
                 bytes=nbytes(x, w) + E * C * F * x.element_size(),
                 flops=2 * E * C * D * F, library=torch.bmm,
                 shape=dict(E=E, C=C, d=D, f=F))
@@ -454,6 +479,7 @@ def run_case(name: str, label: str, case, dtype, iters: int) -> dict:
     res = dict(kernel=name, case=label, dtype=str(dtype).split(".")[-1],
                shape=case["shape"], max_abs_err=float(err.max()), tol=tol,
                ok=ok,
+               route=case["route"](*args) if case.get("route") else None,
                kernel_ms=time_ms(lambda *a: kern(*a, **kw), sets, iters),
                plain_ms=time_ms(lambda *a: plain(*a, **kw), sets,
                                 max(2, iters // 4)),
@@ -574,6 +600,12 @@ def check_kernels(seed: int) -> dict:
                  bf, 50)
         run_case(name, "prefill", dequant_case(g, fmt, R * plen, D_MODEL,
                                                D_FF, bf), bf, 10)
+        if fmt == "int4":
+            # the split-K kernel's other row tiles: 16 rows (the int4
+            # parity run decodes 16) and the most it takes, 64
+            for M in (16, 64):
+                run_case(name, f"M{M}", dequant_case(g, fmt, M, D_MODEL, D_FF,
+                                                     bf), bf, 50)
         for dtype in (bf, f32):
             for M, K, N, gs in ((5, 48, 19, 32), (1, 32, 130, 32),
                                 (17, 96, 33, 8)):
@@ -593,8 +625,9 @@ def check_kernels(seed: int) -> dict:
     # the grouped expert GEMM at the serves' shapes (E, C, d, f): granite
     # gate/up at decode (C = 8 of 32 sequences x top-8 / 40 experts), its
     # down, paged prefill (C = 512) and dense prefill (C = 2048); deepseek
-    # gate/up at decode (C = 6) and dense prefill (C = 960); then the
-    # reference's kernel-test shapes, ragged in every dim
+    # gate/up at decode (C = 6) and dense prefill (C = 960); jamba's at
+    # decode (C = 5) and prefill (C = 1280); then the reference's
+    # kernel-test shapes, ragged in every dim
     for dtype in (bf, f32):
         tag = "main" if dtype == bf else "main-f32"
         r = run_case("moe_gemm", tag, moe_case(g, 40, 8, 1536, 512, dtype),
@@ -607,7 +640,10 @@ def check_kernels(seed: int) -> dict:
                                  (40, 2048, 1536, 512), 10),
                                 ("deepseek-decode", (64, 6, 2048, 1408), 30),
                                 ("deepseek-prefill", (64, 960, 2048, 1408),
-                                 5)):
+                                 5),
+                                ("jamba-decode", (16, 5, 4096, 14336), 20),
+                                ("jamba-prefill", (16, 1280, 4096, 14336),
+                                 3)):
         run_case("moe_gemm", label, moe_case(g, *shape, bf), bf, iters)
     for dtype in (bf, f32):
         for shape in ((4, 32, 64, 128), (8, 100, 48, 96), (2, 8, 16, 8),
@@ -869,12 +905,12 @@ def serve_ssm(seed: int) -> dict:
     return counts
 
 
-def compare_paths(cfg, mk, mp, kparams, pparams, prompts, mode: str,
-                  weights: str, kv_format: str = "bf16") -> None:
+def serve_both(cfg, mk, mp, kparams, pparams, prompts, mode: str,
+               kv_format: str = "bf16") -> tuple:
     """Greedy serve through the kernel path (``mk``) and the plain path
-    (``mp``): the same tokens and log-probabilities within 1e-3, or raise.
-    For an MoE (SSM) arch the kernel path must have run the MoE (SSD)
-    kernel."""
+    (``mp``). Returns (sequences with equal tokens, sequences, the largest
+    log-probability difference, the share of equal tokens). For an MoE
+    (SSM) arch the kernel path must have run the MoE (SSD) kernel."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import ExecutionBackend, ServingEngine
     k, new = 2, 16
@@ -892,21 +928,63 @@ def compare_paths(cfg, mk, mp, kparams, pparams, prompts, mode: str,
                 raise AssertionError(f"{cfg.name} parity: the kernel path "
                                      f"never launched {name}")
         check_results(out[tag], cfg, k, new)
-    toks = [np.array_equal(a, b) for ra, rb in zip(out["kernel"],
-                                                  out["plain"])
-            for a, b in zip(ra.samples, rb.samples)]
+    pairs = [(a, b) for ra, rb in zip(out["kernel"], out["plain"])
+             for a, b in zip(ra.samples, rb.samples)]
     lp_err = max(abs(a - b) for ra, rb in zip(out["kernel"], out["plain"])
                  for a, b in zip(ra.logprobs, rb.logprobs))
+    same = np.stack([a == b for a, b in pairs])
+    return int(same.all(axis=1).sum()), len(pairs), lp_err, float(same.mean())
+
+
+def compare_paths(cfg, mk, mp, kparams, pparams, prompts, mode: str,
+                  weights: str, kv_format: str = "bf16") -> None:
+    """`serve_both` in f32: the same tokens and log-probabilities within
+    1e-3, or raise."""
+    equal, n, lp_err, _ = serve_both(cfg, mk, mp, kparams, pparams, prompts,
+                                     mode, kv_format)
     emit("parity-f32", dict(arch=cfg.name, mode=mode, weights=weights,
                             kv_format=kv_format, layers=cfg.n_layers,
                             prompt_len=len(prompts[0]),
-                            sequences=len(toks), tokens_equal=sum(toks),
+                            sequences=n, tokens_equal=equal,
                             max_logprob_diff=lp_err, tol=1e-3))
-    if not all(toks) or lp_err > 1e-3:
+    if equal != n or lp_err > 1e-3:
         raise AssertionError(f"f32 parity ({cfg.name} {mode}, {weights} "
-                             f"weights, {kv_format} KV): {sum(toks)}/"
-                             f"{len(toks)} sequences equal, logprob diff "
-                             f"{lp_err:.3e}")
+                             f"weights, {kv_format} KV): {equal}/{n} "
+                             f"sequences equal, logprob diff {lp_err:.3e}")
+
+
+def agreement_bf16(seed: int) -> None:
+    """Information, not a gate: `serve_both` in bf16, where the MoE TMA +
+    wgmma kernel and the split-K int4 kernel's tensor-core path run (phase
+    4's f32 path runs neither): granite at its 2 MoE layers, dense, and
+    chatglm3-6b at 2 layers in int4 weights, paged, against the plain path
+    over the dequantized weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.quant.quantize import dequantize_model, quantize_model
+    for arch, mode, wfmt in (("granite-moe-3b-a800m", "dense", "bf16"),
+                             ("chatglm3-6b", "paged", "int4")):
+        full = get_config(arch)
+        n_prefix = full.moe.first_dense if full.moe is not None else 0
+        cfg = dataclasses.replace(full, n_layers=n_prefix + 2)
+        mk = Model(cfg, dtype=torch.bfloat16, device="cuda", use_kernel=True)
+        mp = Model(cfg, dtype=torch.bfloat16, device="cuda",
+                   use_kernel=False)
+        params = mk.init(torch.Generator(device="cuda").manual_seed(seed + 2))
+        kparams = pparams = params
+        if wfmt == "int4":
+            kparams = quantize_model(params, wfmt, 32)
+            pparams = dequantize_model(kparams, torch.bfloat16)
+        prompts = make_prompts(cfg, seed + 2)
+        equal, n, lp_err, agree = serve_both(cfg, mk, mp, kparams, pparams,
+                                             prompts, mode)
+        emit("agreement-bf16", dict(arch=cfg.name, mode=mode, weights=wfmt,
+                                    layers=cfg.n_layers, sequences=n,
+                                    sequences_equal=equal,
+                                    token_agreement=agree,
+                                    max_logprob_diff=lp_err))
+        del params, kparams, pparams
+        torch.cuda.empty_cache()
 
 
 def parity(seed: int) -> None:
@@ -989,12 +1067,13 @@ def main() -> int:
     secs = build.build(force=True)
     emit("build", dict(wall_s=time.perf_counter() - t0, per_source_s=secs,
                        nvcc=build.nvcc_path()))
-    check_flash_sass()
+    check_sass()
 
     main_cases = check_kernels(args.seed)
     counts = serve(args.seed)
     counts.update(serve_moe(args.seed))
     counts.update(serve_ssm(args.seed))
+    agreement_bf16(args.seed)
     parity(args.seed)
 
     kernels = []

@@ -42,11 +42,58 @@
 //    tile that is.
 //  * f32 x: scalar f32 FMAs with the same groups (no TF32: the f32 path is
 //    held to the plain version at 1e-4).
-// Simple first: no wgmma or TMA, no split of K across blocks (a layer with
-// N = 256 has four blocks at decode). Those are later work.
+// These tiled kernels serve int8 at every M, and int4 at M > 64 where the
+// TMA + wgmma kernel below does not (f32 x; rows TMA cannot stride; groups
+// other than 16, 32, 64); they do not split K.
+//
+// int4 at M > 64 (prefill), bf16 x: `dequant_matmul_int4_tc_kernel` (see
+// its note): x and the packed weight arrive by TMA, the consumers
+// dequantize each stage into a swizzled bf16 tile that wgmma reads as B,
+// and each group's f32 partial is scaled into the accumulator.
+//
+// int4 at M <= 64 (decode): the split-K kernels
+// (`dequant_matmul_int4_splitk_*_kernel`).
+// At decode the tiled kernel's time per 64-row k tile was the same at every
+// shape, whatever its grid: the serial latency of a block's k loop, not
+// bytes, bounded it: a lone block waits on the latency of its own
+// instruction stream. So the design cuts instructions per weight byte and
+// spreads the loop over more blocks:
+//  * The wrapper's planner (kernels/dequant_matmul/split.py) cuts N into
+//    strips of 128 columns and K into slices whose lengths are multiples of
+//    the 128-row k tile and of gs, so that a group never spans two slices:
+//    as many slices as fill a wave of resident blocks, at most eight. A
+//    block owns one (slice, strip); the slices of a strip are the fast grid
+//    axis.
+//  * Each 128-row stage carries the strip's packed weight rows, x's rows
+//    of those k and the rows of `scale` the stage's groups need, by 16-byte
+//    cp.async from offsets fixed for the whole block; two stages alternate.
+//    No scale load sits on the accumulator's critical path.
+//  * bf16 x: the operands swap. The dequantized weight is the A operand (16
+//    output columns x k16 a warp) and x^T the B operand, so M = 32 rows of x
+//    are the N of the product and no warp idles. One packed byte is exactly
+//    the (2t, 2t+1) pair of an A register: a byte permute, one three-input
+//    logic op and one bf16x2 subtract turn it into two exact bf16 values. A
+//    warp owns 32 columns as two 16-row tiles whose rows are columns 4q,
+//    4q+1 and 4q+2, 4q+3, so a thread's four A bytes of a k row are one
+//    32-bit shared load and its outputs four adjacent columns. The product
+//    is mma.sync m16n8k16, B fragments two n8 tiles an ldmatrix.x4. Each
+//    group's f32 partial sum is multiplied by its scale, as the tiled kernel
+//    and the TPU kernel do; groups that do not fill whole 16-row steps (gs =
+//    8, 24) zero the x pairs of other groups, as there. (A wgmma m64nNk16
+//    version, weight in registers and a wait at every group's end, ran
+//    slower at chatglm's decode on an H100.)
+//  * f32 x: one column a thread, scalar f32 FMAs, the same groups.
+//  * Merge in the same launch: with more than one slice, each block writes
+//    its f32 partial (M x 128) to a workspace the wrapper keeps; the last
+//    block of a strip, told by a counter that it resets to 0, sums the
+//    slices in slice order and writes x's type. No atomics touch the
+//    output, so a call's result is the same bit for bit from call to call.
+#include <cuda.h>
+
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace repro;
 
@@ -393,6 +440,783 @@ int launch(const void* x, const void* w, const void* scale, void* out, int M, in
   return launch_vec<INT4, false>(x, w, scale, out, M, N, K, gs, is_bf16, stream);
 }
 
+// ----------------------------------------------- int4 at decode: split K
+
+namespace sk {
+
+constexpr int BN = 128;       // output columns of a block: four warps x 32
+constexpr int BK = 128;       // input rows (K) a stage
+constexpr int WR = BK / 2;    // packed weight rows a stage
+constexpr int WST = BN + 32;  // packed row stride in shared memory (bytes): a warp's
+                              // A-word loads of four rows hit 32 banks
+constexpr int STAGES = 2;
+constexpr int THREADS = 128;
+
+// scale rows a stage has room for: every group its BK rows can touch
+__host__ __device__ __forceinline__ int scale_rows(int gs) { return (BK - 1) / gs + 2; }
+// x's tile in a stage: rows of XS elements, padded so that rows stay 16-byte
+// aligned and the eight rows an ldmatrix reads hit distinct banks
+template <typename T>
+constexpr int XS = BK + (sizeof(T) == 2 ? 8 : 4);
+__host__ __device__ __forceinline__ int x_tile_bytes(int elem, int rows) {
+  return elem * rows * (elem == 2 ? XS<__nv_bfloat16> : XS<float>);
+}
+// a stage: the packed weight tile, then x's tile, then the scale rows; every
+// part 128-byte aligned
+__host__ __device__ __forceinline__ int stage_bytes(int elem, int rows, int gs) {
+  return WR * WST + x_tile_bytes(elem, rows) + scale_rows(gs) * BN * (int)sizeof(float);
+}
+size_t smem_bytes(int elem, int rows, int gs) {
+  return 128 + (size_t)STAGES * stage_bytes(elem, rows, gs);
+}
+
+// Stage k0 .. k0+BK-1 of a block: the strip's packed weight rows k0/2 ..,
+// x's rows 0 .. ROWS-1 at columns k0 .., and the scale rows of the groups
+// g0 .. g_end-1 the stage touches; zeros outside the matrices. With VEC
+// (16-byte aligned rows) every thread issues 16-byte cp.async at offsets
+// fixed for the whole block: rows (tid / 8) + 16 i of the weight, rows
+// tid / CPR + i (128 / CPR) of x, rows tid / 32 + 4 i of the scales.
+template <typename T, int ROWS, bool VEC>
+__device__ __forceinline__ void load_stage(unsigned char* st, const T* __restrict__ x,
+                                           const uint8_t* __restrict__ w,
+                                           const float* __restrict__ scale, int M, int N, int K,
+                                           int n0, int k0, int g0, int g_end) {
+  uint8_t* ws = st;
+  unsigned char* xt = st + WR * WST;
+  float* ss = reinterpret_cast<float*>(xt + x_tile_bytes(sizeof(T), ROWS));
+  const int tid = threadIdx.x, WK = K / 2, wr0 = k0 / 2, sr = g_end - g0;
+  if (VEC) {
+    {  // weight: WR rows x BN / 16 chunks, four a thread in one column
+      const int r = tid >> 3, nc = (tid & 7) * 16;
+      const bool col_ok = n0 + nc < N;
+      const uint8_t* src = w + (long long)(wr0 + r) * N + n0 + nc;
+#pragma unroll
+      for (int i = 0; i < WR * (BN / 16) / THREADS; ++i) {
+        const bool ok = col_ok && wr0 + r + 16 * i < WK;
+        cp_async16(ws + (r + 16 * i) * WST + nc, ok ? src + (long long)16 * i * N : w, ok);
+      }
+    }
+    {  // x: ROWS rows x CPR chunks
+      constexpr int EPC = 16 / (int)sizeof(T), CPR = BK / EPC, RPI = THREADS / CPR;
+      const int r = tid / CPR, kc = (tid % CPR) * EPC;
+      const bool k_ok = k0 + kc < K;  // K % EPC == 0: a chunk is all in or all out
+      const T* src = x + (long long)r * K + k0 + kc;
+#pragma unroll
+      for (int i = 0; i < ROWS / RPI; ++i) {
+        const bool ok = k_ok && r + RPI * i < M;
+        cp_async16(xt + ((r + RPI * i) * XS<T> + kc) * sizeof(T),
+                   ok ? src + (long long)RPI * i * K : x, ok);
+      }
+    }
+    {  // scales: sr rows x BN / 4 chunks
+      const int r = tid >> 5, nc = (tid & 31) * 4;
+      const bool col_ok = n0 + nc < N;
+      for (int rr = r; rr < sr; rr += THREADS / 32) {
+        cp_async16(ss + rr * BN + nc, col_ok ? scale + (long long)(g0 + rr) * N + n0 + nc : scale,
+                   col_ok);
+      }
+    }
+  } else {
+    for (int i = tid; i < WR * BN; i += THREADS) {
+      const int r = i / BN, nn = i % BN;
+      const int gr = wr0 + r, gn = n0 + nn;
+      ws[r * WST + nn] = (gr < WK && gn < N) ? w[(long long)gr * N + gn] : (uint8_t)0;
+    }
+    for (int i = tid; i < ROWS * BK; i += THREADS) {
+      const int r = i / BK, kk = i % BK;
+      const int gk = k0 + kk;
+      reinterpret_cast<T*>(xt)[r * XS<T> + kk] =
+          (r < M && gk < K) ? x[(long long)r * K + gk] : from_f32<T>(0.f);
+    }
+    for (int i = tid; i < sr * BN; i += THREADS) {
+      const int r = i / BN, nn = i % BN;
+      const int gn = n0 + nn;
+      ss[r * BN + nn] = gn < N ? scale[(long long)(g0 + r) * N + gn] : 0.f;
+    }
+  }
+}
+
+// k / gs for the k of this kernel (< 2^20): exact, by the f32 reciprocal
+// (the quotient's fraction is at least 0.5 / gs from an integer)
+__device__ __forceinline__ int group_of(int k, float inv_gs) {
+  return __float2int_rz(((float)k + 0.5f) * inv_gs);
+}
+
+// Byte J of a packed word as the bf16 pair (low nibble, high nibble): the
+// byte permute puts byte J of w in the low half and byte J of w >> 4 in the
+// high one; masking the low nibbles, flipping their sign bits and setting
+// the exponent of 128 gives 128 + (v + 8) in each half, exactly; subtracting
+// 136 leaves v in [-8, 7].
+template <int J>
+__device__ __forceinline__ uint32_t dequant_pair(uint32_t w, uint32_t w4) {
+  constexpr uint32_t sel = J | (J << 4) | ((4 + J) << 8) | ((4 + J) << 12);
+  uint32_t r = __byte_perm(w, w4, sel);
+  // r = (r & 0x000F000F) ^ 0x43084308 in one three-input logic op
+  asm("lop3.b32 %0, %0, %1, %2, 0x6a;" : "+r"(r) : "n"(0x000F000F), "r"(0x43084308u));
+  const uint32_t bias = 0x43084308u;  // (136, 136) in bf16
+  __nv_bfloat162 v = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&r),
+                             *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d = a . b (the accumulator's old value is not read)
+__device__ __forceinline__ void mma_bf16_first(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// Four adjacent outputs v[0..3] of one row at columns c .. c+3, in T; only
+// those below N are written.
+template <typename T>
+__device__ __forceinline__ void store4(T* row, int c, int N, const float (&v)[4]) {
+  if (c + 3 < N && N % 4 == 0) {
+    if constexpr (sizeof(T) == 2) {
+      __nv_bfloat162 p[2] = {__floats2bfloat162_rn(v[0], v[1]),
+                             __floats2bfloat162_rn(v[2], v[3])};
+      *reinterpret_cast<uint2*>(row + c) = *reinterpret_cast<uint2*>(p);
+    } else {
+      *reinterpret_cast<float4*>(row + c) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (c + e < N) row[c + e] = from_f32<T>(v[e]);
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// After every block of a strip has written its partial (M x BN f32, slice
+// order) at ``part``: the last block to arrive sums the slices in slice
+// order, writes the strip of ``out`` and resets the strip's counter to 0.
+// A thread sums P positions at once, two slices a round, so 2P loads are in
+// flight at a time.
+template <typename T>
+__device__ void merge_slices(const float* part, int* counter, T* __restrict__ out, int M, int N,
+                             int n0, int n_slices) {
+  constexpr int P = 4;
+  __shared__ int is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(counter, 1) == n_slices - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const float4* p = reinterpret_cast<const float4*>(part);
+  const int n4 = M * BN / 4;
+  for (int i0 = threadIdx.x; i0 < n4; i0 += P * THREADS) {
+    float4 a[P];
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const int i = i0 + u * THREADS;
+      a[u] = i < n4 ? __ldcg(p + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    int s = 1;
+    for (; s + 2 <= n_slices; s += 2) {
+      float4 b[2][P];
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+#pragma unroll
+        for (int u = 0; u < P; ++u) {
+          const int i = i0 + u * THREADS;
+          if (i < n4) b[v][u] = __ldcg(p + (long long)(s + v) * n4 + i);
+        }
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+#pragma unroll
+        for (int u = 0; u < P; ++u)
+          if (i0 + u * THREADS < n4) add4(a[u], b[v][u]);
+    }
+    if (s < n_slices) {
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        const int i = i0 + u * THREADS;
+        if (i < n4) add4(a[u], __ldcg(p + (long long)s * n4 + i));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i >= n4) continue;
+      const int m = i / (BN / 4), c = n0 + (i % (BN / 4)) * 4;
+      const float v[4] = {a[u].x, a[u].y, a[u].z, a[u].w};
+      store4<T>(out + (long long)m * N, c, N, v);
+    }
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
+// The A fragments of the two m16 tiles of a k16 step from the thread's two
+// packed words (k rows 2t, 2t+1 and 2t+8, 2t+9 of its four columns).
+__device__ __forceinline__ void dequant_a(uint32_t w0, uint32_t w1, uint32_t (&a)[2][4]) {
+  const uint32_t w04 = w0 >> 4, w14 = w1 >> 4;
+  a[0][0] = dequant_pair<0>(w0, w04);
+  a[0][1] = dequant_pair<1>(w0, w04);
+  a[0][2] = dequant_pair<0>(w1, w14);
+  a[0][3] = dequant_pair<1>(w1, w14);
+  a[1][0] = dequant_pair<2>(w0, w04);
+  a[1][1] = dequant_pair<3>(w0, w04);
+  a[1][2] = dequant_pair<2>(w1, w14);
+  a[1][3] = dequant_pair<3>(w1, w14);
+}
+
+// The B fragments of MT n8 tiles of x^T for one k16 step, two tiles an
+// ldmatrix.x4; ``xl`` is the lane's row address of the step's first tile.
+template <int MT>
+__device__ __forceinline__ void load_b(uint32_t (&b)[MT][2], const __nv_bfloat16* xl) {
+#pragma unroll
+  for (int jp = 0; jp < MT / 2; ++jp) {
+    const unsigned addr =
+        (unsigned)__cvta_generic_to_shared(xl + 16 * jp * XS<__nv_bfloat16>);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(b[2 * jp][0]), "=r"(b[2 * jp][1]), "=r"(b[2 * jp + 1][0]),
+                   "=r"(b[2 * jp + 1][1])
+                 : "r"(addr));
+  }
+}
+
+// prt[i] (+)= a[i] . b for both m16 tiles i and every n8 tile j (prt[i]'s
+// fragments 4j .. 4j+3); FIRST: the group starts here.
+template <int MT, bool FIRST>
+__device__ __forceinline__ void mma_step(float (&prt)[2][4 * MT], const uint32_t (&a)[2][4],
+                                         const uint32_t (&b)[MT][2]) {
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float(&d)[4] = *reinterpret_cast<float(*)[4]>(&prt[i][4 * j]);
+      if (FIRST)
+        mma_bf16_first(d, a[i], b[j]);
+      else
+        mma_bf16(d, a[i], b[j]);
+    }
+}
+
+// acc += prt * the group's scales of the thread's four columns (tile 0:
+// columns 4gq, 4gq+1; tile 1: 4gq+2, 4gq+3).
+template <int MT>
+__device__ __forceinline__ void fold(float (&acc)[2][4 * MT], const float (&prt)[2][4 * MT],
+                                     const float* ss) {
+  const float4 s = *reinterpret_cast<const float4*>(ss);
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+    acc[0][4 * j + 0] = fmaf(prt[0][4 * j + 0], s.x, acc[0][4 * j + 0]);
+    acc[0][4 * j + 1] = fmaf(prt[0][4 * j + 1], s.x, acc[0][4 * j + 1]);
+    acc[0][4 * j + 2] = fmaf(prt[0][4 * j + 2], s.y, acc[0][4 * j + 2]);
+    acc[0][4 * j + 3] = fmaf(prt[0][4 * j + 3], s.y, acc[0][4 * j + 3]);
+    acc[1][4 * j + 0] = fmaf(prt[1][4 * j + 0], s.z, acc[1][4 * j + 0]);
+    acc[1][4 * j + 1] = fmaf(prt[1][4 * j + 1], s.z, acc[1][4 * j + 1]);
+    acc[1][4 * j + 2] = fmaf(prt[1][4 * j + 2], s.w, acc[1][4 * j + 2]);
+    acc[1][4 * j + 3] = fmaf(prt[1][4 * j + 3], s.w, acc[1][4 * j + 3]);
+  }
+}
+
+// The ring's start: stages 0 .. STAGES-2 of the block's slice in flight.
+template <typename T, int ROWS, bool VEC>
+__device__ __forceinline__ void fill_ring(unsigned char* ring, int sb, const T* x,
+                                          const uint8_t* w, const float* scale, int M, int N,
+                                          int K, int n0, int kbeg, int kend, int nk,
+                                          float inv_gs) {
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) {
+      const int k0 = kbeg + s * BK;
+      load_stage<T, ROWS, VEC>(ring + s * sb, x, w, scale, M, N, K, n0, k0, group_of(k0, inv_gs),
+                               group_of(min(k0 + BK, kend) - 1, inv_gs) + 1);
+    }
+    cp_async_commit();
+  }
+}
+
+// Tile kt of the slice landed: issue the load of tile kt + STAGES - 1.
+template <typename T, int ROWS, bool VEC>
+__device__ __forceinline__ void advance_ring(unsigned char* ring, int sb, int kt, const T* x,
+                                             const uint8_t* w, const float* scale, int M, int N,
+                                             int K, int n0, int kbeg, int kend, int nk,
+                                             float inv_gs) {
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();  // tile kt landed; tile kt - 1 fully consumed
+  const int pf = kt + STAGES - 1;
+  if (pf < nk) {
+    const int k0 = kbeg + pf * BK;
+    load_stage<T, ROWS, VEC>(ring + (pf % STAGES) * sb, x, w, scale, M, N, K, n0, k0,
+                             group_of(k0, inv_gs),
+                             group_of(min(k0 + BK, kend) - 1, inv_gs) + 1);
+  }
+  cp_async_commit();
+}
+
+// ---------------------------------------------------------------- bf16 x
+// MT n8 tiles of x rows (M <= 8 MT); ALIGNED: gs % 16 == 0, one group a
+// 16-row step.
+template <int MT, bool VEC, bool ALIGNED>
+__global__ void __launch_bounds__(THREADS)
+    dequant_matmul_int4_splitk_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                           const uint8_t* __restrict__ w,
+                                           const float* __restrict__ scale,
+                                           __nv_bfloat16* __restrict__ out,
+                                           float* __restrict__ part, int* __restrict__ counters,
+                                           int M, int N, int K, int gs, int slice_k) {
+  constexpr int ROWS = 8 * MT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~(uintptr_t)127);
+  const int slice = blockIdx.x, n_slices = gridDim.x, strip = blockIdx.y;
+  const int n0 = strip * BN;
+  const int kbeg = slice * slice_k, kend = min(K, kbeg + slice_k);
+  const int nk = (kend - kbeg + BK - 1) / BK;
+  const float inv_gs = 1.f / (float)gs;
+  const int sb = stage_bytes(2, ROWS, gs);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  // the lane's ldmatrix row within a stage's x tile: matrix q = lane / 8 of
+  // an x4 holds rows 8 (q / 2) .., k 8 (q % 2) ..
+  const int xl_off =
+      (8 * (lane >> 4) + (lane & 7)) * XS<__nv_bfloat16> + 8 * ((lane >> 3) & 1);
+
+  fill_ring<__nv_bfloat16, ROWS, VEC>(smem, sb, x, w, scale, M, N, K, n0, kbeg, kend, nk,
+                                      inv_gs);
+
+  // acc / prt [m16 tile i][4j + e]: tile i's rows are the columns 4gq + 2i
+  // (e = 0, 1) and 4gq + 2i + 1 (e = 2, 3) of this warp's 32; fragment e
+  // holds x row 8j + 2t + (e & 1)
+  float acc[2][4 * MT], prt[2][4 * MT];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4 * MT; ++e) acc[i][e] = prt[i][e] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    advance_ring<__nv_bfloat16, ROWS, VEC>(smem, sb, kt, x, w, scale, M, N, K, n0, kbeg, kend,
+                                           nk, inv_gs);
+    const unsigned char* st = smem + (kt % STAGES) * sb;
+    const uint8_t* wt = st + warp * 32 + 4 * gq;
+    const __nv_bfloat16* xt = reinterpret_cast<const __nv_bfloat16*>(st + WR * WST);
+    const float* ss = reinterpret_cast<const float*>(st + WR * WST + x_tile_bytes(2, ROWS)) +
+                      warp * 32 + 4 * gq;
+    const int k0 = kbeg + kt * BK;
+    const int g0 = group_of(k0, inv_gs);
+    if (ALIGNED && k0 + BK <= kend) {
+      // a whole tile of whole-step groups: no bound or group arithmetic a step
+      int gpos = k0 - g0 * gs;  // rows of group g0 before this tile
+      int gi = 0;               // the group's scale row in the stage
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks) {
+        uint32_t a[2][4], b[MT][2];
+        dequant_a(*reinterpret_cast<const uint32_t*>(wt + (ks * 8 + t) * WST),
+                  *reinterpret_cast<const uint32_t*>(wt + (ks * 8 + t + 4) * WST), a);
+        load_b<MT>(b, xt + xl_off + 16 * ks);
+        if (gpos == 0)
+          mma_step<MT, true>(prt, a, b);
+        else
+          mma_step<MT, false>(prt, a, b);
+        gpos += 16;
+        if (gpos == gs) {
+          fold<MT>(acc, prt, ss + gi * BN);
+          ++gi;
+          gpos = 0;
+        }
+      }
+      continue;
+    }
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      const int kabs = k0 + ks * 16;
+      if (kabs >= kend) break;
+      uint32_t a[2][4], b[MT][2];
+      dequant_a(*reinterpret_cast<const uint32_t*>(wt + (ks * 8 + t) * WST),
+                *reinterpret_cast<const uint32_t*>(wt + (ks * 8 + t + 4) * WST), a);
+      load_b<MT>(b, xt + xl_off + 16 * ks);
+      const int g_first = group_of(kabs, inv_gs);
+      const int g_last = group_of(min(kabs + 16, kend) - 1, inv_gs);
+      for (int g = g_first; g <= g_last; ++g) {
+        uint32_t bm[MT][2];
+        // zero the x pairs of other groups (a pair never straddles two)
+        const bool lo = group_of(kabs + 2 * t, inv_gs) == g;
+        const bool hi = group_of(kabs + 2 * t + 8, inv_gs) == g;
+#pragma unroll
+        for (int j = 0; j < MT; ++j) {
+          bm[j][0] = lo ? b[j][0] : 0u;
+          bm[j][1] = hi ? b[j][1] : 0u;
+        }
+        if (g * gs >= kabs)  // group g starts in this step
+          mma_step<MT, true>(prt, a, bm);
+        else
+          mma_step<MT, false>(prt, a, bm);
+        if ((g + 1) * gs <= kabs + 16) fold<MT>(acc, prt, ss + (g - g0) * BN);  // g ends here
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // this thread's outputs: x rows 8j + 2t + h, columns c .. c+3
+  const int c = warp * 32 + 4 * gq;
+  if (n_slices == 1) {
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 8 * j + 2 * t + h;
+        const float v[4] = {acc[0][4 * j + h], acc[0][4 * j + 2 + h], acc[1][4 * j + h],
+                            acc[1][4 * j + 2 + h]};
+        if (m < M) store4<__nv_bfloat16>(out + (long long)m * N, n0 + c, N, v);
+      }
+    return;
+  }
+  float* pp = part + (long long)strip * n_slices * M * BN;
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 8 * j + 2 * t + h;
+      if (m < M)
+        *reinterpret_cast<float4*>(pp + ((long long)slice * M + m) * BN + c) =
+            make_float4(acc[0][4 * j + h], acc[0][4 * j + 2 + h], acc[1][4 * j + h],
+                        acc[1][4 * j + 2 + h]);
+    }
+  merge_slices<__nv_bfloat16>(pp, counters + strip, out, M, N, n0, n_slices);
+}
+
+// ----------------------------------------------------------------- f32 x
+// One output column a thread, x rows 0 .. 8 MT - 1.
+template <int MT, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+    dequant_matmul_int4_splitk_f32_kernel(const float* __restrict__ x,
+                                          const uint8_t* __restrict__ w,
+                                          const float* __restrict__ scale, float* __restrict__ out,
+                                          float* __restrict__ part, int* __restrict__ counters,
+                                          int M, int N, int K, int gs, int slice_k) {
+  constexpr int ROWS = 8 * MT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~(uintptr_t)127);
+  const int slice = blockIdx.x, n_slices = gridDim.x, strip = blockIdx.y;
+  const int n0 = strip * BN;
+  const int kbeg = slice * slice_k, kend = min(K, kbeg + slice_k);
+  const int nk = (kend - kbeg + BK - 1) / BK;
+  const float inv_gs = 1.f / (float)gs;
+  const int sb = stage_bytes(4, ROWS, gs);
+
+  fill_ring<float, ROWS, VEC>(smem, sb, x, w, scale, M, N, K, n0, kbeg, kend, nk, inv_gs);
+
+  float acc[ROWS], prt[ROWS];
+#pragma unroll
+  for (int m = 0; m < ROWS; ++m) acc[m] = prt[m] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    advance_ring<float, ROWS, VEC>(smem, sb, kt, x, w, scale, M, N, K, n0, kbeg, kend, nk,
+                                   inv_gs);
+    const unsigned char* st = smem + (kt % STAGES) * sb;
+    const uint8_t* wt = st + threadIdx.x;
+    const float* xs = reinterpret_cast<const float*>(st + WR * WST);
+    const float* ss =
+        reinterpret_cast<const float*>(st + WR * WST + x_tile_bytes(4, ROWS)) + threadIdx.x;
+    const int k0 = kbeg + kt * BK;
+    const int g0 = group_of(k0, inv_gs);
+    int g_next = (g0 + 1) * gs;  // the end of the current group
+    const int pairs = min(BK, kend - k0) / 2;
+    for (int p = 0; p < pairs; ++p) {
+      const unsigned byte = wt[p * WST];
+      const float lo = (float)nibble(byte), hi = (float)nibble(byte >> 4);
+#pragma unroll
+      for (int m = 0; m < ROWS; ++m) {
+        const float2 xv = *reinterpret_cast<const float2*>(xs + m * XS<float> + 2 * p);
+        prt[m] = fmaf(xv.x, lo, prt[m]);
+        prt[m] = fmaf(xv.y, hi, prt[m]);
+      }
+      if (k0 + 2 * p + 2 == g_next) {  // the group ends at this pair
+        const float s = ss[(g_next / gs - 1 - g0) * BN];
+#pragma unroll
+        for (int m = 0; m < ROWS; ++m) {
+          acc[m] = fmaf(prt[m], s, acc[m]);
+          prt[m] = 0.f;
+        }
+        g_next += gs;
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (n_slices == 1) {
+    const int col = n0 + threadIdx.x;
+    if (col < N) {
+#pragma unroll
+      for (int m = 0; m < ROWS; ++m)
+        if (m < M) out[(long long)m * N + col] = acc[m];
+    }
+    return;
+  }
+  float* pp = part + (long long)strip * n_slices * M * BN;
+#pragma unroll
+  for (int m = 0; m < ROWS; ++m)
+    if (m < M) pp[((long long)slice * M + m) * BN + threadIdx.x] = acc[m];
+  merge_slices<float>(pp, counters + strip, out, M, N, n0, n_slices);
+}
+
+template <int MT, bool VEC>
+int launch_rows(const void* x, const void* w, const void* scale, void* out, void* part,
+                void* counters, int M, int N, int K, int gs, int slice_k, int n_slices,
+                int is_bf16, void* stream) {
+  const dim3 grid(n_slices, (N + BN - 1) / BN);
+  const size_t smem = smem_bytes(is_bf16 ? 2 : 4, 8 * MT, gs);
+  cudaError_t err;
+  if (is_bf16) {
+    auto kern = gs % 16 == 0 ? dequant_matmul_int4_splitk_bf16_kernel<MT, VEC, true>
+                             : dequant_matmul_int4_splitk_bf16_kernel<MT, VEC, false>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, (const uint8_t*)w, (const float*)scale, (__nv_bfloat16*)out,
+        (float*)part, (int*)counters, M, N, K, gs, slice_k);
+  } else {
+    auto kern = dequant_matmul_int4_splitk_f32_kernel<MT, VEC>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)x, (const uint8_t*)w, (const float*)scale, (float*)out, (float*)part,
+        (int*)counters, M, N, K, gs, slice_k);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int launch_vec(const void* x, const void* w, const void* scale, void* out, void* part,
+               void* counters, int M, int N, int K, int gs, int slice_k, int n_slices,
+               int is_bf16, void* stream) {
+  if (M <= 16)
+    return launch_rows<2, VEC>(x, w, scale, out, part, counters, M, N, K, gs, slice_k,
+                               n_slices, is_bf16, stream);
+  if (M <= 32)
+    return launch_rows<4, VEC>(x, w, scale, out, part, counters, M, N, K, gs, slice_k,
+                               n_slices, is_bf16, stream);
+  return launch_rows<8, VEC>(x, w, scale, out, part, counters, M, N, K, gs, slice_k, n_slices,
+                             is_bf16, stream);
+}
+
+template <int MT>
+int blocks_per_sm_rows(int is_bf16, int gs) {
+  const size_t smem = smem_bytes(is_bf16 ? 2 : 4, 8 * MT, gs);
+  int n = 0;
+  cudaError_t err;
+  if (is_bf16) {
+    auto kern = dequant_matmul_int4_splitk_bf16_kernel<MT, true, true>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, THREADS, smem);
+  } else {
+    auto kern = dequant_matmul_int4_splitk_f32_kernel<MT, true>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, THREADS, smem);
+  }
+  return err == cudaSuccess ? n : 0;
+}
+
+}  // namespace sk
+
+// ------------------------------------ int4 at prefill (bf16 x): TMA + wgmma
+
+namespace pf {
+
+constexpr int BM = 128;                 // x rows a block: two consumer warpgroups
+constexpr int BN = 128;                 // output columns a block
+constexpr int BK = 64;                  // k rows a stage
+constexpr int A_BYTES = BM * 128;       // BM rows x BK bf16, 128-byte swizzled
+constexpr int P_BYTES = BK / 2 * BN;    // the packed weight tile
+constexpr int S_BYTES = 4 * BN * 4;     // up to four scale rows (gs >= 16)
+constexpr int STAGE = A_BYTES + P_BYTES + S_BYTES;  // a multiple of 1024
+constexpr int B_BYTES = BK * BN * 2;    // one dequantized bf16 B tile
+constexpr int CHUNK = 64 * 128;         // 64 k rows x 64 bf16 columns of B
+constexpr int STAGES = 4;
+constexpr int CONSUMERS = 256;
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+
+size_t smem_bytes() { return 1024 + (size_t)STAGES * STAGE + 2 * B_BYTES + 16 * STAGES; }
+
+// bf16 pair (nibble of byte J0 of w, nibble of byte J1) for the low nibbles;
+// the high ones are the same of w >> 4 (the byte permute, mask, exponent and
+// subtraction of `sk::dequant_pair`)
+template <int J0, int J1>
+__device__ __forceinline__ uint32_t dequant_cols(uint32_t w) {
+  constexpr uint32_t sel = J0 | (4 << 4) | (J1 << 8) | (4 << 12);
+  uint32_t r = __byte_perm(w, 0u, sel);
+  asm("lop3.b32 %0, %0, %1, %2, 0x6a;" : "+r"(r) : "n"(0x000F000F), "r"(0x43084308u));
+  const uint32_t bias = 0x43084308u;  // (136, 136) in bf16
+  __nv_bfloat162 v = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&r),
+                             *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// out (M, N) = x (M, K) @ dequantize_int4(packed, scale) for bf16 x, with
+// K % 64 == 0, N % 16 == 0 and gs in {16, 32, 64}. A block owns a 128 x 128
+// output tile: two consumer warpgroups of 64 rows and a producer warp.
+//  * TMA brings each 64-row stage: x's 128 x 64 tile (128-byte swizzled),
+//    the strip's 32 packed rows and the stage's 64 / gs scale rows, into a
+//    ring with full / empty mbarriers.
+//  * The consumers dequantize the packed tile into a bf16 B tile laid out
+//    as TMA would have written the (k, n) weight: 64-column chunks of 64 k
+//    rows, 128-byte swizzled; two B tiles alternate, so one barrier a stage
+//    suffices. wgmma m64n128k16 reads x's tile (A, K-major) and the B tile
+//    through the transpose mode, as the MoE kernel reads its weight.
+//  * Each group's gs / 16 wgmma steps start from a zero accumulator; the
+//    group's f32 partial is scaled into acc at the group's end, as the TPU
+//    kernel does.
+__global__ void __launch_bounds__(THREADS, 1)
+    dequant_matmul_int4_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                                  const __grid_constant__ CUtensorMap pmap,
+                                  const __grid_constant__ CUtensorMap smap,
+                                  __nv_bfloat16* __restrict__ out, int M, int N, int K, int gs) {
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int nk = K / BK;
+  const int sr = BK / gs;  // groups (scale rows) a stage
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* btile = ring + STAGES * STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(btile + 2 * B_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // producer: one thread issues every copy
+    if (threadIdx.x == CONSUMERS) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);  // the first round passes
+        unsigned char* st = ring + s * STAGE;
+        mbar_expect_tx(&full[s], A_BYTES + P_BYTES + sr * BN * 4);
+        tma_load_2d(st, &xmap, &full[s], i * BK, m0);
+        tma_load_2d(st + A_BYTES, &pmap, &full[s], n0, i * BK / 2);
+        tma_load_2d(st + A_BYTES + P_BYTES, &smap, &full[s], n0, i * sr);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, g = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, t4 = lane & 3;
+  float acc[BN / 2], d[BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = d[j] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    const unsigned char* st = ring + s * STAGE;
+    unsigned char* bt = btile + (i & 1) * B_BYTES;
+    // dequantize: a task is 8 columns of one packed row, that is those
+    // columns of k rows 2p (low nibbles) and 2p + 1 (high), one 16-byte
+    // swizzle unit of each
+#pragma unroll
+    for (int task = tid; task < BK / 2 * BN / 8; task += CONSUMERS) {
+      const int p = task >> 4, cg = task & 15;
+      const uint2 v = *reinterpret_cast<const uint2*>(st + A_BYTES + p * BN + cg * 8);
+      const uint32_t v4x = v.x >> 4, v4y = v.y >> 4;
+      const uint4 lo = make_uint4(dequant_cols<0, 1>(v.x), dequant_cols<2, 3>(v.x),
+                                  dequant_cols<0, 1>(v.y), dequant_cols<2, 3>(v.y));
+      const uint4 hi = make_uint4(dequant_cols<0, 1>(v4x), dequant_cols<2, 3>(v4x),
+                                  dequant_cols<0, 1>(v4y), dequant_cols<2, 3>(v4y));
+      const int k = 2 * p, c = cg >> 3, u = cg & 7;
+      *reinterpret_cast<uint4*>(bt + c * CHUNK + k * 128 + ((u ^ (k & 7)) << 4)) = lo;
+      *reinterpret_cast<uint4*>(bt + c * CHUNK + (k + 1) * 128 + ((u ^ ((k + 1) & 7)) << 4)) =
+          hi;
+    }
+    // the B tile is visible to wgmma's reads (the async proxy) of both
+    // warpgroups
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+
+    const unsigned char* as = st + g * 64 * 128;
+    const float* ss = reinterpret_cast<const float*>(st + A_BYTES + P_BYTES);
+    for (int gi = 0; gi < sr; ++gi) {
+      wgmma_fence();
+      for (int t = gi * gs / 16; t < (gi + 1) * gs / 16; ++t)
+        wgmma_m64n128k16_ss_tb(d, desc(as + t * 32, 16, 1024),
+                               desc(bt + t * 16 * 128, CHUNK, 1024), t > gi * gs / 16);
+      wgmma_commit();
+      wgmma_wait<0>();
+      // acc += d * scale: a thread's columns 8j + 2 t4 + {0, 1}
+      const float* sg = ss + gi * BN + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 sc = *reinterpret_cast<const float2*>(sg + 8 * j);
+        acc[4 * j + 0] = fmaf(d[4 * j + 0], sc.x, acc[4 * j + 0]);
+        acc[4 * j + 1] = fmaf(d[4 * j + 1], sc.y, acc[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(d[4 * j + 2], sc.x, acc[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(d[4 * j + 3], sc.y, acc[4 * j + 3]);
+      }
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+  const int row_a = m0 + g * 64 + warp * 16 + (lane >> 2);
+  const int col_t = n0 + 2 * t4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = col_t + 8 * j;  // even, and N % 16 == 0: col + 1 < N too
+    if (col >= N) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (row < M)
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * N + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+CUresult encode(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr,
+                int cols, int rows, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return cuTensorMapEncodeTiled(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+                                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+int launch(const void* x, const void* packed, const void* scale, void* out, int M, int N, int K,
+           int gs, void* stream) {
+  CUtensorMap xmap, pmap, smap;
+  CUresult r = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M, 64, BM,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+  if (r == CUDA_SUCCESS)
+    r = encode(&pmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed, N, K / 2, BN, BK / 2,
+               CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (r == CUDA_SUCCESS)
+    r = encode(&smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scale, N, K / gs, BN, BK / gs,
+               CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (r != CUDA_SUCCESS) return (int)r;
+  const size_t smem = smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(dequant_matmul_int4_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  dequant_matmul_int4_tc_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      xmap, pmap, smap, (__nv_bfloat16*)out, M, N, K, gs);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace pf
+
 }  // namespace
 
 extern "C" {
@@ -407,6 +1231,43 @@ int dequant_matmul_int8_fwd(const void* x, const void* qw, const void* scale, vo
 int dequant_matmul_int4_fwd(const void* x, const void* packed, const void* scale, void* out,
                             int M, int N, int K, int gs, int is_bf16, void* stream) {
   return launch<true>(x, packed, scale, out, M, N, K, gs, is_bf16, stream);
+}
+
+// The split-K int4 kernel (M <= 64): the same operands, K cut into n_slices
+// slices of slice_k rows (a multiple of 128 and of gs; the last ends at K),
+// N into strips of 128 columns. With n_slices > 1, ``part`` holds
+// ceil(N/128) * n_slices * M * 128 floats and ``counters`` ceil(N/128) ints,
+// 0 between launches (each launch leaves them 0).
+int dequant_matmul_int4_splitk_fwd(const void* x, const void* packed, const void* scale,
+                                   void* out, void* part, void* counters, int M, int N, int K,
+                                   int gs, int slice_k, int n_slices, int is_bf16,
+                                   void* stream) {
+  if (M < 1 || M > 64 || slice_k % sk::BK || n_slices < 1) return (int)cudaErrorInvalidValue;
+  const int elem = is_bf16 ? 2 : 4;
+  const bool vec = aligned16(x) && aligned16(packed) && aligned16(scale) &&
+                   (K * elem) % 16 == 0 && N % 16 == 0;
+  if (vec)
+    return sk::launch_vec<true>(x, packed, scale, out, part, counters, M, N, K, gs, slice_k,
+                                n_slices, is_bf16, stream);
+  return sk::launch_vec<false>(x, packed, scale, out, part, counters, M, N, K, gs, slice_k,
+                               n_slices, is_bf16, stream);
+}
+
+// The TMA + wgmma int4 kernel (bf16 x, M > 64): x (M,K), packed (K/2,N),
+// scale (K/gs,N) with K % 64 == 0, N % 16 == 0, gs in {16, 32, 64} and
+// 16-byte aligned bases (the wrapper's planner checks) -> out (M,N) bf16. A
+// failed tensor-map encode returns its CUresult.
+int dequant_matmul_int4_tc_fwd(const void* x, const void* packed, const void* scale, void* out,
+                               int M, int N, int K, int gs, void* stream) {
+  return pf::launch(x, packed, scale, out, M, N, K, gs, stream);
+}
+
+// Blocks of the split-K kernel for ``rows`` (16, 32 or 64) x rows and groups
+// of ``gs`` one SM holds (0 if it cannot launch).
+int dequant_matmul_int4_splitk_blocks_per_sm(int is_bf16, int rows, int gs) {
+  if (rows <= 16) return sk::blocks_per_sm_rows<2>(is_bf16, gs);
+  if (rows <= 32) return sk::blocks_per_sm_rows<4>(is_bf16, gs);
+  return sk::blocks_per_sm_rows<8>(is_bf16, gs);
 }
 
 }  // extern "C"

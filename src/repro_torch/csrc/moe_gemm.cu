@@ -13,27 +13,51 @@
 //    for a granite gate, 369 MB for a deepseek gate, at 2 C FLOP a weight.
 //  * prefill: operations, 2 E C d f (C = 512 to 2048 rows an expert).
 //
-// What the design does about it:
+// Two kernels; the wrapper's planner (kernels/moe_gemm/plan.py) picks one
+// before the launch.
+//
+// bf16 with d and f multiples of 8 and 16-byte aligned bases: TMA + wgmma
+// (`moe_gemm_tc_kernel`).
+//  * A block owns a BM x 128 tile of one expert's output: one consumer
+//    warpgroup (BM = 64) at decode, two (BM = 128) at prefill, and one
+//    producer warp. The TPU's sequential contraction grid axis becomes the
+//    consumers' loop over 64-row k tiles; the f32 accumulator stays in
+//    registers.
+//  * x and w arrive by TMA from 3-D tensor maps over (E, C, d) and (E, d, f),
+//    encoded on the host with cuTensorMapEncodeTiled, in 64-column, 128-byte
+//    swizzled boxes, into a ring of stages with a full and an empty mbarrier
+//    each; no thread issues a load. TMA zero-fills beyond C, d and f, so
+//    ragged shapes need no padding or copy on the host; at decode the C < 64
+//    rows of an expert fill a 64-row wgmma tile whose other rows are zeros.
+//  * Each k16 step is wgmma m64n128k16 with x as the shared A operand and w
+//    the B operand in its natural (d, f) layout through the transpose mode
+//    (the flash kernel's V operand). One wgmma group stays in flight while
+//    the next is issued; a stage is released when the group that read it
+//    has completed.
+//  * At decode every weight byte moves through TMA once and the tensor cores
+//    do 64 / C times the work C needs: about 4 us of a granite launch against
+//    its 19 us byte bound. At prefill the grid runs C tiles fastest, so the
+//    blocks that share a weight tile run together and share it in L2.
+//
+// Every other bf16 shape, and f32: `moe_gemm_bf16_kernel` /
+// `moe_gemm_f32_kernel`.
 //  * A block owns a 64 x 64 tile of one expert's output and loops over d
-//    itself in tiles of 64 (the TPU's sequential contraction grid axis, its
-//    scratch zeroed at the first step, becomes this loop; the accumulator
-//    stays in registers). The grid is (C tiles, f tiles, experts) with the C
-//    tiles fastest: at decode one C tile covers all rows of an expert, so
-//    every weight byte leaves device memory once; at prefill the blocks
-//    that share a weight tile run together and share it in L2.
+//    itself in tiles of 64. The grid is (C tiles, f tiles, experts) with the
+//    C tiles fastest.
 //  * Tiles move with cp.async, 16 bytes a thread, four stages in flight,
 //    when rows are 16-byte aligned (d and f times the element size multiples
 //    of 16, aligned base pointers); other shapes load element by element.
-//    Ragged C, d and f are masked in the kernel: nothing is padded or copied
-//    (the TPU wrapper pads every operand to its block).
-//  * bf16: tensor cores, mma.sync m16n8k16 with bf16 operands and f32
-//    accumulation. f32: scalar f32 FMAs (no TF32: the f32 path is held to
-//    the plain version at 1e-4).
-// Simple first: no wgmma or TMA, no split of d across blocks, and an expert
-// that received no token is still read whole. Those are later work.
+//    Ragged C, d and f are masked in the kernel.
+//  * bf16: mma.sync m16n8k16 with bf16 operands and f32 accumulation. f32:
+//    scalar f32 FMAs (no TF32: the f32 path is held to the plain version at
+//    1e-4).
+// Not done: an expert that received no token is still read whole.
+#include <cuda.h>
+
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace repro;
 
@@ -320,6 +344,146 @@ int launch(const void* x, const void* w, void* out, int E, int C, int F, int D, 
   return launch_typed<T, false>(x, w, out, E, C, F, D, stream);
 }
 
+// ------------------------------------------------------ bf16, TMA + wgmma
+
+namespace tc {
+
+constexpr int BN = 128;                     // output columns a block: the wgmma N
+constexpr int BK = 64;                      // d rows a stage: one 128-byte swizzled row of x
+constexpr int CHUNK_BYTES = 64 * 128;       // 64 rows x 64 bf16 columns
+constexpr int B_BYTES = BN / 64 * CHUNK_BYTES;  // the BK x BN weight tile: two chunks
+
+template <int WG>  // consumer warpgroups: 64 output rows each
+struct Cfg {
+  static constexpr int BM = 64 * WG;
+  static constexpr int A_BYTES = BM * 128;  // BM rows x BK columns of x
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int CONSUMERS = 128 * WG;
+  static constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+};
+
+size_t smem_bytes(int wg, int stages) {
+  const size_t stage = wg == 1 ? Cfg<1>::STAGE : Cfg<2>::STAGE;
+  return 1024 + stage * stages + 2 * sizeof(uint64_t) * stages;
+}
+
+template <int WG>
+__global__ void __launch_bounds__(Cfg<WG>::THREADS, 1)
+    moe_gemm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap, __nv_bfloat16* __restrict__ out,
+                       int M, int N, int K, int stages) {
+  using CF = Cfg<WG>;
+  const int m0 = blockIdx.x * CF::BM, n0 = blockIdx.y * BN, e = blockIdx.z;
+  const int nk = (K + BK - 1) / BK;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * CF::STAGE);
+  uint64_t* empty = full + stages;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CF::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CF::CONSUMERS) {
+    // producer: one thread issues every copy
+    if (threadIdx.x == CF::CONSUMERS) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % stages;
+        mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);  // the first round passes
+        unsigned char* st = ring + s * CF::STAGE;
+        mbar_expect_tx(&full[s], CF::STAGE);
+        tma_load_3d(st, &xmap, &full[s], i * BK, m0, e);
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          tma_load_3d(st + CF::A_BYTES + c * CHUNK_BYTES, &wmap, &full[s], n0 + 64 * c, i * BK,
+                      e);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup g owns rows 64g .. 64g+63 of the tile; within it,
+  // warp w rows 16w .. 16w+15, a thread rows r and r + 8 (r = 16w + lane/4),
+  // columns 8j + 2(lane%4) + {0,1}
+  const int g = threadIdx.x >> 7;
+  float acc[BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % stages;
+    mbar_wait(&full[s], (i / stages) & 1);
+    const unsigned char* as = ring + s * CF::STAGE + g * 64 * 128;
+    const unsigned char* bs = ring + s * CF::STAGE + CF::A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t)
+      wgmma_m64n128k16_ss_tb(acc, desc(as + t * 32, 16, 1024),
+                             desc(bs + t * 16 * 128, CHUNK_BYTES, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the group of stage i - 1 is done: release that stage
+    if (i > 0) mbar_arrive(&empty[(i - 1) % stages]);
+  }
+  wgmma_wait<0>();
+
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int row_a = m0 + g * 64 + warp * 16 + (lane >> 2);
+  const int col_t = n0 + 2 * (lane & 3);
+  out += (long long)e * M * N;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = col_t + 8 * j;  // even, and N % 8 == 0: col + 1 < N too
+    if (col >= N) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (row < M)
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * N + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// (depth, rows, cols) bf16 as a 3-D tensor map of 64-column x box_rows x 1
+// boxes, 128-byte swizzled; out-of-bounds elements read as zeros.
+CUresult encode(CUtensorMap* map, const void* ptr, int cols, int rows, int depth, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int WG>
+int launch(const void* x, const void* w, void* out, int E, int C, int F, int D, int stages,
+           void* stream) {
+  CUtensorMap xmap, wmap;
+  CUresult r = encode(&xmap, x, D, C, E, Cfg<WG>::BM);
+  if (r == CUDA_SUCCESS) r = encode(&wmap, w, F, D, E, BK);
+  if (r != CUDA_SUCCESS) return (int)r;
+  const size_t smem = smem_bytes(WG, stages);
+  auto kern = moe_gemm_tc_kernel<WG>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((C + Cfg<WG>::BM - 1) / Cfg<WG>::BM, (F + BN - 1) / BN, E);
+  kern<<<grid, Cfg<WG>::THREADS, smem, (cudaStream_t)stream>>>(xmap, wmap, (__nv_bfloat16*)out,
+                                                               C, F, D, stages);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -329,6 +493,17 @@ int moe_gemm_fwd(const void* x, const void* w, void* out, int E, int C, int F, i
                  int is_bf16, void* stream) {
   if (is_bf16) return launch<__nv_bfloat16>(x, w, out, E, C, F, D, stream);
   return launch<float>(x, w, out, E, C, F, D, stream);
+}
+
+// The TMA + wgmma kernel: x (E,C,D), w (E,D,F) bf16 with D and F multiples of
+// 8 and 16-byte aligned bases (the wrapper's planner checks) -> out (E,C,F);
+// ``consumers`` warpgroups (1: 64-row tiles, 2: 128-row tiles) and a ring of
+// ``stages``. A failed tensor-map encode returns its CUresult.
+int moe_gemm_tc_fwd(const void* x, const void* w, void* out, int E, int C, int F, int D,
+                    int consumers, int stages, void* stream) {
+  if (consumers == 1) return tc::launch<1>(x, w, out, E, C, F, D, stages, stream);
+  if (consumers == 2) return tc::launch<2>(x, w, out, E, C, F, D, stages, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
 SOURCES = {
     "flash_attention": "flash_attention.cu",
     "decode_attention": "decode_attention.cu",
@@ -33,8 +33,9 @@ SOURCES = {
     "moe_gemm": "moe_gemm.cu",
     "ssd_scan": "ssd_scan.cu",
 }
-# -lcuda: the flash kernel encodes its TMA tensor maps with the driver's
-# cuTensorMapEncodeTiled (the card's libcuda.so.1 is loaded at run time)
+# -lcuda: the flash and MoE kernels encode their TMA tensor maps with the
+# driver's cuTensorMapEncodeTiled (the card's libcuda.so.1 is loaded at run
+# time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda")
 

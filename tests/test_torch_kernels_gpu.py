@@ -326,6 +326,108 @@ def test_dequant_matmul_on_a_layer_view_of_a_stacked_leaf(cuda, fmt, dtype):
         _close(out, plain(x, qw[i], scale[i]), dtype)
 
 
+#: the int4 split-K kernel's decode shapes: x rows about the 16-row steps
+#: of its n8 tiles, chatglm's widths, groups of 8 and 32 (K = 4096, 13696)
+#: and of 24, which straddle 16-row steps (K = 4104, 13704, the nearest
+#: multiples of 24)
+DQ4_SPLIT_ROWS = [1, 16, 31, 32, 33, 64]
+DQ4_SPLIT_NKG = [(N, K, gs) for N in (256, 4096, 13696)
+                 for K, gs in ((4096, 8), (4096, 32), (4104, 24),
+                               (13696, 8), (13696, 32), (13704, 24))]
+_DQ4_WEIGHTS = {}
+
+
+def _int4_weight(cuda, K, N, gs):
+    """A (K, N) weight drawn on the card as the model draws one, quantized
+    with groups of ``gs``; kept across the tests that share it."""
+    key = (K, N, gs)
+    if key not in _DQ4_WEIGHTS:
+        g = torch.Generator(device=cuda).manual_seed(K * 7 + N * 3 + gs)
+        w = torch.randn((K, N), generator=g, device=cuda) * K ** -0.5
+        _DQ4_WEIGHTS.clear()
+        _DQ4_WEIGHTS[key] = quantize_int4(w, gs)
+    packed, scale = _DQ4_WEIGHTS[key]
+    assert scale.shape == (K // gs, N)
+    return packed, scale
+
+
+@pytest.mark.parametrize("M", DQ4_SPLIT_ROWS)
+@pytest.mark.parametrize("N,K,gs", DQ4_SPLIT_NKG)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dequant_matmul_int4_split_kernel(cuda, M, N, K, gs, dtype):
+    from repro_torch.kernels.dequant_matmul.ops import int4_plan
+    packed, scale = _int4_weight(cuda, K, N, gs)
+    rng = np.random.default_rng(M)
+    x = _randn(rng, (M, K), dtype, cuda)
+    assert int4_plan(x, packed, scale).route == "split_k"
+    _dq_check(cuda, dequant_matmul_int4, dequant_matmul_int4_ref, x, packed,
+              scale, dtype, dequant_matmul_int4)
+
+
+def test_dequant_matmul_int4_routes_by_rows(cuda):
+    """Up to 64 rows take the split-K kernel; more take the TMA + wgmma
+    kernel in bf16 and the tiled one in f32; all agree with the plain
+    version."""
+    from repro_torch.kernels.dequant_matmul.ops import int4_plan
+    packed, scale = _int4_weight(cuda, 4096, 256, 32)
+    rng = np.random.default_rng(14)
+    for M, dtype, route in ((64, torch.bfloat16, "split_k"),
+                            (65, torch.bfloat16, "wgmma"),
+                            (64, torch.float32, "split_k"),
+                            (65, torch.float32, "tiled")):
+        x = _randn(rng, (M, 4096), dtype, cuda)
+        assert int4_plan(x, packed, scale).route == route
+        _dq_check(cuda, dequant_matmul_int4, dequant_matmul_int4_ref, x,
+                  packed, scale, dtype, dequant_matmul_int4)
+
+
+#: the TMA + wgmma int4 kernel's shapes: rows about its 128-row tile and the
+#: paged chatglm prefill's 2048, chatglm's widths, every group it takes, and
+#: a last 128-column tile that N fills by half
+DQ4_TC_ROWS = [65, 127, 128, 129, 300, 2048]
+DQ4_TC_NKG = [(N, K, gs) for N, K in ((256, 4096), (4096, 4096),
+                                      (13696, 4096), (4096, 13696))
+              for gs in (16, 32, 64)] + [(4160, 4096, 32)]
+
+
+@pytest.mark.parametrize("M", DQ4_TC_ROWS)
+@pytest.mark.parametrize("N,K,gs", DQ4_TC_NKG)
+def test_dequant_matmul_int4_wgmma_kernel(cuda, M, N, K, gs):
+    from repro_torch.kernels.dequant_matmul.ops import int4_plan
+    packed, scale = _int4_weight(cuda, K, N, gs)
+    rng = np.random.default_rng(M + 1)
+    x = _randn(rng, (M, K), torch.bfloat16, cuda)
+    assert int4_plan(x, packed, scale).route == "wgmma"
+    _dq_check(cuda, dequant_matmul_int4, dequant_matmul_int4_ref, x, packed,
+              scale, torch.bfloat16, dequant_matmul_int4)
+
+
+def test_dequant_matmul_int4_split_is_bit_equal_from_call_to_call(cuda):
+    """The last block of a strip sums the slices in slice order and no
+    atomic touches the output: two calls give the same bits, and so does a
+    call after calls of other shapes, which shows each launch leaves its
+    merge counters at 0."""
+    from repro_torch.kernels.dequant_matmul.ops import int4_plan
+    rng = np.random.default_rng(15)
+    packed, scale = _int4_weight(cuda, 4096, 13696, 32)
+    x = _randn(rng, (32, 4096), torch.bfloat16, cuda)
+    assert int4_plan(x, packed, scale).n_slices > 1
+    first = dequant_matmul_int4(x, packed, scale)
+    again = dequant_matmul_int4(x, packed, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    for M, K, N in ((32, 13696, 4096), (5, 96, 40), (16, 4096, 256)):
+        p, s = quantize_int4(_weight(rng, K, N, cuda), 32)
+        y = _randn(rng, (M, K), torch.bfloat16, cuda)
+        assert int4_plan(y, p, s).n_slices > 1 or K == 96
+        _close(dequant_matmul_int4(y, p, s), dequant_matmul_int4_ref(y, p, s),
+               torch.bfloat16)
+    later = dequant_matmul_int4(x, packed, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, later)
+    _close(first, dequant_matmul_int4_ref(x, packed, scale), torch.bfloat16)
+
+
 def test_dequant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     rng = np.random.default_rng(7)
     x = _randn(rng, (4, 64), torch.bfloat16, cuda)
@@ -385,6 +487,59 @@ def test_moe_gemm_on_a_layer_view_of_a_stacked_leaf(cuda, dtype):
         out = moe_gemm(x, w[i])
         torch.cuda.synchronize()
         _close(out, moe_gemm_ref(x, w[i]), dtype)
+
+
+#: the wgmma kernel's tile edges: capacities about the 64-row decode tile
+#: and the 128-row prefill tile, and the deepseek serve's 960 and granite's
+#: 2048, at f = 1408 (eleven 128-column tiles, the last partial in a
+#: 256-column view)
+MOE_TC_ROWS = [1, 6, 8, 63, 64, 65, 127, 128, 129, 960, 2048]
+
+
+@pytest.mark.parametrize("C", MOE_TC_ROWS)
+def test_moe_gemm_wgmma_kernel_at_its_tile_edges(cuda, C):
+    from repro_torch.kernels.moe_gemm.ops import moe_plan
+    rng = np.random.default_rng(16)
+    E, D, F = 3, 2048, 1408
+    x = _randn(rng, (E, C, D), torch.bfloat16, cuda)
+    w = _weight(rng, D, F, cuda, lead=(E,)).to(torch.bfloat16)
+    assert moe_plan(x, w).route == "wgmma"
+    n0 = moe_gemm.launches
+    out = moe_gemm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gemm.launches == n0 + 1
+    _close(out, moe_gemm_ref(x, w), torch.bfloat16)
+
+
+@pytest.mark.parametrize("C", [5, 1280])
+def test_moe_gemm_wgmma_kernel_at_jamba_widths(cuda, C):
+    """jamba-v0.1-52b's experts: d 4096, width 14336, decode C = 5 and
+    prefill C = 1280."""
+    from repro_torch.kernels.moe_gemm.ops import moe_plan
+    g = torch.Generator(device=cuda).manual_seed(17)
+    E, D, F = 16, 4096, 14336
+    x = torch.randn((E, C, D), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((E, D, F), generator=g, device=cuda)
+         * D ** -0.5).to(torch.bfloat16)
+    assert moe_plan(x, w).route == "wgmma"
+    out = moe_gemm(x, w)
+    torch.cuda.synchronize()
+    _close(out, moe_gemm_ref(x, w), torch.bfloat16)
+
+
+def test_moe_gemm_wgmma_kernel_on_a_layer_view_of_a_stacked_leaf(cuda):
+    """``gate[i]`` of a stacked (layers, E, d, f) leaf at serve-like widths:
+    views at an offset, each 16-byte aligned, through TMA."""
+    from repro_torch.kernels.moe_gemm.ops import moe_plan
+    rng = np.random.default_rng(18)
+    w = _weight(rng, 256, 136, cuda, lead=(3, 4)).to(torch.bfloat16)
+    for C in (8, 200):
+        x = _randn(rng, (4, C, 256), torch.bfloat16, cuda)
+        for i in range(3):
+            assert moe_plan(x, w[i]).route == "wgmma"
+            out = moe_gemm(x, w[i])
+            torch.cuda.synchronize()
+            _close(out, moe_gemm_ref(x, w[i]), torch.bfloat16)
 
 
 def test_moe_gemm_refuses_what_the_kernel_does_not_take(cuda):
