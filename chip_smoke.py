@@ -8,19 +8,22 @@ Phases, each of which fails the script on error:
    then build every CUDA kernel of the port from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once) and print the build time. Count
    the tensor-core instructions (``HGMMA``, ``HMMA``) of each kernel in the
-   flash and MoE libraries' SASS (``cuobjdump -sass``): the run fails if
-   the bf16 flash kernel or the MoE TMA + wgmma kernel has no ``HGMMA``.
+   libraries' SASS (``cuobjdump -sass``): the run fails if the bf16 flash
+   kernel, the MoE or the int8 TMA + wgmma kernel has no ``HGMMA``, or the
+   bf16 paged decode kernel no ``HMMA``.
 2. Hold each kernel against its plain PyTorch version on the card: at the
    shapes the serving runs below give it, at larger chatglm3-6b shapes, and
    at ragged shapes (lengths that are not multiples of the tile, sequence
-   lengths at the flash kernel's 64-row tile edges, cache lengths where the
-   dense decode kernel's planner changes its number of splits and splits
-   that hold no valid slot, a row whose cache slots are all empty, int4
-   groups of 32, 24 and 8 rows, the MoE kernel test shapes of the
-   reference). The MoE and int4 cases print the route the wrapper's
-   planner took (``moe_gemm``: the TMA + wgmma kernel or the cp.async one,
-   with its tiles; int4: the split-K kernel with its strips and slices, or
-   the tiled one). One JSON line per case with the largest error, the kernel's
+   lengths at the flash kernel's 64-row tile edges, cache lengths and
+   table widths where the dense and the paged decode kernel's planner
+   changes its number of splits and splits that hold no valid slot, a row
+   whose cache slots are all empty, int8 rows and widths about the split-K
+   kernel's tiles, int4 groups of 32, 24 and 8 rows, the MoE kernel test
+   shapes of the reference). The MoE, paged and dequant cases print the
+   route the wrapper's planner took (``moe_gemm``: the TMA + wgmma kernel or
+   the cp.async one, with its tiles; paged: its split; int8 and int4: the
+   split-K kernel with its strips and slices, the TMA + wgmma kernel or the
+   tiled one). One JSON line per case with the largest error, the kernel's
    time, the plain version's and, where one PyTorch call computes the same
    function, that call's (``library_ms``, timed here as a yardstick; the
    port never calls it: ``torch.bmm`` for the grouped expert GEMM; none for
@@ -63,8 +66,8 @@ Phases, each of which fails the script on error:
    must give the same tokens and log-probabilities within 1e-3. Before
    them, as information and not a gate, the same greedy comparison in
    bf16, where the new tensor-core kernels run: granite at its 2 MoE
-   layers (dense) and chatglm3-6b at 2 layers in int4 weights (paged): the
-   share of equal tokens, the equal sequences and the largest
+   layers (dense) and chatglm3-6b at 2 layers in int4 and in int8 weights
+   (paged): the share of equal tokens, the equal sequences and the largest
    log-probability difference.
 5. Print the script's wall time (the build included), the ``kernels``
    JSON line, the card again, and as the last line
@@ -165,21 +168,34 @@ def tensor_core_sass(lib: Path) -> dict:
     return counts
 
 
+# (library, kernel, the tensor-core instruction each of its bf16
+# instantiations must have)
+SASS_CHECKS = (("flash_attention", "flash_attention_tc_kernel", "HGMMA"),
+               ("moe_gemm", "moe_gemm_tc_kernel", "HGMMA"),
+               ("decode_attention", "paged_decode_attention_split_kernel",
+                "HMMA"),
+               ("dequant_matmul", "dequant_matmul_int8_tc_kernel", "HGMMA"))
+
+
 def check_sass() -> dict:
-    """Fail unless the bf16 flash kernel and the MoE TMA + wgmma kernel run
-    on wgmma (``HGMMA``)."""
+    """Fail unless the bf16 flash kernel, the MoE and the int8 TMA + wgmma
+    kernels run on wgmma (``HGMMA``) and the bf16 paged decode kernel on
+    mma.sync (``HMMA``): every bf16 instantiation of each (the paged
+    kernel's f32 ones compute on the CUDA cores)."""
     from repro_torch.kernels import build
     out = {}
-    for lib, kernel in (("flash_attention", "flash_attention_tc_kernel"),
-                        ("moe_gemm", "moe_gemm_tc_kernel")):
+    for lib, kernel, op in SASS_CHECKS:
         counts = tensor_core_sass(build.library_path(lib))
-        tc = {fn: c for fn, c in counts.items() if kernel in fn}
-        res = dict(library=lib, by_kernel=counts, kernel=kernel,
-                   hgmma=sum(c["HGMMA"] for c in tc.values()))
+        tc = {fn: c for fn, c in counts.items() if kernel in fn
+              and ("bfloat16" in fn or "paged" not in kernel)}
+        res = dict(library=lib, kernel=kernel, op=op,
+                   by_kernel={fn: c for fn, c in counts.items()
+                              if kernel in fn},
+                   count=[c[op] for c in tc.values()])
         emit("sass", res)
-        if not tc or res["hgmma"] == 0:
-            raise AssertionError(f"{kernel} has no HGMMA in its SASS")
-        out[lib] = res
+        if not tc or min(res["count"]) == 0:
+            raise AssertionError(f"{kernel} has no {op} in its SASS")
+        out[kernel] = res
     return out
 
 
@@ -318,7 +334,7 @@ def paged_case(g, B, H, Hkv, D, bs, plen, max_new, samples, step, dtype,
     row = Hkv * D * kp.element_size()
     return dict(args=(q, kp, vp, pos, table, q_pos), kw={},
                 kernel=paged_decode_attention,
-                plain=paged_decode_attention_ref,
+                plain=paged_decode_attention_ref, route=paged_route,
                 bytes=2 * nbytes(q) + nbytes(table, q_pos)
                 + used.numel() * bs * 4 + 2 * n_slots * row,
                 flops=2 * n_valid * H * 2 * D,
@@ -357,7 +373,7 @@ def dequant_case(g, fmt, M, K, N, dtype, gs=32):
                             dequantize_int4)
     del w
     case = dict(args=(x, qw, scale), kw={}, kernel=kern, plain=plain,
-                route=int4_route if fmt == "int4" else None,
+                route=int4_route if fmt == "int4" else int8_route,
                 bytes=nbytes(x, qw, scale) + M * N * x.element_size(),
                 flops=2 * M * K * N,
                 shape=dict(M=M, K=K, N=N, fmt=fmt,
@@ -385,6 +401,22 @@ def int4_route(x, packed, scale) -> dict:
     tiled kernel."""
     from repro_torch.kernels.dequant_matmul.ops import int4_plan
     return int4_plan(x, packed, scale)._asdict()
+
+
+def int8_route(x, qw, scale) -> dict:
+    """The int8 wrapper's plan: the split-K kernel and its split, the TMA +
+    wgmma kernel or the tiled one."""
+    from repro_torch.kernels.dequant_matmul.ops import int8_plan
+    return int8_plan(x, qw, scale)._asdict()
+
+
+def paged_route(q, kp, vp, pos, table, q_pos) -> dict:
+    """The paged wrapper's split: (n_split, split_slots, n_hb)."""
+    from repro_torch.kernels.decode_attention.ops import paged_split_plan
+    B, nb = table.shape
+    plan = paged_split_plan(B, nb * kp.shape[1], q.shape[2], kp.shape[2],
+                            q.shape[3], vp.shape[3], q.dtype, q.device)
+    return dict(zip(("n_split", "split_slots", "n_hb"), plan))
 
 
 def moe_route(x, w) -> dict:
@@ -558,6 +590,30 @@ def check_kernels(seed: int) -> dict:
                      decode_case(g, B, w, H, Hkv, D, w, dtype), dtype, 10)
         run_case("decode_attention", "empty-splits",
                  decode_case(g, B, W, H, Hkv, D, 100, dtype), dtype, 20)
+    # the paged kernel likewise: every table width of the serve batch (8
+    # prompts x 4 samples, blocks of 16) up to the serve's 18 blocks where
+    # the wrapper's planner changes its split, and one before; the serve's
+    # width filled to 40 of 288 slots, so that the later splits hold only
+    # blocks with no token
+    from repro_torch.kernels.decode_attention.ops import paged_split_plan
+    nb_serve = -(-(plen + new - 1) // bs)
+    for dtype in (bf, f32):
+        plans = [paged_split_plan(B, n * bs, H, Hkv, D, D, dtype,
+                                  torch.device("cuda"))
+                 for n in range(1, nb_serve + 1)]
+        edges = [n for n in range(2, nb_serve + 1)
+                 if plans[n - 1] != plans[n - 2]]
+        emit("paged-split-edges", dict(dtype=str(dtype).split(".")[-1],
+                                       edges={n: plans[n - 1]
+                                              for n in edges}))
+        for n in sorted({x for e in edges for x in (e - 1, e)}):
+            p_len = max(1, n * bs // 2)      # kv length p_len + max_new - 1
+            run_case("paged_decode_attention", f"split-nb{n}",
+                     paged_case(g, B, H, Hkv, D, bs, p_len, n * bs - p_len + 1,
+                                k, n * bs - p_len, dtype), dtype, 10)
+        run_case("paged_decode_attention", "empty-splits",
+                 paged_case(g, B, H, Hkv, D, bs, 40, plen + new - 40, k, 1,
+                            dtype), dtype, 20)
     # larger chatglm3-6b shapes
     run_case("flash_attention", "S2048",
              flash_case(g, 4, 2048, H, Hkv, D, D, bf), bf, 5)
@@ -600,12 +656,18 @@ def check_kernels(seed: int) -> dict:
                  bf, 50)
         run_case(name, "prefill", dequant_case(g, fmt, R * plen, D_MODEL,
                                                D_FF, bf), bf, 10)
-        if fmt == "int4":
-            # the split-K kernel's other row tiles: 16 rows (the int4
-            # parity run decodes 16) and the most it takes, 64
-            for M in (16, 64):
-                run_case(name, f"M{M}", dequant_case(g, fmt, M, D_MODEL, D_FF,
-                                                     bf), bf, 50)
+        # the split-K kernels' other row tiles: 16 rows (the parity runs
+        # decode 16) and the most they take, 64
+        for M in (16, 64):
+            run_case(name, f"M{M}", dequant_case(g, fmt, M, D_MODEL, D_FF,
+                                                 bf), bf, 50)
+        if fmt == "int8":
+            # K and N not whole 128-row tiles or 128-column strips, in the
+            # split-K kernel and in the TMA + wgmma one
+            for label, (M, K, N) in (("ragged-split", (32, 4104, 272)),
+                                     ("ragged-wgmma", (300, 4096, 4160))):
+                run_case(name, label, dequant_case(g, fmt, M, K, N, bf), bf,
+                         20)
         for dtype in (bf, f32):
             for M, K, N, gs in ((5, 48, 19, 32), (1, 32, 130, 32),
                                 (17, 96, 33, 8)):
@@ -955,15 +1017,17 @@ def compare_paths(cfg, mk, mp, kparams, pparams, prompts, mode: str,
 
 def agreement_bf16(seed: int) -> None:
     """Information, not a gate: `serve_both` in bf16, where the MoE TMA +
-    wgmma kernel and the split-K int4 kernel's tensor-core path run (phase
-    4's f32 path runs neither): granite at its 2 MoE layers, dense, and
-    chatglm3-6b at 2 layers in int4 weights, paged, against the plain path
-    over the dequantized weights."""
+    wgmma kernel, the split-K and wgmma dequant kernels and the paged
+    kernel's tensor-core path run (phase 4's f32 path runs none of them):
+    granite at its 2 MoE layers, dense, and chatglm3-6b at 2 layers in
+    int4 and in int8 weights, paged, against the plain path over the
+    dequantized weights."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.quant.quantize import dequantize_model, quantize_model
     for arch, mode, wfmt in (("granite-moe-3b-a800m", "dense", "bf16"),
-                             ("chatglm3-6b", "paged", "int4")):
+                             ("chatglm3-6b", "paged", "int4"),
+                             ("chatglm3-6b", "paged", "int8")):
         full = get_config(arch)
         n_prefix = full.moe.first_dense if full.moe is not None else 0
         cfg = dataclasses.replace(full, n_layers=n_prefix + 2)
@@ -972,7 +1036,7 @@ def agreement_bf16(seed: int) -> None:
                    use_kernel=False)
         params = mk.init(torch.Generator(device="cuda").manual_seed(seed + 2))
         kparams = pparams = params
-        if wfmt == "int4":
+        if wfmt != "bf16":
             kparams = quantize_model(params, wfmt, 32)
             pparams = dequantize_model(kparams, torch.bfloat16)
         prompts = make_prompts(cfg, seed + 2)

@@ -42,17 +42,22 @@
 //    tile that is.
 //  * f32 x: scalar f32 FMAs with the same groups (no TF32: the f32 path is
 //    held to the plain version at 1e-4).
-// These tiled kernels serve int8 at every M, and int4 at M > 64 where the
-// TMA + wgmma kernel below does not (f32 x; rows TMA cannot stride; groups
-// other than 16, 32, 64); they do not split K.
+// These tiled kernels serve what the kernels below do not take: f32 x for
+// int8 at every M and for int4 at M > 64, and shapes TMA or 16-byte copies
+// cannot stride (int4 also: groups other than 16, 32, 64 at M > 64); they
+// do not split K.
 //
-// int4 at M > 64 (prefill), bf16 x: `dequant_matmul_int4_tc_kernel` (see
-// its note): x and the packed weight arrive by TMA, the consumers
-// dequantize each stage into a swizzled bf16 tile that wgmma reads as B,
-// and each group's f32 partial is scaled into the accumulator.
+// M > 64 (prefill), bf16 x: `dequant_matmul_int4_tc_kernel` and
+// `dequant_matmul_int8_tc_kernel` (see their notes): x and the quantized
+// weight arrive by TMA, the consumers dequantize each stage into a swizzled
+// bf16 tile that wgmma reads as B. int4 scales each group's f32 partial into
+// the accumulator; int8 has one accumulator over all of K and scales at
+// write-out.
 //
-// int4 at M <= 64 (decode): the split-K kernels
-// (`dequant_matmul_int4_splitk_*_kernel`).
+// M <= 64 (decode): the split-K kernels (`dequant_matmul_int4_splitk_*_kernel`
+// and, for bf16 x, `dequant_matmul_int8_splitk_kernel`, the same design
+// over one byte a weight with the scale applied once, where a strip is
+// written).
 // At decode the tiled kernel's time per 64-row k tile was the same at every
 // shape, whatever its grid: the serial latency of a block's k loop, not
 // bytes, bounded it: a lone block waits on the latency of its own
@@ -470,6 +475,26 @@ size_t smem_bytes(int elem, int rows, int gs) {
   return 128 + (size_t)STAGES * stage_bytes(elem, rows, gs);
 }
 
+// x's rows 0 .. ROWS-1 at columns k0 .. k0+BK-1 into a stage's x tile by
+// 16-byte cp.async, from offsets fixed for the block (rows tid / CPR + i
+// (128 / CPR)); zeros past M and K (K % (16 / sizeof(T)) == 0: a chunk is
+// all in or all out).
+template <typename T, int ROWS>
+__device__ __forceinline__ void load_x(unsigned char* xt, const T* __restrict__ x, int M, int K,
+                                       int k0) {
+  constexpr int EPC = 16 / (int)sizeof(T), CPR = BK / EPC, RPI = THREADS / CPR;
+  const int tid = threadIdx.x;
+  const int r = tid / CPR, kc = (tid % CPR) * EPC;
+  const bool k_ok = k0 + kc < K;
+  const T* src = x + (long long)r * K + k0 + kc;
+#pragma unroll
+  for (int i = 0; i < ROWS / RPI; ++i) {
+    const bool ok = k_ok && r + RPI * i < M;
+    cp_async16(xt + ((r + RPI * i) * XS<T> + kc) * sizeof(T), ok ? src + (long long)RPI * i * K : x,
+               ok);
+  }
+}
+
 // Stage k0 .. k0+BK-1 of a block: the strip's packed weight rows k0/2 ..,
 // x's rows 0 .. ROWS-1 at columns k0 .., and the scale rows of the groups
 // g0 .. g_end-1 the stage touches; zeros outside the matrices. With VEC
@@ -496,18 +521,7 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const T* __restric
         cp_async16(ws + (r + 16 * i) * WST + nc, ok ? src + (long long)16 * i * N : w, ok);
       }
     }
-    {  // x: ROWS rows x CPR chunks
-      constexpr int EPC = 16 / (int)sizeof(T), CPR = BK / EPC, RPI = THREADS / CPR;
-      const int r = tid / CPR, kc = (tid % CPR) * EPC;
-      const bool k_ok = k0 + kc < K;  // K % EPC == 0: a chunk is all in or all out
-      const T* src = x + (long long)r * K + k0 + kc;
-#pragma unroll
-      for (int i = 0; i < ROWS / RPI; ++i) {
-        const bool ok = k_ok && r + RPI * i < M;
-        cp_async16(xt + ((r + RPI * i) * XS<T> + kc) * sizeof(T),
-                   ok ? src + (long long)RPI * i * K : x, ok);
-      }
-    }
+    load_x<T, ROWS>(xt, x, M, K, k0);
     {  // scales: sr rows x BN / 4 chunks
       const int r = tid >> 5, nc = (tid & 31) * 4;
       const bool col_ok = n0 + nc < N;
@@ -600,9 +614,11 @@ __device__ __forceinline__ void add4(float4& a, const float4& b) {
 // order, writes the strip of ``out`` and resets the strip's counter to 0.
 // A thread sums P positions at once, two slices a round, so 2P loads are in
 // flight at a time.
-template <typename T>
+// SCALED (int8): the sum is multiplied by the columns' ``scale`` before it is
+// written.
+template <typename T, bool SCALED>
 __device__ void merge_slices(const float* part, int* counter, T* __restrict__ out, int M, int N,
-                             int n0, int n_slices) {
+                             int n0, int n_slices, const float* __restrict__ scale) {
   constexpr int P = 4;
   __shared__ int is_last;
   __threadfence();
@@ -648,6 +664,15 @@ __device__ void merge_slices(const float* part, int* counter, T* __restrict__ ou
       const int i = i0 + u * THREADS;
       if (i >= n4) continue;
       const int m = i / (BN / 4), c = n0 + (i % (BN / 4)) * 4;
+      if (SCALED) {
+        if (c >= N) continue;
+        // N % 16 == 0 (the int8 split kernel's shapes): c + 3 < N too
+        const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + c));
+        a[u].x *= sc.x;
+        a[u].y *= sc.y;
+        a[u].z *= sc.z;
+        a[u].w *= sc.w;
+      }
       const float v[4] = {a[u].x, a[u].y, a[u].z, a[u].w};
       store4<T>(out + (long long)m * N, c, N, v);
     }
@@ -882,7 +907,7 @@ __global__ void __launch_bounds__(THREADS)
             make_float4(acc[0][4 * j + h], acc[0][4 * j + 2 + h], acc[1][4 * j + h],
                         acc[1][4 * j + 2 + h]);
     }
-  merge_slices<__nv_bfloat16>(pp, counters + strip, out, M, N, n0, n_slices);
+  merge_slices<__nv_bfloat16, false>(pp, counters + strip, out, M, N, n0, n_slices, nullptr);
 }
 
 // ----------------------------------------------------------------- f32 x
@@ -958,7 +983,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int m = 0; m < ROWS; ++m)
     if (m < M) pp[((long long)slice * M + m) * BN + threadIdx.x] = acc[m];
-  merge_slices<float>(pp, counters + strip, out, M, N, n0, n_slices);
+  merge_slices<float, false>(pp, counters + strip, out, M, N, n0, n_slices, nullptr);
 }
 
 template <int MT, bool VEC>
@@ -1017,6 +1042,195 @@ int blocks_per_sm_rows(int is_bf16, int gs) {
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, THREADS, smem);
   }
+  return err == cudaSuccess ? n : 0;
+}
+
+
+// ---------------------------------------------------------- int8, bf16 x
+// The int4 kernel's design over one byte a weight: a stage holds BK rows of
+// the strip's int8 weight (row stride WST8, so that a warp's word loads of
+// rows 2t, 2t+1, t = 0..3, hit 32 banks) and x's rows of those k, STAGES8
+// of them in a ring. There are no groups: one f32 accumulator runs over the
+// slice, and the per-column scale multiplies once, where a strip's sum is
+// written.
+
+constexpr int WST8 = BN + 16;
+// stages of the int8 ring: three (two blocks an SM at 32 rows) took less
+// time over a chatglm3-6b layer's seven decode projections than the int4
+// kernel's two (four blocks an SM), and four no less, on an H100 80GB HBM3
+// at 700 W
+constexpr int STAGES8 = 3;
+__host__ __device__ __forceinline__ int stage_bytes_int8(int rows) {
+  return BK * WST8 + x_tile_bytes(2, rows);  // both parts 128-byte multiples
+}
+size_t smem_bytes_int8(int rows) { return 128 + (size_t)STAGES8 * stage_bytes_int8(rows); }
+
+// Stage k0 .. k0+BK-1: the strip's weight rows, rows tid / 8 + 16 i a
+// thread, and x's rows; zeros outside the matrices.
+template <int ROWS>
+__device__ __forceinline__ void load_stage_int8(unsigned char* st,
+                                                const __nv_bfloat16* __restrict__ x,
+                                                const int8_t* __restrict__ w, int M, int N, int K,
+                                                int n0, int k0) {
+  const int tid = threadIdx.x;
+  const int r = tid >> 3, nc = (tid & 7) * 16;
+  const bool col_ok = n0 + nc < N;  // N % 16 == 0
+  const int8_t* src = w + (long long)(k0 + r) * N + n0 + nc;
+#pragma unroll
+  for (int i = 0; i < BK * (BN / 16) / THREADS; ++i) {
+    const bool ok = col_ok && k0 + r + 16 * i < K;
+    cp_async16(st + (r + 16 * i) * WST8 + nc, ok ? src + (long long)16 * i * N : w, ok);
+  }
+  load_x<__nv_bfloat16, ROWS>(st + BK * WST8, x, M, K, k0);
+}
+
+// Byte J of words r0 (k row 2t) and r1 (k row 2t + 1) as an exact bf16 pair:
+// the byte permute puts them in the low bytes of the two halves; a half
+// then holds 128 + (v & 127) with the exponent of 128 set (0x4300 | v &
+// 0x7F), and 128 or 256 by the sign bit (0x4300 | v & 0x80); their
+// difference is v in [-128, 127], exactly.
+template <int J>
+__device__ __forceinline__ uint32_t int8_pair(uint32_t r0, uint32_t r1) {
+  constexpr uint32_t sel = J | (J << 4) | ((4 + J) << 8) | ((4 + J) << 12);
+  const uint32_t r = __byte_perm(r0, r1, sel);
+  uint32_t a, b;
+  // (r & mask) | 0x43004300, one three-input logic op each
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;" : "=r"(a) : "r"(r), "n"(0x007F007F), "r"(0x43004300u));
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;" : "=r"(b) : "r"(r), "n"(0x00800080), "r"(0x43004300u));
+  __nv_bfloat162 v = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragments of the two m16 tiles of a k16 step from the thread's four
+// words: k rows 2t, 2t+1, 2t+8, 2t+9 of its four columns (tile 0: columns
+// 4gq, 4gq+1; tile 1: 4gq+2, 4gq+3, as in `dequant_a`).
+__device__ __forceinline__ void int8_a(const uint8_t* wt, uint32_t (&a)[2][4]) {
+  const uint32_t r0 = *reinterpret_cast<const uint32_t*>(wt);
+  const uint32_t r1 = *reinterpret_cast<const uint32_t*>(wt + WST8);
+  const uint32_t r8 = *reinterpret_cast<const uint32_t*>(wt + 8 * WST8);
+  const uint32_t r9 = *reinterpret_cast<const uint32_t*>(wt + 9 * WST8);
+  a[0][0] = int8_pair<0>(r0, r1);
+  a[0][1] = int8_pair<1>(r0, r1);
+  a[0][2] = int8_pair<0>(r8, r9);
+  a[0][3] = int8_pair<1>(r8, r9);
+  a[1][0] = int8_pair<2>(r0, r1);
+  a[1][1] = int8_pair<3>(r0, r1);
+  a[1][2] = int8_pair<2>(r8, r9);
+  a[1][3] = int8_pair<3>(r8, r9);
+}
+
+// MT n8 tiles of x rows (M <= 8 MT). x, w and scale 16-byte aligned, K % 8
+// == 0 and N % 16 == 0 (the planner's condition).
+template <int MT>
+__global__ void __launch_bounds__(THREADS)
+    dequant_matmul_int8_splitk_kernel(const __nv_bfloat16* __restrict__ x,
+                                      const int8_t* __restrict__ w,
+                                      const float* __restrict__ scale,
+                                      __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+                                      int* __restrict__ counters, int M, int N, int K,
+                                      int slice_k) {
+  constexpr int ROWS = 8 * MT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~(uintptr_t)127);
+  const int slice = blockIdx.x, n_slices = gridDim.x, strip = blockIdx.y;
+  const int n0 = strip * BN;
+  const int kbeg = slice * slice_k, kend = min(K, kbeg + slice_k);
+  const int nk = (kend - kbeg + BK - 1) / BK;
+  const int sb = stage_bytes_int8(ROWS);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int xl_off =
+      (8 * (lane >> 4) + (lane & 7)) * XS<__nv_bfloat16> + 8 * ((lane >> 3) & 1);
+
+  for (int s = 0; s < STAGES8 - 1; ++s) {
+    if (s < nk) load_stage_int8<ROWS>(smem + s * sb, x, w, M, N, K, n0, kbeg + s * BK);
+    cp_async_commit();
+  }
+
+  float acc[2][4 * MT];  // as in the int4 kernel
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4 * MT; ++e) acc[i][e] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES8 - 2>();
+    __syncthreads();  // tile kt landed; tile kt - 1 fully consumed
+    const int pf = kt + STAGES8 - 1;
+    if (pf < nk)
+      load_stage_int8<ROWS>(smem + (pf % STAGES8) * sb, x, w, M, N, K, n0, kbeg + pf * BK);
+    cp_async_commit();
+    const unsigned char* st = smem + (kt % STAGES8) * sb;
+    const uint8_t* wt = st + (2 * t) * WST8 + warp * 32 + 4 * gq;
+    const __nv_bfloat16* xt = reinterpret_cast<const __nv_bfloat16*>(st + BK * WST8);
+    // rows past K (the last slice's tail) are zeros in both tiles
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      uint32_t a[2][4], b[MT][2];
+      int8_a(wt + 16 * ks * WST8, a);
+      load_b<MT>(b, xt + xl_off + 16 * ks);
+      mma_step<MT, false>(acc, a, b);
+    }
+  }
+  cp_async_wait<0>();
+
+  // this thread's outputs: x rows 8j + 2t + h, columns c .. c+3
+  const int c = warp * 32 + 4 * gq;
+  if (n_slices == 1) {
+    if (n0 + c >= N) return;
+    const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + n0 + c));
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 8 * j + 2 * t + h;
+        const float v[4] = {acc[0][4 * j + h] * sc.x, acc[0][4 * j + 2 + h] * sc.y,
+                            acc[1][4 * j + h] * sc.z, acc[1][4 * j + 2 + h] * sc.w};
+        if (m < M) store4<__nv_bfloat16>(out + (long long)m * N, n0 + c, N, v);
+      }
+    return;
+  }
+  float* pp = part + (long long)strip * n_slices * M * BN;
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 8 * j + 2 * t + h;
+      if (m < M)
+        *reinterpret_cast<float4*>(pp + ((long long)slice * M + m) * BN + c) =
+            make_float4(acc[0][4 * j + h], acc[0][4 * j + 2 + h], acc[1][4 * j + h],
+                        acc[1][4 * j + 2 + h]);
+    }
+  merge_slices<__nv_bfloat16, true>(pp, counters + strip, out, M, N, n0, n_slices, scale);
+}
+
+template <int MT>
+int launch_int8_rows(const void* x, const void* w, const void* scale, void* out, void* part,
+                     void* counters, int M, int N, int K, int slice_k, int n_slices,
+                     void* stream) {
+  const dim3 grid(n_slices, (N + BN - 1) / BN);
+  const size_t smem = smem_bytes_int8(8 * MT);
+  auto kern = dequant_matmul_int8_splitk_kernel<MT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const int8_t*)w, (const float*)scale, (__nv_bfloat16*)out,
+      (float*)part, (int*)counters, M, N, K, slice_k);
+  return (int)cudaGetLastError();
+}
+
+template <int MT>
+int blocks_per_sm_int8_rows() {
+  const size_t smem = smem_bytes_int8(8 * MT);
+  auto kern = dequant_matmul_int8_splitk_kernel<MT>;
+  int n = 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, THREADS, smem);
   return err == cudaSuccess ? n : 0;
 }
 
@@ -1215,13 +1429,174 @@ int launch(const void* x, const void* packed, const void* scale, void* out, int 
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------ int8 at prefill (bf16 x): TMA + wgmma
+
+constexpr int W8_BYTES = BK * BN;            // the int8 weight tile, 64 x 128
+constexpr int STAGE8 = A_BYTES + W8_BYTES;   // a multiple of 1024
+constexpr int STAGES8 = 3;                   // two blocks an SM
+
+size_t smem_bytes_int8() { return 1024 + (size_t)STAGES8 * STAGE8 + 2 * B_BYTES + 16 * STAGES8; }
+
+// bf16 pair (byte J0 of w, byte J1 of w), exact: `sk::int8_pair` over one
+// word
+template <int J0, int J1>
+__device__ __forceinline__ uint32_t int8_cols(uint32_t w) {
+  constexpr uint32_t sel = J0 | (J0 << 4) | (J1 << 8) | (J1 << 12);
+  const uint32_t r = __byte_perm(w, 0u, sel);
+  uint32_t a, b;
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;" : "=r"(a) : "r"(r), "n"(0x007F007F), "r"(0x43004300u));
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;" : "=r"(b) : "r"(r), "n"(0x00800080), "r"(0x43004300u));
+  __nv_bfloat162 v = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A stage's int8 tile (64 k rows x 128 columns, as TMA wrote it) into a bf16
+// B tile laid out as TMA would write the (k, n) weight: 64-column chunks of
+// 64 k rows, 128-byte swizzled. A task is 8 columns of one row: one 16-byte
+// swizzle unit. All consumer threads.
+__device__ __forceinline__ void convert_int8(const unsigned char* wt, unsigned char* bt, int tid) {
+#pragma unroll
+  for (int task = tid; task < BK * BN / 8; task += CONSUMERS) {
+    const int k = task >> 4, cg = task & 15;
+    const uint2 v = *reinterpret_cast<const uint2*>(wt + k * BN + cg * 8);
+    const uint4 o = make_uint4(int8_cols<0, 1>(v.x), int8_cols<2, 3>(v.x),
+                               int8_cols<0, 1>(v.y), int8_cols<2, 3>(v.y));
+    const int c = cg >> 3, u = cg & 7;
+    *reinterpret_cast<uint4*>(bt + c * CHUNK + k * 128 + ((u ^ (k & 7)) << 4)) = o;
+  }
+  // the B tile is visible to wgmma's reads (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// out (M, N) = (x (M, K) @ qw (K, N) int8) * scale (N,) for bf16 x, with
+// K % 64 == 0 and N % 16 == 0. A block owns a 128 x 128 output tile: two
+// consumer warpgroups of 64 rows and a producer warp. The int4 kernel's
+// skeleton with one group of K rows:
+//  * TMA brings each 64-row stage (x's 128 x 64 tile, 128-byte swizzled,
+//    and the strip's 64 x 128 int8 tile) into a ring with full / empty
+//    mbarriers.
+//  * The consumers convert a stage's int8 tile into a bf16 B tile (two
+//    alternate) while the wgmma of the stage before runs: the products of
+//    stage i are issued, then stage i+1 is converted, then the warpgroup
+//    waits for its products and both warpgroups meet at one barrier.
+//  * One f32 accumulator runs over all of K (wgmma m64n128k16, x as A,
+//    the B tile through the transpose mode); the scale multiplies once at
+//    write-out.
+__global__ void __launch_bounds__(THREADS, 2)
+    dequant_matmul_int8_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                                  const __grid_constant__ CUtensorMap wmap,
+                                  const float* __restrict__ scale,
+                                  __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int nk = K / BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* btile = ring + STAGES8 * STAGE8;
+  uint64_t* full = reinterpret_cast<uint64_t*>(btile + 2 * B_BYTES);
+  uint64_t* empty = full + STAGES8;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES8; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // producer: one thread issues every copy
+    if (threadIdx.x == CONSUMERS) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % STAGES8;
+        mbar_wait(&empty[s], ((i / STAGES8) & 1) ^ 1);  // the first round passes
+        unsigned char* st = ring + s * STAGE8;
+        mbar_expect_tx(&full[s], STAGE8);
+        tma_load_2d(st, &xmap, &full[s], i * BK, m0);
+        tma_load_2d(st + A_BYTES, &wmap, &full[s], n0, i * BK);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, g = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, t4 = lane & 3;
+  float acc[BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+
+  mbar_wait(&full[0], 0);
+  convert_int8(ring + A_BYTES, btile, tid);
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES8;
+    const unsigned char* as = ring + s * STAGE8 + g * 64 * 128;
+    const unsigned char* bt = btile + (i & 1) * B_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t)
+      wgmma_m64n128k16_ss_tb(acc, desc(as + t * 32, 16, 1024),
+                             desc(bt + t * 16 * 128, CHUNK, 1024), 1);
+    wgmma_commit();
+    if (i + 1 < nk) {
+      // the next B tile: its buffer's last reader, stage i-1's wgmma, ended
+      // before both warpgroups passed the last barrier
+      const int s1 = (i + 1) % STAGES8;
+      mbar_wait(&full[s1], ((i + 1) / STAGES8) & 1);
+      convert_int8(ring + s1 * STAGE8 + A_BYTES, btile + ((i + 1) & 1) * B_BYTES, tid);
+    }
+    wgmma_wait<0>();
+    mbar_arrive(&empty[s]);  // stage i's x tile read; its int8 tile converted before
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+  }
+
+  const int row_a = m0 + g * 64 + warp * 16 + (lane >> 2);
+  const int col_t = n0 + 2 * t4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = col_t + 8 * j;  // even, and N % 16 == 0: col + 1 < N too
+    if (col >= N) continue;
+    const float2 sc = __ldg(reinterpret_cast<const float2*>(scale + col));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (row < M)
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * N + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * sc.x, acc[4 * j + 2 * r + 1] * sc.y);
+    }
+  }
+}
+
+int launch_int8(const void* x, const void* qw, const void* scale, void* out, int M, int N, int K,
+                void* stream) {
+  CUtensorMap xmap, wmap;
+  CUresult r = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M, 64, BM,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+  if (r == CUDA_SUCCESS)
+    r = encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qw, N, K, BN, BK,
+               CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (r != CUDA_SUCCESS) return (int)r;
+  const size_t smem = smem_bytes_int8();
+  cudaError_t err = cudaFuncSetAttribute(dequant_matmul_int8_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  dequant_matmul_int8_tc_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      xmap, wmap, (const float*)scale, (__nv_bfloat16*)out, M, N, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace pf
 
 }  // namespace
 
 extern "C" {
 
-// x (M,K) bf16|f32, qw (K,N) int8, scale (N,) f32 -> out (M,N) in x's type.
+// x (M,K) bf16|f32, qw (K,N) int8, scale (N,) f32 -> out (M,N) in x's type:
+// the tiled kernel (f32 x, and shapes the two kernels below do not take).
 int dequant_matmul_int8_fwd(const void* x, const void* qw, const void* scale, void* out, int M,
                             int N, int K, int is_bf16, void* stream) {
   return launch<false>(x, qw, scale, out, M, N, K, K, is_bf16, stream);
@@ -1260,6 +1635,43 @@ int dequant_matmul_int4_splitk_fwd(const void* x, const void* packed, const void
 int dequant_matmul_int4_tc_fwd(const void* x, const void* packed, const void* scale, void* out,
                                int M, int N, int K, int gs, void* stream) {
   return pf::launch(x, packed, scale, out, M, N, K, gs, stream);
+}
+
+// The split-K int8 kernel (bf16 x, M <= 64): K cut into n_slices slices of
+// slice_k rows (a multiple of 128; the last ends at K), N into strips of 128
+// columns; x, qw and scale 16-byte aligned, K % 8 == 0 and N % 16 == 0;
+// part and counters as for the int4 split kernel.
+int dequant_matmul_int8_splitk_fwd(const void* x, const void* qw, const void* scale, void* out,
+                                   void* part, void* counters, int M, int N, int K, int slice_k,
+                                   int n_slices, void* stream) {
+  if (M < 1 || M > 64 || slice_k % sk::BK || n_slices < 1 || K % 8 || N % 16 ||
+      !aligned16(x) || !aligned16(qw) || !aligned16(scale))
+    return (int)cudaErrorInvalidValue;
+  if (M <= 16)
+    return sk::launch_int8_rows<2>(x, qw, scale, out, part, counters, M, N, K, slice_k,
+                                   n_slices, stream);
+  if (M <= 32)
+    return sk::launch_int8_rows<4>(x, qw, scale, out, part, counters, M, N, K, slice_k,
+                                   n_slices, stream);
+  return sk::launch_int8_rows<8>(x, qw, scale, out, part, counters, M, N, K, slice_k, n_slices,
+                                 stream);
+}
+
+// Blocks of the int8 split-K kernel for ``rows`` (16, 32 or 64) x rows one
+// SM holds (0 if it cannot launch).
+int dequant_matmul_int8_splitk_blocks_per_sm(int rows) {
+  if (rows <= 16) return sk::blocks_per_sm_int8_rows<2>();
+  if (rows <= 32) return sk::blocks_per_sm_int8_rows<4>();
+  return sk::blocks_per_sm_int8_rows<8>();
+}
+
+// The TMA + wgmma int8 kernel (bf16 x, M > 64): x (M,K), qw (K,N), scale
+// (N,) with K % 64 == 0, N % 16 == 0 and 16-byte aligned bases (the
+// wrapper's planner checks) -> out (M,N) bf16. A failed tensor-map encode
+// returns its CUresult.
+int dequant_matmul_int8_tc_fwd(const void* x, const void* qw, const void* scale, void* out,
+                               int M, int N, int K, void* stream) {
+  return pf::launch_int8(x, qw, scale, out, M, N, K, stream);
 }
 
 // Blocks of the split-K kernel for ``rows`` (16, 32 or 64) x rows and groups

@@ -3,9 +3,10 @@ versions for CPU tensors.
 
 The kernels (``repro_torch/csrc/decode_attention.cu``) replace the TPU
 kernels `decode_attention_pallas` and `paged_decode_attention_pallas` in
-``src/repro/kernels/decode_attention/decode_attention.py``. The dense ring
-splits its slot axis across blocks (`split.plan_splits`) and merges the
-splits' partials in the same launch through a per-device workspace. Each
+``src/repro/kernels/decode_attention/decode_attention.py``. Both split their
+slot axis across blocks (`split.plan_splits`: the dense ring's W slots, the
+nb * bs logical slots of a block-table row) and merge the splits' partials
+in the same launch through a per-device workspace. Each
 wrapper's ``launches`` attribute counts its kernel's launches, one a call;
 the CPU path does not count.
 """
@@ -34,11 +35,13 @@ def _lib() -> ctypes.CDLL:
     lib.decode_attention_fwd.argtypes = [_P] * 8 + [_I] * 6 + [
         ctypes.c_float] + [_I] * 6 + [_P]
     lib.decode_attention_fwd.restype = _I
-    lib.paged_decode_attention_fwd.argtypes = [_P] * 7 + [_I] * 8 + [
-        ctypes.c_float, _I, _P]
+    lib.paged_decode_attention_fwd.argtypes = [_P] * 9 + [_I] * 8 + [
+        ctypes.c_float] + [_I] * 4 + [_P]
     lib.paged_decode_attention_fwd.restype = _I
-    lib.decode_attention_smem_bytes.argtypes = [_I, _I, _I]
-    lib.decode_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.paged_decode_attention_smem_bytes.argtypes = [_I, _I, _I]
+    lib.paged_decode_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.paged_decode_attention_blocks_per_sm.argtypes = [_I, _I, _I]
+    lib.paged_decode_attention_blocks_per_sm.restype = _I
     lib.decode_attention_split_smem_bytes.argtypes = [_I, _I, _I]
     lib.decode_attention_split_smem_bytes.restype = ctypes.c_size_t
     lib.decode_attention_split_blocks_per_sm.argtypes = [_I, _I, _I, _I]
@@ -70,9 +73,24 @@ def split_plan(B: int, W: int, H: int, Hkv: int, D: int, Dv: int,
                                       dtype == torch.bfloat16))
 
 
+@functools.lru_cache(maxsize=None)
+def _paged_blocks_per_sm(D: int, Dv: int, is_bf16: bool) -> int:
+    return _lib().paged_decode_attention_blocks_per_sm(D, Dv, int(is_bf16))
+
+
+def paged_split_plan(B: int, n_slots: int, H: int, Hkv: int, D: int,
+                     Dv: int, dtype: torch.dtype,
+                     device: torch.device) -> Tuple[int, int, int]:
+    """`plan_splits` as the paged wrapper calls it on ``device``, over the
+    ``n_slots = nb * bs`` logical slots of a table row: with the card's SM
+    count and the paged kernel's occupancy at these head dims."""
+    return plan_splits(B, Hkv, n_slots, H // Hkv, _sm_count(device),
+                       _paged_blocks_per_sm(D, Dv, dtype == torch.bfloat16))
+
+
 def _workspace(device: torch.device, n_counters: int,
                n_part: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dense kernel's scratch on ``device``, allocated once and grown
+    """The split kernels' scratch on ``device``, allocated once and grown
     when a call needs more: int32 merge counters, zero between launches
     (each launch leaves them 0), and f32 split partials. Kernels on one
     stream share it; calls on two streams at once would race."""
@@ -204,18 +222,32 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(block_table.shape)}, q_pos "
                          f"{tuple(q_pos.shape)} disagree")
     H, Dv = q.shape[2], v_pool.shape[3]
+    is_bf16 = q.dtype == torch.bfloat16
+    if D % 16 or Dv % 16 or Dv > 128:
+        raise ValueError(f"{op}: head dims D={D}, Dv={Dv}; the kernel takes "
+                         "multiples of 16, Dv at most 128")
+    for t in (q, k_pool, v_pool):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{op}: q and the pools must start on a "
+                             "16-byte boundary")
     lib = _lib()
-    _check_smem(op, lib.decode_attention_smem_bytes(H // Hkv, D, Dv),
+    _check_smem(op, lib.paged_decode_attention_smem_bytes(D, Dv,
+                                                          int(is_bf16)),
                 H // Hkv, D, Dv)
     if scale is None:
         scale = D ** -0.5
+    n_split, split_slots, n_hb = paged_split_plan(B, nb * bs, H, Hkv, D, Dv,
+                                                  q.dtype, q.device)
+    counters, part = _workspace(q.device, B * Hkv * n_hb,
+                                B * H * n_split * (Dv + 2))
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
     with kernel_scope(op, cuda=True):
         err = lib.paged_decode_attention_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             pos_pool.data_ptr(), block_table.data_ptr(), q_pos.data_ptr(),
-            out.data_ptr(), B, nb, bs, P, H, Hkv, D, Dv, float(scale),
-            int(q.dtype == torch.bfloat16), stream_of(q))
+            out.data_ptr(), part.data_ptr(), counters.data_ptr(),
+            B, nb, bs, P, H, Hkv, D, Dv, float(scale), n_split, split_slots,
+            n_hb, int(is_bf16), stream_of(q))
     check_launch(op, err)
     paged_decode_attention.launches += 1
     return out
@@ -224,4 +256,5 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 paged_decode_attention.launches = 0
 
 __all__ = ["decode_attention_cache", "decode_attention_ref",
-           "paged_decode_attention", "paged_decode_attention_ref"]
+           "paged_decode_attention", "paged_decode_attention_ref",
+           "split_plan", "paged_split_plan"]

@@ -5,13 +5,13 @@ The kernels (``repro_torch/csrc/dequant_matmul.cu``) replace the TPU kernels
 `dequant_matmul_int8_pallas` and `dequant_matmul_int4_pallas` in
 ``src/repro/kernels/dequant_matmul/dequant_matmul.py``. The format is told by
 the quantized weight's dtype alone: ``int8`` is per-column int8, ``uint8``
-nibble-packed group-wise int4. int4 calls of at most 64 rows (decode) take
-the split-K kernel, which merges its slices of K in the same launch through
-a per-device workspace; longer ones the TMA + wgmma kernel (bf16 x, shapes
-TMA can read) or the tiled kernel, which also takes every int8 call
-(`split.plan_splitk` decides before the launch). Each wrapper's
-``launches`` attribute counts its kernels' launches, one a call; the CPU
-path does not count.
+nibble-packed group-wise int4. Calls of at most 64 rows (decode) take a
+split-K kernel, which merges its slices of K in the same launch through a
+per-device workspace; longer ones a TMA + wgmma kernel (bf16 x, shapes TMA
+can read); the rest, int8 over f32 x among them, the tiled kernel
+(`split.plan_splitk` and `split.plan_int8` decide before the launch). Each
+wrapper's ``launches`` attribute counts its kernels' launches, one a call;
+the CPU path does not count.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from repro_torch.kernels.dequant_matmul.ref import (dequant_matmul_int4_ref,
                                                     dequantize_int8,
                                                     unpack_int4)
 from repro_torch.kernels.dequant_matmul.split import (SplitPlan, padded_rows,
-                                                      plan_splitk)
+                                                      plan_int8, plan_splitk)
 from repro_torch.obs.profiling import kernel_scope
 
 _P = ctypes.c_void_p
@@ -50,6 +50,12 @@ def _lib() -> ctypes.CDLL:
     lib.dequant_matmul_int4_splitk_blocks_per_sm.restype = _I
     lib.dequant_matmul_int4_tc_fwd.argtypes = [_P] * 4 + [_I] * 4 + [_P]
     lib.dequant_matmul_int4_tc_fwd.restype = _I
+    lib.dequant_matmul_int8_splitk_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    lib.dequant_matmul_int8_splitk_fwd.restype = _I
+    lib.dequant_matmul_int8_splitk_blocks_per_sm.argtypes = [_I]
+    lib.dequant_matmul_int8_splitk_blocks_per_sm.restype = _I
+    lib.dequant_matmul_int8_tc_fwd.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+    lib.dequant_matmul_int8_tc_fwd.restype = _I
     return lib
 
 
@@ -66,6 +72,26 @@ def _plan(M: int, K: int, N: int, gs: int, is_bf16: bool, aligned: bool,
                        aligned=aligned)
 
 
+@functools.lru_cache(maxsize=None)
+def _plan8(M: int, K: int, N: int, is_bf16: bool, aligned: bool,
+           device: torch.device) -> SplitPlan:
+    bps = _lib().dequant_matmul_int8_splitk_blocks_per_sm(padded_rows(M))
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return plan_int8(M, K, N, n_sm, max(1, bps), is_bf16=is_bf16,
+                     aligned=aligned)
+
+
+def int8_plan(x: torch.Tensor, qw: torch.Tensor,
+              scale: torch.Tensor) -> SplitPlan:
+    """`plan_int8` as the int8 wrapper calls it on x's CUDA device: with the
+    card's SM count and the split kernel's occupancy at these rows (kept
+    per shape: the wrapper asks on every call)."""
+    M, K = x.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, qw, scale))
+    return _plan8(M, K, qw.shape[1], x.dtype == torch.bfloat16, aligned,
+                  x.device)
+
+
 def int4_plan(x: torch.Tensor, packed: torch.Tensor,
               scale: torch.Tensor) -> SplitPlan:
     """`plan_splitk` as the int4 wrapper calls it on x's CUDA device: with
@@ -79,7 +105,7 @@ def int4_plan(x: torch.Tensor, packed: torch.Tensor,
 
 def _workspace(device: torch.device, n_counters: int,
                n_part: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split kernel's scratch on ``device``, allocated once and grown
+    """The split kernels' scratch on ``device``, allocated once and grown
     when a call needs more: int32 merge counters, zero between launches
     (each launch leaves them 0), and f32 slice partials. Kernels on one
     stream share it; calls on two streams at once would race."""
@@ -137,10 +163,24 @@ def dequant_matmul_int8(x: torch.Tensor, qw: torch.Tensor,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or K == 0:
         return out.zero_()
+    plan = int8_plan(x, qw, scale)
     with kernel_scope(op, cuda=True):
-        err = _lib().dequant_matmul_int8_fwd(
-            x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            M, N, K, int(x.dtype == torch.bfloat16), stream_of(x))
+        if plan.route == "split_k":
+            counters, part = _workspace(x.device, plan.n_strips,
+                                        plan.workspace_floats)
+            err = _lib().dequant_matmul_int8_splitk_fwd(
+                x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), part.data_ptr(), counters.data_ptr(),
+                M, N, K, plan.slice_k, plan.n_slices, stream_of(x))
+        elif plan.route == "wgmma":
+            err = _lib().dequant_matmul_int8_tc_fwd(
+                x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), M, N, K, stream_of(x))
+        else:
+            err = _lib().dequant_matmul_int8_fwd(
+                x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), M, N, K, int(x.dtype == torch.bfloat16),
+                stream_of(x))
     check_launch(op, err)
     dequant_matmul_int8.launches += 1
     return out
@@ -217,6 +257,6 @@ def dequant_matmul(x: torch.Tensor, qw: torch.Tensor,
 
 
 __all__ = ["dequant_matmul", "dequant_matmul_int8", "dequant_matmul_int4",
-           "int4_plan",
+           "int4_plan", "int8_plan",
            "dequant_matmul_int8_ref", "dequant_matmul_int4_ref",
            "dequantize_int8", "dequantize_int4", "unpack_int4"]

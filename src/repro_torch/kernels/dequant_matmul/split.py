@@ -1,10 +1,10 @@
-"""The int4 dequant-matmul's plan: which kernel a call takes, how the
-split-K kernel cuts N into strips and K into slices at decode, and a plain
-version of the split kernel's per-slice partials and their merge.
+"""The dequant-matmul's plans: which kernel a call takes, how the split-K
+kernels cut N into strips and K into slices at decode, and plain versions
+of the split kernels' per-slice partials and their merge.
 
-`plan_splitk` runs on every int4 launch. `dequant_matmul_int4_split_ref`
-repeats the split kernel's arithmetic for the tests; the wrappers never call
-it.
+`plan_splitk` runs on every int4 launch and `plan_int8` on every int8 one.
+`dequant_matmul_int4_split_ref` and `dequant_matmul_int8_split_ref` repeat
+the split kernels' arithmetic for the tests; the wrappers never call them.
 """
 from __future__ import annotations
 
@@ -68,10 +68,45 @@ def plan_splitk(M: int, K: int, N: int, gs: int, n_sm: int,
     if M < 1 or M > MAX_ROWS:
         if (is_bf16 and aligned and K % 64 == 0 and N % 16 == 0
                 and gs in WGMMA_GROUPS):
-            return SplitPlan("wgmma", 0, math.ceil(N / STRIP), 1, 0, 0)
-        return SplitPlan("tiled", 0, math.ceil(N / 64), 1, 0, 0)
+            return _wgmma_plan(N)
+        return _tiled_plan(N)
+    # lcm(TILE_K, gs): a slice never splits a group
+    return _slices(M, K, N, TILE_K * gs // math.gcd(TILE_K, gs), n_sm,
+                   blocks_per_sm)
+
+
+def plan_int8(M: int, K: int, N: int, n_sm: int, blocks_per_sm: int, *,
+              is_bf16: bool, aligned: bool) -> SplitPlan:
+    """The kernel and split of ``x (M, K) @ dequantize_int8(qw (K, N),
+    scale (N,))`` on a card of ``n_sm`` SMs that hold ``blocks_per_sm``
+    split-K blocks each; ``aligned``: x, qw and scale start on 16-byte
+    boundaries.
+
+    bf16 x with aligned operands and N % 16 == 0 takes the split-K kernel
+    at M <= 64 (K % 8 == 0: 16-byte x rows) and the TMA + wgmma kernel
+    above it (K % 64 == 0: whole 64-row stages); f32 x and every other
+    shape take the tiled kernel. The split is `plan_splitk`'s with slices of
+    whole 128-row k tiles (the int8 scale is per column: no groups)."""
+    tma = is_bf16 and aligned and N % 16 == 0
+    if M < 1 or M > MAX_ROWS:
+        return _wgmma_plan(N) if tma and K % 64 == 0 else _tiled_plan(N)
+    if not (tma and K % 8 == 0):
+        return _tiled_plan(N)
+    return _slices(M, K, N, TILE_K, n_sm, blocks_per_sm)
+
+
+def _wgmma_plan(N: int) -> SplitPlan:
+    return SplitPlan("wgmma", 0, math.ceil(N / STRIP), 1, 0, 0)
+
+
+def _tiled_plan(N: int) -> SplitPlan:
+    return SplitPlan("tiled", 0, math.ceil(N / 64), 1, 0, 0)
+
+
+def _slices(M: int, K: int, N: int, q: int, n_sm: int,
+            blocks_per_sm: int) -> SplitPlan:
+    """The split-K plan over slices of whole ``q``-row quanta."""
     rows = padded_rows(M)
-    q = TILE_K * gs // math.gcd(TILE_K, gs)         # lcm(TILE_K, gs)
     units = math.ceil(K / q)
     strips = math.ceil(N / STRIP)
     # never more blocks than the wave holds: a block past it would run in a
@@ -109,6 +144,23 @@ def dequant_matmul_int4_split_ref(x: torch.Tensor, packed: torch.Tensor,
     return out.to(x.dtype)
 
 
-__all__ = ["SplitPlan", "plan_splitk", "dequant_matmul_int4_split_ref",
+def dequant_matmul_int8_split_ref(x: torch.Tensor, qw: torch.Tensor,
+                                  scale: torch.Tensor, *,
+                                  slice_k: int) -> torch.Tensor:
+    """`dequant_matmul_int8_ref` computed as the int8 split kernel computes
+    it: each slice's product of x with the integer weights, the slices'
+    partials summed in slice order, then the per-column scale once. f32
+    throughout; returns (M, N) in x's dtype."""
+    K = x.shape[1]
+    xf, q = x.float(), qw.float()
+    out = None
+    for k0 in range(0, K, slice_k):
+        part = xf[:, k0:k0 + slice_k] @ q[k0:k0 + slice_k]
+        out = part if out is None else out + part
+    return (out * scale.float()).to(x.dtype)
+
+
+__all__ = ["SplitPlan", "plan_splitk", "plan_int8",
+           "dequant_matmul_int4_split_ref", "dequant_matmul_int8_split_ref",
            "padded_rows", "MAX_ROWS", "TILE_K", "STRIP", "MAX_SLICES",
            "WGMMA_GROUPS"]

@@ -9,19 +9,45 @@ unprofiled (the timed run, reported as the launcher reports it), then the
 same requests once more under ``torch.profiler``, which slows the host. It
 prints, as ``[profile] {json}``, the device time of the top kernels, the
 device time of each of the port's own kernels (``port_kernels``, by source:
-``moe_gemm``, ``flash_attention``, ...) whether or not it is among the top,
+``moe_gemm``, ``flash_attention``, ...; under each source ``by_kernel``,
+each CUDA kernel's device time and launches, so that a source's routes
+read apart: the paged and the dense decode kernel, the split-K, wgmma and
+tiled dequant-matmul) whether or not it is among the top,
 and the device's busy share: the profiled run's device time over the timed
 run's wall time.
 """
 from __future__ import annotations
 
 import json
+import re
 from typing import List, Optional
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.launch.serve import parse_args, report, setup
+
+
+def kernel_name(symbol: str) -> str:
+    """A CUDA kernel's function name from the profiler's symbol, demangled
+    (``void (anonymous namespace)::sk::dequant_matmul_int8_splitk_kernel<4>(
+    ...)``) or not (``_ZN12_GLOBAL__N_120moe_gemm_bf16_kernelILb1EEEv...``):
+    its last name before the template arguments, so that instantiations sum
+    under one name."""
+    if symbol.startswith("_ZN"):
+        names, i = [], 3
+        while i < len(symbol) and symbol[i].isdigit():
+            j = i
+            while j < len(symbol) and symbol[j].isdigit():
+                j += 1
+            n = int(symbol[i:j])
+            names.append(symbol[j:j + n])
+            i = j + n
+        if names:
+            return names[-1]
+    head = symbol.replace("(anonymous namespace)", "")
+    names = re.findall(r"[A-Za-z_]\w*", head.split("(", 1)[0].split("<", 1)[0])
+    return names[-1] if names else symbol
 
 
 def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
@@ -42,8 +68,15 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
         hits = [r for r in rows if source in r[0]]
         if hits:
             us = sum(r[1] for r in hits)
+            by_kernel = {}
+            for name, k_us, n in hits:
+                k = by_kernel.setdefault(kernel_name(name),
+                                         {"device_ms": 0.0, "count": 0})
+                k["device_ms"] += k_us / 1e3
+                k["count"] += n
             port[source] = {"device_ms": us / 1e3, "share": us / busy_us,
-                            "count": sum(r[2] for r in hits)}
+                            "count": sum(r[2] for r in hits),
+                            "by_kernel": by_kernel}
     return {"wall_s": wall_s, "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall_s if rows else None,
             "kernels": [{"name": k[:120], "device_ms": us / 1e3,

@@ -185,6 +185,13 @@ PAGED_SHAPES = [
     (2, 4, 2, 32, 4, 5, 17),
     (3, 8, 2, 64, 16, 3, 33),              # bs < tile: a tile spans blocks
     (2, 32, 2, 128, 16, 9, 130),           # chatglm widths, ragged
+    # the split kernel: chatglm's and granite's serve batch (several
+    # splits), blocks of 4 and 8 slots, a group of 3 and of 1 (padded mma
+    # rows), D = 96 and 48 (a last pair of n8 tiles), blocks of 64 slots
+    (32, 32, 2, 128, 16, 18, 272), (32, 24, 8, 64, 16, 18, 272),
+    (5, 8, 2, 32, 4, 40, 150), (4, 12, 2, 96, 8, 21, 100),
+    (3, 4, 4, 48, 8, 9, 70), (2, 16, 1, 128, 64, 5, 300),
+    (3, 40, 1, 64, 16, 6, 90),             # group 40: three head batches
 ]
 
 
@@ -241,6 +248,102 @@ def test_paged_kernel_reads_out_of_range_blocks_as_empty(cuda):
     _close(out[0::2], ref[0::2], torch.float32)
     _close(out, paged_decode_attention_ref(q, kp, vp, pos, bad, q_pos),
            torch.float32)
+
+
+def _paged_serve(cuda, dtype, B, H, Hkv, D, bs, plen, max_new, samples, last,
+                 seed):
+    """q, pools and tables as the serving backend lays them out
+    (`build_paged_layout`: prompt blocks shared by the samples), filled up
+    to position ``last``."""
+    from repro_torch.serving.backend import BlockAllocator, build_paged_layout
+    lay = build_paged_layout(BlockAllocator(10 ** 6, bs), plen, max_new,
+                             [samples] * (B // samples))
+    table = np.asarray(lay.decode_table, np.int32)
+    P = lay.n_pool_blocks
+    pos = np.full((P, bs), -1, np.int32)
+    for b in range(B):
+        for j in range(min(last + 1, table.shape[1] * bs)):
+            pos[table[b, j // bs], j % bs] = j
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (B, 1, H, D), dtype, cuda)
+    kp = _randn(rng, (P, bs, Hkv, D), dtype, cuda)
+    vp = _randn(rng, (P, bs, Hkv, D), dtype, cuda)
+    q_pos = torch.full((B,), last, dtype=torch.int32, device=cuda)
+    return (q, kp, vp, torch.from_numpy(pos).to(cuda),
+            torch.from_numpy(table).to(cuda), q_pos)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_attention_kernel_where_the_plan_changes(cuda, dtype):
+    """Every table width of chatglm's paged serve batch (32 sequences of 8
+    prompts x 4 samples, blocks of 16) at which the wrapper's planner
+    changes the split, the width just before it, and one filled to a
+    quarter, so that the later splits hold no valid slot."""
+    from repro_torch.kernels.decode_attention.ops import paged_split_plan
+    B, H, Hkv, D, bs = 32, 32, 2, 128, 16
+    plans = [paged_split_plan(B, nb * bs, H, Hkv, D, D, dtype, cuda)
+             for nb in range(1, 41)]
+    edges = [nb for nb in range(2, 41) if plans[nb - 1] != plans[nb - 2]]
+    assert len({p[0] for p in plans}) > 1, plans
+    for nb in sorted({n for e in edges for n in (e - 1, e)}):
+        for last in (nb * bs - 1, nb * bs // 4):
+            plen = max(1, nb * bs // 2)     # kv length plen + new - 1
+            args = _paged_serve(cuda, dtype, B, H, Hkv, D, bs, plen,
+                                nb * bs - plen + 1, 4, last, nb)
+            assert args[4].shape[1] == nb
+            out = paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            _close(out, paged_decode_attention_ref(*args), dtype)
+
+
+def test_paged_split_is_bit_equal_from_call_to_call(cuda):
+    """The last block of a (sequence, kv head) merges the splits in split
+    order and no atomic touches the output: two calls give the same bits,
+    and so does a call after calls of other shapes, which shows each launch
+    leaves its merge counters at 0."""
+    from repro_torch.kernels.decode_attention.ops import paged_split_plan
+    bf = torch.bfloat16
+    args = _paged_serve(cuda, bf, 32, 32, 2, 128, 16, 256, 32, 4, 271, 20)
+    assert paged_split_plan(32, 288, 32, 2, 128, 128, bf, cuda)[0] > 1
+    first = paged_decode_attention(*args)
+    again = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    for shape in ((32, 24, 8, 64, 16, 256, 32, 4, 200),
+                  (6, 32, 2, 128, 16, 101, 30, 2, 110),
+                  (8, 8, 2, 32, 4, 60, 20, 2, 70)):
+        other = _paged_serve(cuda, bf, *shape, 21)
+        _close(paged_decode_attention(*other),
+               paged_decode_attention_ref(*other), bf)
+        _close(decode_attention_cache(*[a for a in _dense_of(other)]),
+               paged_decode_attention_ref(*other), bf)
+    later = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, later)
+
+
+def _dense_of(args):
+    """The same cache gathered into a dense ring, for the dense kernel: it
+    shares the merge counters with the paged one."""
+    q, kp, vp, pos, table, q_pos = args
+    bt = table.long()
+    B = q.shape[0]
+    return (q, kp[bt].reshape(B, -1, *kp.shape[2:]).contiguous(),
+            vp[bt].reshape(B, -1, *vp.shape[2:]).contiguous(),
+            pos[bt].reshape(B, -1).contiguous(), q_pos)
+
+
+def test_paged_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(16)
+    for D, Dv in ((40, 40), (128, 256), (64, 24)):
+        q = _randn(rng, (2, 1, 4, D), torch.bfloat16, cuda)
+        kp = _randn(rng, (4, 8, 2, D), torch.bfloat16, cuda)
+        vp = _randn(rng, (4, 8, 2, Dv), torch.bfloat16, cuda)
+        pos = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+        table = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+        q_pos = torch.zeros((2,), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="head dims"):
+            paged_decode_attention(q, kp, vp, pos, table, q_pos)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -426,6 +529,98 @@ def test_dequant_matmul_int4_split_is_bit_equal_from_call_to_call(cuda):
     torch.cuda.synchronize()
     assert torch.equal(first, later)
     _close(first, dequant_matmul_int4_ref(x, packed, scale), torch.bfloat16)
+
+
+#: the int8 split-K kernel's decode shapes (bf16 x): x rows about its n8
+#: tiles, chatglm's widths and a K of whole 16-byte rows but not whole k
+#: tiles; and the TMA + wgmma kernel's prefill rows about its 128-row tile
+DQ8_SPLIT_ROWS = [1, 16, 31, 32, 33, 64]
+DQ8_SPLIT_NK = [(256, 4096), (4096, 4096), (13696, 4096), (4096, 13696),
+                (272, 4104)]
+DQ8_TC_ROWS = [65, 127, 128, 129, 300, 2048]
+DQ8_TC_NK = [(256, 4096), (4096, 4096), (13696, 4096), (4096, 13696),
+             (4160, 4096), (48, 64)]       # (48, 64): one stage
+_DQ8_WEIGHTS = {}
+
+
+def _int8_weight(cuda, K, N):
+    """A (K, N) weight drawn on the card as the model draws one, quantized
+    to int8; kept across the tests that share it."""
+    if (K, N) not in _DQ8_WEIGHTS:
+        g = torch.Generator(device=cuda).manual_seed(K * 5 + N)
+        w = torch.randn((K, N), generator=g, device=cuda) * K ** -0.5
+        _DQ8_WEIGHTS.clear()
+        _DQ8_WEIGHTS[(K, N)] = quantize_int8(w)
+    return _DQ8_WEIGHTS[(K, N)]
+
+
+@pytest.mark.parametrize("M", DQ8_SPLIT_ROWS)
+@pytest.mark.parametrize("N,K", DQ8_SPLIT_NK)
+def test_dequant_matmul_int8_split_kernel(cuda, M, N, K):
+    from repro_torch.kernels.dequant_matmul.ops import int8_plan
+    qw, scale = _int8_weight(cuda, K, N)
+    x = _randn(np.random.default_rng(M), (M, K), torch.bfloat16, cuda)
+    assert int8_plan(x, qw, scale).route == "split_k"
+    _dq_check(cuda, dequant_matmul_int8, dequant_matmul_int8_ref, x, qw,
+              scale, torch.bfloat16, dequant_matmul_int8)
+
+
+@pytest.mark.parametrize("M", DQ8_TC_ROWS)
+@pytest.mark.parametrize("N,K", DQ8_TC_NK)
+def test_dequant_matmul_int8_wgmma_kernel(cuda, M, N, K):
+    from repro_torch.kernels.dequant_matmul.ops import int8_plan
+    qw, scale = _int8_weight(cuda, K, N)
+    x = _randn(np.random.default_rng(M + 1), (M, K), torch.bfloat16, cuda)
+    assert int8_plan(x, qw, scale).route == "wgmma"
+    _dq_check(cuda, dequant_matmul_int8, dequant_matmul_int8_ref, x, qw,
+              scale, torch.bfloat16, dequant_matmul_int8)
+
+
+def test_dequant_matmul_int8_routes(cuda):
+    """bf16 x takes the split-K kernel up to 64 rows and the TMA + wgmma
+    kernel above; f32 x and ragged shapes (N not whole 16-byte rows, K not
+    whole 64-row stages at prefill, x rows not 16-byte aligned at decode)
+    take the tiled kernel; all agree with the plain version."""
+    from repro_torch.kernels.dequant_matmul.ops import int8_plan
+    rng = np.random.default_rng(17)
+    bf, f32 = torch.bfloat16, torch.float32
+    for M, K, N, dtype, route in ((64, 4096, 256, bf, "split_k"),
+                                  (65, 4096, 256, bf, "wgmma"),
+                                  (64, 4096, 256, f32, "tiled"),
+                                  (65, 4096, 256, f32, "tiled"),
+                                  (32, 4096, 200, bf, "tiled"),
+                                  (300, 4104, 256, bf, "tiled"),
+                                  (32, 4100, 256, bf, "tiled")):
+        qw, scale = quantize_int8(_weight(rng, K, N, cuda))
+        x = _randn(rng, (M, K), dtype, cuda)
+        assert int8_plan(x, qw, scale).route == route, (M, K, N, dtype)
+        _dq_check(cuda, dequant_matmul_int8, dequant_matmul_int8_ref, x, qw,
+                  scale, dtype, dequant_matmul_int8)
+
+
+def test_dequant_matmul_int8_split_is_bit_equal_from_call_to_call(cuda):
+    """As for int4: slices summed in slice order and the scale applied once
+    by the last block of a strip; two calls give the same bits, also after
+    calls of other shapes (the merge counters are left at 0)."""
+    from repro_torch.kernels.dequant_matmul.ops import int8_plan
+    rng = np.random.default_rng(18)
+    qw, scale = _int8_weight(cuda, 4096, 13696)
+    x = _randn(rng, (32, 4096), torch.bfloat16, cuda)
+    assert int8_plan(x, qw, scale).n_slices > 1
+    first = dequant_matmul_int8(x, qw, scale)
+    again = dequant_matmul_int8(x, qw, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    for M, K, N in ((32, 13696, 4096), (5, 4104, 272), (16, 4096, 256)):
+        q, s = quantize_int8(_weight(rng, K, N, cuda))
+        y = _randn(rng, (M, K), torch.bfloat16, cuda)
+        assert int8_plan(y, q, s).n_slices > 1
+        _close(dequant_matmul_int8(y, q, s), dequant_matmul_int8_ref(y, q, s),
+               torch.bfloat16)
+    later = dequant_matmul_int8(x, qw, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, later)
+    _close(first, dequant_matmul_int8_ref(x, qw, scale), torch.bfloat16)
 
 
 def test_dequant_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -292,3 +292,42 @@ def test_profile_summary_sums_device_time_by_port_kernel():
     assert moe["device_ms"] == pytest.approx(0.4)
     assert moe["share"] == pytest.approx(0.4) and moe["count"] == 99
     assert set(out["port_kernels"]) == {"moe_gemm", "flash_attention"}
+
+
+def test_profile_summary_splits_a_source_by_kernel():
+    """Under each port source, ``by_kernel`` sums device time and launches
+    by kernel name, instantiations together, mangled or demangled: the
+    routes of one source read apart."""
+    from types import SimpleNamespace as NS
+    from torch.autograd import DeviceType
+    from repro_torch.launch.profile_serve import kernel_name, profile_summary
+
+    def ev(key, us, n):
+        return NS(key=key, self_device_time_total=us, count=n,
+                  device_type=DeviceType.CUDA, is_user_annotation=False)
+    ns = "void (anonymous namespace)::"
+    events = [
+        ev(ns + "sk::dequant_matmul_int8_splitk_kernel<4>(__nv_bfloat16 "
+           "const*, signed char const*)", 300.0, 150),
+        ev(ns + "sk::dequant_matmul_int8_splitk_kernel<2>(__nv_bfloat16 "
+           "const*, signed char const*)", 20.0, 10),
+        ev(ns + "pf::dequant_matmul_int8_tc_kernel(CUtensorMap_st, "
+           "CUtensorMap_st)", 100.0, 7),
+        ev("_ZN12_GLOBAL__N_15paged35paged_decode_attention_split_kernelI"
+           "13__nv_bfloat16Li16EEEvPKT_", 50.0, 28),
+        ev(ns + "split::decode_attention_split_kernel<__nv_bfloat16, 4>("
+           "__nv_bfloat16 const*)", 30.0, 28)]
+    out = profile_summary(NS(key_averages=lambda: events), wall_s=0.001)
+    dq = out["port_kernels"]["dequant_matmul"]
+    assert dq["count"] == 167
+    assert dq["by_kernel"] == {
+        "dequant_matmul_int8_splitk_kernel": {"device_ms": 0.32,
+                                              "count": 160},
+        "dequant_matmul_int8_tc_kernel": {"device_ms": 0.1, "count": 7}}
+    att = out["port_kernels"]["decode_attention"]["by_kernel"]
+    assert att == {"paged_decode_attention_split_kernel":
+                   {"device_ms": 0.05, "count": 28},
+                   "decode_attention_split_kernel":
+                   {"device_ms": 0.03, "count": 28}}
+    assert kernel_name("flash_attention_tc_kernel") == \
+        "flash_attention_tc_kernel"
