@@ -10,7 +10,8 @@ Phases, each of which fails the script on error:
    the tensor-core instructions (``HGMMA``, ``HMMA``) of each kernel in the
    libraries' SASS (``cuobjdump -sass``): the run fails if the bf16 flash
    kernel, the MoE or the int8 TMA + wgmma kernel has no ``HGMMA``, or the
-   bf16 paged decode kernel no ``HMMA``.
+   bf16 paged decode kernel or the SSD chunk's tensor-core kernel no
+   ``HMMA``.
 2. Hold each kernel against its plain PyTorch version on the card: at the
    shapes the serving runs below give it, at larger chatglm3-6b shapes, and
    at ragged shapes (lengths that are not multiples of the tile, sequence
@@ -19,18 +20,21 @@ Phases, each of which fails the script on error:
    changes its number of splits and splits that hold no valid slot, a row
    whose cache slots are all empty, int8 rows and widths about the split-K
    kernel's tiles, int4 groups of 32, 24 and 8 rows, the MoE kernel test
-   shapes of the reference). The MoE, paged and dequant cases print the
-   route the wrapper's planner took (``moe_gemm``: the TMA + wgmma kernel or
-   the cp.async one, with its tiles; paged: its split; int8 and int4: the
-   split-K kernel with its strips and slices, the TMA + wgmma kernel or the
-   tiled one). One JSON line per case with the largest error, the kernel's
-   time, the plain version's and, where one PyTorch call computes the same
-   function, that call's (``library_ms``, timed here as a yardstick; the
-   port never calls it: ``torch.bmm`` for the grouped expert GEMM; none for
-   the SSD chunk); the SSD chunk cases (the mamba2 and jamba serve shapes,
-   mamba2 heads over four chunks with a padded tail, the reference's ragged
-   kernel-test shapes) draw their inputs as a Mamba-2 layer makes them; the
-   dequant-matmul cases add ``bf16_matmul_ms``, the bf16 product over the
+   shapes of the reference). The MoE, paged, dequant and SSD cases print
+   the route the wrapper's planner took (``moe_gemm``: the TMA + wgmma
+   kernel or the cp.async one, with its tiles; paged: its split; int8 and
+   int4: the split-K kernel with its strips and slices, the TMA + wgmma
+   kernel or the tiled one; ``ssd_scan``: the tensor-core kernel with its
+   heads a block, or the scalar-FMA one). One JSON line per case with the
+   largest error, the kernel's time, the plain version's and, where one
+   PyTorch call computes the same function, that call's (``library_ms``,
+   timed here as a yardstick; the port never calls it: ``torch.bmm`` for
+   the grouped expert GEMM; none for the SSD chunk); the SSD chunk cases
+   (the mamba2 and jamba serve shapes, the mamba2 shape with B and C drawn
+   for every head, mamba2 heads over four chunks with a padded tail, the
+   reference's ragged kernel-test shapes) draw their inputs as a Mamba-2
+   layer makes them and hold bf16 inputs to the f32 tolerance too (both
+   outputs are f32); the dequant-matmul cases add ``bf16_matmul_ms``, the bf16 product over the
    pre-dequantized weight that a quantized layer replaces.
 3. Serve full-width, full-depth chatglm3-6b (random bf16 weights from
    ``--seed``) through ``ServingEngine.generate`` with the kernels on: 8
@@ -174,14 +178,16 @@ SASS_CHECKS = (("flash_attention", "flash_attention_tc_kernel", "HGMMA"),
                ("moe_gemm", "moe_gemm_tc_kernel", "HGMMA"),
                ("decode_attention", "paged_decode_attention_split_kernel",
                 "HMMA"),
-               ("dequant_matmul", "dequant_matmul_int8_tc_kernel", "HGMMA"))
+               ("dequant_matmul", "dequant_matmul_int8_tc_kernel", "HGMMA"),
+               ("ssd_scan", "ssd_scan_chunk_tc_kernel", "HMMA"))
 
 
 def check_sass() -> dict:
     """Fail unless the bf16 flash kernel, the MoE and the int8 TMA + wgmma
-    kernels run on wgmma (``HGMMA``) and the bf16 paged decode kernel on
-    mma.sync (``HMMA``): every bf16 instantiation of each (the paged
-    kernel's f32 ones compute on the CUDA cores)."""
+    kernels run on wgmma (``HGMMA``) and the bf16 paged decode kernel and
+    the SSD chunk's tensor-core kernel (bf16 only) on mma.sync (``HMMA``):
+    every bf16 instantiation of each (the paged kernel's f32 ones compute
+    on the CUDA cores)."""
     from repro_torch.kernels import build
     out = {}
     for lib, kernel, op in SASS_CHECKS:
@@ -440,24 +446,31 @@ def moe_case(g, E, C, D, F, dtype):
                 shape=dict(E=E, C=C, d=D, f=F))
 
 
-def ssd_case(g, B, L, H, P, N, chunk, dtype):
+def ssd_case(g, B, L, H, P, N, chunk, dtype, per_head=False):
     """The SSD chunk kernel's six inputs as a Mamba-2 layer makes them: x,
     B and C silu'd conv outputs (x a slice of the conv output, B and C one
-    group broadcast over the heads by a stride-0 view), dt the softplus of
-    a unit normal plus the model's dt_bias (the inverse softplus of a
-    log-uniform dt in [1e-3, 0.1]), A = -exp(A_log) = -(1..H), so the
-    decays underflow as in a real prefill; padded and cut into chunks as
-    `ssd_chunked` does. Bytes count the group tensors B and C once, dt and
-    cs (dA is not read), and the f32 outputs; operations count the causal
-    pairs of the valid rows (2N + 2P each) and the state (2PN a row)."""
+    group broadcast over the heads by a stride-0 view, or with
+    ``per_head`` drawn for every head), dt the softplus of a unit normal
+    plus the model's dt_bias (the inverse softplus of a log-uniform dt in
+    [1e-3, 0.1]), A = -exp(A_log) = -(1..H), so the decays underflow as in
+    a real prefill; padded and cut into chunks as `ssd_chunked` does.
+    Bytes count the B and C tensors once (one group's or every head's), dt
+    and cs (dA is not read), and the f32 outputs; operations count the
+    causal pairs of the valid rows (2N + 2P each) and the state (2PN a
+    row)."""
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan.ops import ssd_chunk
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    from repro_torch.models.ssm import _pad_rows
     xbc = F.silu(torch.randn((B, L, H * P + 2 * N), generator=g,
                              device="cuda")).to(dtype)
     x = xbc[..., :H * P].reshape(B, L, H, P)
     Bm = xbc[..., H * P:H * P + N][:, :, None].expand(B, L, H, N)
     Cm = xbc[..., H * P + N:][:, :, None].expand(B, L, H, N)
+    if per_head:
+        Bm, Cm = (F.silu(torch.randn((B, L, H, N), generator=g,
+                                     device="cuda")).to(dtype)
+                  for _ in range(2))
     lo, hi = math.log(1e-3), math.log(0.1)
     dt0 = torch.exp(torch.rand(H, generator=g, device="cuda") * (hi - lo)
                     + lo)
@@ -467,8 +480,8 @@ def ssd_case(g, B, L, H, P, N, chunk, dtype):
     A = -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
     pad = (-L) % chunk
     if pad:
-        x, dt, Bm, Cm = (F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
-                         for a in (x, dt, Bm, Cm))
+        x, dt = (F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) for a in (x, dt))
+        Bm, Cm = _pad_rows(Bm, pad), _pad_rows(Cm, pad)
     nc = x.shape[1] // chunk
     xc, dtc, Bc, Cc = (a.reshape((B, nc, chunk) + tuple(a.shape[2:]))
                        for a in (x, dt, Bm, Cm))
@@ -479,16 +492,25 @@ def ssd_case(g, B, L, H, P, N, chunk, dtype):
     valid = [min(chunk, L - c * chunk) for c in range(nc)]
     pairs = sum(q * (q + 1) // 2 for q in valid)
     return dict(args=(xc, dtc, dA, dA_cs, Bc, Cc), kw={}, kernel=ssd_chunk,
-                plain=ssd_chunk_ref,
+                plain=ssd_chunk_ref, route=ssd_route,
                 bytes=(B * L * H * P + 2 * B * L * bc_heads * N) * el
                 + 2 * 4 * B * L * H + 4 * B * nc * chunk * H * P
                 + 4 * B * nc * H * P * N,
                 flops=B * H * (pairs * (2 * N + 2 * P) + 2 * L * P * N),
-                # outputs are f32 and the arithmetic after the loads f32
+                # both outputs are f32, and the bf16 route splits scores and
+                # x * w into bf16 hi + lo: held to the f32 tolerance
                 tol=TOL[torch.float32],
                 library_note=("none: no one PyTorch call computes the "
                               "masked decay product"),
-                shape=dict(B=B, L=L, H=H, P=P, N=N, chunk=chunk, nc=nc))
+                shape=dict(B=B, L=L, H=H, P=P, N=N, chunk=chunk, nc=nc,
+                           per_head=per_head))
+
+
+def ssd_route(xc, dtc, dA, dA_cs, Bc, Cc) -> dict:
+    """The SSD wrapper's plan: the tensor-core kernel with its heads a
+    block, or the scalar-FMA one."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_plan
+    return ssd_plan(xc, dtc, dA, dA_cs, Bc, Cc)._asdict()
 
 
 def run_case(name: str, label: str, case, dtype, iters: int) -> dict:
@@ -713,7 +735,8 @@ def check_kernels(seed: int) -> dict:
             run_case("moe_gemm", "ragged", moe_case(g, *shape, dtype), dtype,
                      10)
     # the SSD chunk (B, L, H, P, N, chunk): the mamba2 serve's prefill (the
-    # 32 tiled rows of 256 tokens, one chunk), jamba's (128 heads), mamba2
+    # 32 tiled rows of 256 tokens, one chunk), jamba's (128 heads), the
+    # mamba2 shape with B and C for every head (one head a block), mamba2
     # heads over four chunks with the last padded by 24, and the
     # reference's kernel-test shapes (the last ragged: H = 3, P = 8)
     for dtype in (bf, f32):
@@ -723,6 +746,8 @@ def check_kernels(seed: int) -> dict:
         main.setdefault("ssd_scan", r)
     run_case("ssd_scan", "jamba", ssd_case(g, B, plen, 128, 64, 128, 256, bf),
              bf, 10)
+    run_case("ssd_scan", "per-head-bc",
+             ssd_case(g, B, plen, 32, 64, 128, 256, bf, per_head=True), bf, 10)
     run_case("ssd_scan", "4-chunks-padded",
              ssd_case(g, 4, 1000, 32, 64, 128, 256, bf), bf, 10)
     for dtype in (bf, f32):

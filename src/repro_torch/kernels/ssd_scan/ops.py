@@ -1,24 +1,27 @@
 """Mamba-2 SSD chunk wrapper: the Hopper kernel for CUDA tensors, the plain
 version for CPU tensors.
 
-The kernel (``repro_torch/csrc/ssd_scan.cu``) replaces the TPU kernel
+The kernels (``repro_torch/csrc/ssd_scan.cu``) replace the TPU kernel
 `ssd_chunk_pallas` in ``src/repro/kernels/ssd_scan/ssd_scan.py``: the
-intra-chunk half of every Mamba layer's prefill. It reads the model layout
+intra-chunk half of every Mamba layer's prefill. They read the model layout
 through strides, so the head axis of B and C may be a stride-0 broadcast of
 their groups and x may be a strided slice of the conv output; nothing is
-moved into the reference's ``(B*H, nc, Q, ...)`` layout. ``ssd_chunk.launches``
-counts the kernel's launches; the CPU path does not count.
+moved into the reference's ``(B*H, nc, Q, ...)`` layout. The planner
+(`plan.plan_ssd_chunk`) picks the tensor-core kernel or the scalar-FMA one
+before the launch. ``ssd_chunk.launches`` counts the launches of either;
+the CPU path does not count.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import KERNEL_DTYPES, check_launch, stream_of
+from repro_torch.kernels.ssd_scan.plan import SsdPlan, plan_ssd_chunk
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
 from repro_torch.obs.profiling import kernel_scope
 
@@ -33,7 +36,39 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
     lib.ssd_scan_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_L] * 12 + [_I, _P]
     lib.ssd_scan_fwd.restype = _I
+    lib.ssd_scan_tc_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_L] * 12 + [_I, _P]
+    lib.ssd_scan_tc_fwd.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(BC: int, Q: int, H: int, P: int, N: int, is_bf16: bool,
+          aligned: bool, shared: bool, n_sm: Optional[int],
+          device: torch.device) -> SsdPlan:
+    if n_sm is None:
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return plan_ssd_chunk(BC, Q, H, P, N, is_bf16=is_bf16, aligned=aligned,
+                          shared=shared, n_sm=n_sm)
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    """Base pointers and the batch, chunk, row and head strides 16-byte
+    aligned (a stride 0 is)."""
+    return all(t.data_ptr() % 16 == 0
+               and all(s * t.element_size() % 16 == 0 for s in t.stride()[:4])
+               for t in ts)
+
+
+def ssd_plan(xc: torch.Tensor, dtc: torch.Tensor, dA: torch.Tensor,
+             dA_cs: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
+             n_sm: Optional[int] = None) -> SsdPlan:
+    """The plan the wrapper launches for these model-layout inputs on their
+    CUDA device (``n_sm``: that card's SM count, read from it by default;
+    kept per shape: the wrapper asks on every call)."""
+    Bsz, nc, Q, H, P = xc.shape
+    return _plan(Bsz * nc, Q, H, P, Bc.shape[-1], xc.dtype == torch.bfloat16,
+                 _aligned(xc, Bc, Cc), Bc.stride(3) == 0 and Cc.stride(3) == 0,
+                 n_sm, xc.device)
 
 
 def _check(xc, dtc, dA, dA_cs, Bc, Cc) -> None:
@@ -91,12 +126,17 @@ def ssd_chunk(xc: torch.Tensor, dtc: torch.Tensor, dA: torch.Tensor,
                      device=xc.device)
     if y.numel() == 0 or st.numel() == 0:
         return y.zero_(), st.zero_()
-    with kernel_scope(op, cuda=True):
-        err = _lib().ssd_scan_fwd(
-            xc.data_ptr(), dtc.data_ptr(), dA_cs.data_ptr(), Bc.data_ptr(),
+    plan = ssd_plan(xc, dtc, dA, dA_cs, Bc, Cc)
+    args = (xc.data_ptr(), dtc.data_ptr(), dA_cs.data_ptr(), Bc.data_ptr(),
             Cc.data_ptr(), y.data_ptr(), st.data_ptr(), Bsz, nc, Q, H, P, N,
-            *xc.stride()[:4], *Bc.stride()[:4], *Cc.stride()[:4],
-            int(xc.dtype == torch.bfloat16), stream_of(xc))
+            *xc.stride()[:4], *Bc.stride()[:4], *Cc.stride()[:4])
+    with kernel_scope(op, cuda=True):
+        if plan.route == "mma":
+            err = _lib().ssd_scan_tc_fwd(*args, plan.heads_per_block,
+                                         stream_of(xc))
+        else:
+            err = _lib().ssd_scan_fwd(*args, int(xc.dtype == torch.bfloat16),
+                                      stream_of(xc))
     check_launch(op, err)
     ssd_chunk.launches += 1
     return y, st
@@ -104,4 +144,4 @@ def ssd_chunk(xc: torch.Tensor, dtc: torch.Tensor, dA: torch.Tensor,
 
 ssd_chunk.launches = 0
 
-__all__ = ["ssd_chunk", "ssd_chunk_ref"]
+__all__ = ["ssd_chunk", "ssd_chunk_ref", "ssd_plan"]

@@ -19,7 +19,9 @@ Where the port departs from a line-by-line copy, and why:
 * **No copies of B and C per head.** ``jnp.repeat`` over the groups becomes
   a stride-0 ``expand`` view when there is one group (every config here),
   which the kernel reads through its strides; ``reshape`` copies only for
-  several groups, with ``repeat_interleave``'s order.
+  several groups, with ``repeat_interleave``'s order. A prompt that is not a
+  whole number of chunks pads the one group row and expands it again, so
+  that the padded B and C keep their stride-0 head axis.
 * **Softplus** is ``logaddexp(x, 0)``, the function ``jax.nn.softplus``
   computes, not ``F.softplus`` with its linear cut-over.
 * The reference's sharding hints are no-ops unless enabled, and the port
@@ -107,6 +109,15 @@ def ssm_init(gen: torch.Generator, cfg: ArchConfig, dtype, device,
 
 # --------------------------------------------------------------------------- SSD core
 
+def _pad_rows(a: torch.Tensor, pad: int) -> torch.Tensor:
+    """(B, L, H, N) -> (B, L + pad, H, N) with zero rows at the end. A
+    stride-0 head axis stays one: the group row is padded, then expanded."""
+    if a.stride(2) == 0:
+        return F.pad(a[:, :, :1], (0, 0, 0, 0, 0, pad)).expand(
+            -1, -1, a.shape[2], -1)
+    return F.pad(a, (0, 0, 0, 0, 0, pad))
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
                 init_state: Optional[torch.Tensor] = None,
@@ -123,8 +134,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     pad = (-L) % chunk
     if pad:
         # zero rows at the end: dt = 0 there, so they add nothing
-        x, dt, Bm, Cm = (F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
-                         for a in (x, dt, Bm, Cm))
+        x, dt = (F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) for a in (x, dt))
+        Bm, Cm = _pad_rows(Bm, pad), _pad_rows(Cm, pad)
     nc = x.shape[1] // chunk
 
     def to_chunks(a):

@@ -21,9 +21,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.moe_gemm.ops import moe_gemm  # noqa: E402
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref  # noqa: E402
-from repro_torch.kernels.ssd_scan.ops import ssd_chunk  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import ssd_chunk, ssd_plan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref  # noqa: E402
-from repro_torch.models.ssm import ssd_chunked  # noqa: E402
+from repro_torch.models.ssm import _pad_rows, ssd_chunked  # noqa: E402
 from repro_torch.quant.quantize import quantize_int4, quantize_int8  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -767,21 +767,29 @@ SSD_SHAPES = [
     # 256), and mamba2 heads over four chunks, the last padded by 24
     (32, 256, 32, 64, 128, 256), (32, 256, 128, 64, 128, 256),
     (2, 1000, 32, 64, 128, 256),
+    # the tensor-core kernel's shorter chunks: Q = 64 and Q = 128, padded
+    (4, 300, 8, 64, 128, 64), (4, 300, 8, 32, 64, 128),
 ]
+#: the shapes whose bf16 inputs the planner sends to the tensor-core kernel
+SSD_MMA_SHAPES = SSD_SHAPES[5:]
 
 
-def _ssd_inputs(B, L, H, P, N, chunk, dtype, dev, seed=11):
+def _ssd_inputs(B, L, H, P, N, chunk, dtype, dev, seed=11, per_head=False):
     """Inputs as a Mamba-2 layer makes them: x, B and C silu'd (x a slice of
     the conv output, B and C one group broadcast over the heads by a stride-0
-    view), dt = softplus(u + dt_bias) with dt_bias the inverse softplus of a
-    log-uniform dt in [1e-3, 0.1], A = -(1..H); padded and cut into chunks
-    as `ssd_chunked` does. Returns the kernel's six model-layout inputs."""
+    view, or with ``per_head`` drawn for every head), dt = softplus(u +
+    dt_bias) with dt_bias the inverse softplus of a log-uniform dt in
+    [1e-3, 0.1], A = -(1..H); padded and cut into chunks as `ssd_chunked`
+    does. Returns the kernel's six model-layout inputs."""
     import torch.nn.functional as F
     g = torch.Generator().manual_seed(seed)
     xbc = F.silu(torch.randn((B, L, H * P + 2 * N), generator=g)).to(dev, dtype)
     x = xbc[..., :H * P].reshape(B, L, H, P)
     Bm = xbc[..., H * P:H * P + N][:, :, None].expand(B, L, H, N)
     Cm = xbc[..., H * P + N:][:, :, None].expand(B, L, H, N)
+    if per_head:
+        Bm, Cm = (F.silu(torch.randn((B, L, H, N), generator=g)).to(dev, dtype)
+                  for _ in range(2))
     dt0 = torch.exp(torch.rand(H, generator=g) * float(np.log(100.0)) + float(np.log(1e-3)))
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
     dt = torch.logaddexp(torch.randn((B, L, H), generator=g) + dt_bias,
@@ -789,7 +797,8 @@ def _ssd_inputs(B, L, H, P, N, chunk, dtype, dev, seed=11):
     A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
     pad = (-L) % chunk
     if pad:
-        x, dt, Bm, Cm = (F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) for a in (x, dt, Bm, Cm))
+        x, dt = (F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) for a in (x, dt))
+        Bm, Cm = _pad_rows(Bm, pad), _pad_rows(Cm, pad)
     nc = x.shape[1] // chunk
     xc, dtc, Bc, Cc = (a.reshape((B, nc, chunk) + tuple(a.shape[2:])) for a in (x, dt, Bm, Cm))
     dA = dtc * A
@@ -813,13 +822,52 @@ def test_ssd_chunk_kernel(cuda, shape, dtype):
     _close(st, st_ref, torch.float32)
 
 
+@pytest.mark.parametrize("shape", SSD_MMA_SHAPES)
+def test_ssd_chunk_tensor_core_route(cuda, shape):
+    """bf16 at the serve shapes and at Q = 64, 128 takes the tensor-core
+    kernel with B and C shared by a head block: one launch a call, bits
+    that repeat from call to call, the f32 tolerance."""
+    args = _ssd_inputs(*shape, torch.bfloat16, cuda)
+    plan = ssd_plan(*args)
+    assert plan.route == "mma" and plan.shared, plan
+    n0 = ssd_chunk.launches
+    y, st = ssd_chunk(*args)
+    y2, st2 = ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == n0 + 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    y_ref, st_ref = ssd_chunk_ref(*args)
+    _close(y, y_ref, torch.float32)
+    _close(st, st_ref, torch.float32)
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 8, 64, 128, 256), (2, 256, 4, 32, 64, 128)])
+def test_ssd_chunk_tensor_core_route_per_head_b_and_c(cuda, shape):
+    """B and C drawn for every head (one head a block) and x a strided slice
+    of the conv output."""
+    args = _ssd_inputs(*shape, torch.bfloat16, cuda, per_head=True)
+    assert not args[0].is_contiguous()
+    plan = ssd_plan(*args)
+    assert plan.route == "mma" and not plan.shared and plan.heads_per_block == 1, plan
+    n0 = ssd_chunk.launches
+    y, st = ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == n0 + 1
+    y_ref, st_ref = ssd_chunk_ref(*args)
+    _close(y, y_ref, torch.float32)
+    _close(st, st_ref, torch.float32)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ssd_chunked_kernel_path_equals_the_plain_path(cuda, dtype):
     """The scan around the kernel: padding, the inter-chunk carry from an
     initial state, and the output cast, over contiguous (copied) inputs and
-    over the strided views the model passes."""
+    over the strided views the model passes; bf16 takes the tensor-core
+    route, f32 the scalar-FMA one."""
     B, L, H, P, N, chunk = 2, 300, 8, 64, 128, 256
-    xc, dtc, dA, _, Bc, Cc = _ssd_inputs(B, L, H, P, N, chunk, dtype, cuda)
+    xc, dtc, dA, cs, Bc, Cc = _ssd_inputs(B, L, H, P, N, chunk, dtype, cuda)
+    want = "mma" if dtype == torch.bfloat16 else "fma"
+    assert ssd_plan(xc, dtc, dA, cs, Bc, Cc).route == want
     x = xc.reshape(B, -1, H, P)[:, :L]
     dt = dtc.reshape(B, -1, H)[:, :L].contiguous()
     Bm, Cm = Bc.reshape(B, -1, H, N)[:, :L], Cc.reshape(B, -1, H, N)[:, :L]

@@ -111,6 +111,43 @@ def test_ssd_chunked_matches_the_reference(shape, init_state):
     assert ssd_chunk.launches == n0
 
 
+@pytest.mark.parametrize("L", [40, 70])
+def test_ssd_chunked_padding_keeps_b_and_c_shared_over_the_heads(
+        monkeypatch, L):
+    """B and C one group broadcast over the heads (a stride-0 head axis, as
+    the model passes them): a prompt that is not a whole number of chunks
+    pads the group row and expands it again, so the chunk function still
+    sees a stride-0 head axis; outputs equal those over padded copies (the
+    padding's former result) to f32 rounding and match the reference."""
+    B, H, P, N, chunk = 2, 4, 8, 16, 32
+    x, dt, A, Bm, Cm = _ssd_inputs(B, L, H, P, N, seed=6)
+    Bg, Cg = Bm[:, :, :1], Cm[:, :, :1]
+    jy, jst = jssm.ssd_chunked(*map(jnp.asarray, (x, dt, A)),
+                               jnp.asarray(np.repeat(Bg, H, 2)),
+                               jnp.asarray(np.repeat(Cg, H, 2)), chunk)
+    tx, tdt, tA = (torch.from_numpy(a) for a in (x, dt, A))
+    Bv, Cv = (torch.from_numpy(a).expand(B, L, H, N) for a in (Bg, Cg))
+    padded = tssm._pad_rows(Bv, 8)
+    assert padded.shape == (B, L + 8, H, N) and padded.stride(2) == 0
+    assert torch.equal(padded, torch.nn.functional.pad(Bv, (0, 0, 0, 0, 0, 8)))
+    seen = []
+
+    def chunk_fn(*args):
+        seen.append((args[4].stride(3), args[5].stride(3)))
+        return tssm.ssd_chunk_ref(*args)
+
+    monkeypatch.setattr(tssm.ssd_ops, "ssd_chunk", chunk_fn)
+    y, st = tssm.ssd_chunked(tx, tdt, tA, Bv, Cv, chunk, use_kernel=True)
+    assert seen == [(0, 0)]
+    y0, st0 = tssm.ssd_chunked(tx, tdt, tA, Bv.contiguous(), Cv.contiguous(),
+                               chunk, use_kernel=True)
+    assert seen[1] != (0, 0)
+    close(y, y0, 1e-6)
+    close(st, st0, 1e-6)
+    close(y, jy, TOL)
+    close(st, jst, TOL)
+
+
 def _layer(name, **overrides):
     """(reference cfg, layer-0 SSM params), (port cfg, converted params)."""
     jm, jp, tm, tp = models(name, seed=0, **overrides)
