@@ -48,21 +48,35 @@ Phases, each of which fails the script on error:
    mamba2-370m (48 Mamba-2 layers) and full-width jamba-v0.1-52b cut to 16
    of its 32 layers (two of its four 8-layer super-blocks, about 52 GB of
    bf16 weights: the whole model does not fit one 80 GB card), every
-   earlier model freed first. The launch counts are set to 0 just
-   before each run and read just after; a run fails unless every kernel of
-   its path launched, each dequant kernel exactly 196 times a forward (7
-   linear layers x 28), over int8 pools the paged decode kernel not at all,
+   earlier model freed first. Each serve decodes through CUDA graphs (the
+   backend's default on the card): its one batch runs its first decode
+   step eagerly, captures the second and replays it, and replays every
+   later step; a serve fails unless it made one capture and 30 replays.
+   The launch counts are set to 0 just before each run and read just
+   after; a replay adds the launches its graph captured, and a capture,
+   which runs nothing, adds none. A forward is a ``model.forward`` call
+   that ran on the card: the calls, less the captures, plus the replays. A
+   run fails unless every kernel of its path launched, each dequant
+   kernel exactly 196 times a forward (7 linear layers x 28), over int8
+   pools the paged decode kernel not at all,
    and the MoE kernel exactly 3 times per MoE layer a forward (96 for
    granite, 78 for deepseek); the SSM serves fail unless the SSD kernel
    launched once per Mamba layer (at the one prefill: the decode steps take
    the recurrence), the flash kernel once per attention layer, the dense
    decode kernel once per attention layer a decode step and the MoE kernel
    3 times per MoE layer a forward: mamba2 48 SSD launches and no attention
-   kernel, jamba 14 / 2 / 62 / 768.
+   kernel, jamba 14 / 2 / 62 / 768. Then graphs against eager decoding
+   (``cuda_graphs=False``) on the card, bf16, full width at 2 layers (2 MoE
+   layers for granite): chatglm3-6b dense, paged and int4 paged,
+   granite-moe paged and mamba2, the serve's traffic and noise; each must
+   give identical tokens, and prints the largest log-probability
+   difference.
 4. f32 parity at full width, 2 layers (3 for deepseek: its dense layer and
    2 MoE layers): the kernel path and the plain path (``use_kernel=False``)
-   serve the same prompts greedily, chatglm3-6b dense and paged in f32
-   weights, then int8 weights (dense) and int4 weights over int8 KV (paged)
+   serve the same prompts greedily, both decoding through CUDA graphs (one
+   capture and 14 replays each, or the run fails), chatglm3-6b dense and
+   paged in f32 weights, then int8 weights (dense) and int4 weights over
+   int8 KV (paged)
    against the plain path over the dequantized weights, then granite (dense
    and paged) and deepseek (dense), then mamba2 (2 layers) and, last, jamba
    at one super-block (8 layers, about 53 GB of f32 weights), both over
@@ -777,22 +791,37 @@ def check_results(results, cfg, n_samples: int, max_new: int) -> None:
             assert math.isfinite(lp) and lp <= 0.0, lp
 
 
+def paged_kw(model, params, kv_format: str = "bf16") -> dict:
+    """Backend arguments of a paged serve of the SERVE requests: a block
+    budget that holds all of them at once (one batch)."""
+    from repro_torch.serving import ExecutionBackend
+    probe = ExecutionBackend(model, params, kv_blocks=1,
+                             kv_block_size=SERVE["kv_block_size"])
+    return dict(kv_blocks=SERVE["requests"] * probe.request_blocks(
+        SERVE["prompt_len"], SERVE["max_new"], SERVE["samples"]),
+        kv_block_size=SERVE["kv_block_size"], kv_format=kv_format)
+
+
+def check_graphs(run: str, stats, new: int) -> None:
+    """One batch decoded through one captured graph: one capture, and a
+    replay for every decode step after the first."""
+    if (stats.captures, stats.replays) != (1, new - 2):
+        raise AssertionError(f"{run}: {stats.captures} graph captures and "
+                             f"{stats.replays} replays, want 1 and "
+                             f"{new - 2}")
+
+
 def serve_run(model, params, prompts, seed: int, paged: bool,
               kv_format: str = "bf16"):
-    """One timed serve run of the SERVE requests, after a warm-up request.
-    Returns the launch counts, the sampled tokens, the model forwards and
-    the run's numbers."""
+    """One timed serve run of the SERVE requests, after a warm-up request
+    (one decode step: eager, no capture). Returns the launch counts, the
+    sampled tokens, the model forwards on the card and the run's
+    numbers."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import (ExecutionBackend, GumbelNoise,
                                      ServingEngine)
     R, k, new = SERVE["requests"], SERVE["samples"], SERVE["max_new"]
-    kw = {}
-    if paged:
-        probe = ExecutionBackend(model, params, kv_blocks=1,
-                                 kv_block_size=SERVE["kv_block_size"])
-        kw = dict(kv_blocks=R * probe.request_blocks(SERVE["prompt_len"],
-                                                     new, k),
-                  kv_block_size=SERVE["kv_block_size"], kv_format=kv_format)
+    kw = paged_kw(model, params, kv_format) if paged else {}
     backend = ExecutionBackend(model, params, **kw)
     engine = ServingEngine(model, params, max_new_tokens=new,
                            temperature=SERVE["temperature"], backend=backend)
@@ -818,15 +847,23 @@ def serve_run(model, params, prompts, seed: int, paged: bool,
     finally:
         del model.forward
     check_results(results, model.cfg, k, new)
+    stats = backend.graph_stats
+    # a capture calls model.forward and runs nothing; a replay is a forward
+    fwd = forwards[0] - stats.captures + stats.replays
     tokens = np.stack([s for r in results for s in r.samples])
     n_tok = sum(r.decode_tokens for r in results)
     info = dict(requests=R, samples=k, prompt_len=SERVE["prompt_len"],
                 max_new=new, kv_blocks=kw.get("kv_blocks"),
                 kv_format=kv_format, tokens=n_tok, seconds=dt,
-                tokens_per_s=n_tok / dt, forwards=forwards[0],
+                tokens_per_s=n_tok / dt, forwards=fwd,
+                graph_captures=stats.captures,
+                graph_capture_s=stats.capture_s, graph_replays=stats.replays,
+                graph_pool_gb=stats.pool_bytes / 1e9,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches=counts)
-    return counts, tokens, forwards[0], info
+    check_graphs(f"{model.cfg.name} {'paged' if paged else 'dense'} "
+                 f"{kv_format} KV", stats, new)
+    return counts, tokens, fwd, info
 
 
 def serve(seed: int) -> dict:
@@ -1005,10 +1042,13 @@ def serve_both(cfg, mk, mp, kparams, pparams, prompts, mode: str,
     for tag, m, prm in (("kernel", mk, kparams), ("plain", mp, pparams)):
         kw = (dict(kv_blocks=512, kv_block_size=SERVE["kv_block_size"],
                    kv_format=kv_format) if mode == "paged" else {})
+        backend = ExecutionBackend(m, prm, **kw)
         eng = ServingEngine(m, prm, max_new_tokens=new, temperature=0.0,
-                            backend=ExecutionBackend(m, prm, **kw))
+                            backend=backend)
         reset_launch_counts()
         out[tag] = eng.generate(prompts, n_samples=k)
+        check_graphs(f"{cfg.name} {mode} {tag} path", backend.graph_stats,
+                     new)
         for name, used in (("moe_gemm", cfg.moe is not None),
                            ("ssd_scan", cfg.ssm is not None)):
             if tag == "kernel" and used and launch_counts()[name] < 1:
@@ -1038,6 +1078,68 @@ def compare_paths(cfg, mk, mp, kparams, pparams, prompts, mode: str,
         raise AssertionError(f"f32 parity ({cfg.name} {mode}, {weights} "
                              f"weights, {kv_format} KV): {equal}/{n} "
                              f"sequences equal, logprob diff {lp_err:.3e}")
+
+
+# graphs against eager decoding, bf16, full width: (arch, mode, weights)
+GRAPH_CHECKS = (("chatglm3-6b", "dense", "bf16"),
+                ("chatglm3-6b", "paged", "bf16"),
+                ("chatglm3-6b", "paged", "int4"),
+                ("granite-moe-3b-a800m", "paged", "bf16"),
+                ("mamba2-370m", "dense", "bf16"))
+
+
+def graphs_vs_eager(seed: int) -> None:
+    """The serve's traffic and noise, decoded through CUDA graphs and
+    eagerly (``cuda_graphs=False``) on the card, bf16, full width at 2
+    layers (granite's 2 are MoE layers): the tokens must be identical; the
+    largest difference of the mean log-probabilities is printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.quant.quantize import quantize_model
+    from repro_torch.serving import (ExecutionBackend, GumbelNoise,
+                                     ServingEngine)
+    k, new = SERVE["samples"], SERVE["max_new"]
+    for arch, mode, wfmt in GRAPH_CHECKS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        model = Model(cfg, dtype=torch.bfloat16, device="cuda",
+                      use_kernel=True)
+        params = model.init(torch.Generator(device="cuda").manual_seed(
+            seed + 3))
+        if wfmt != "bf16":
+            params = quantize_model(params, wfmt, 32)
+        prompts = make_prompts(cfg, seed + 3)
+        kw = paged_kw(model, params) if mode == "paged" else {}
+        out, stats = {}, {}
+        for graphs in (False, True):
+            backend = ExecutionBackend(model, params, cuda_graphs=graphs,
+                                       **kw)
+            eng = ServingEngine(model, params, max_new_tokens=new,
+                                temperature=SERVE["temperature"],
+                                backend=backend)
+            noise = GumbelNoise(torch.Generator(device="cuda").manual_seed(
+                seed))
+            out[graphs] = eng.generate(prompts, n_samples=k, noise=noise)
+            check_results(out[graphs], cfg, k, new)
+            stats[graphs] = backend.graph_stats
+        run = f"graphs-vs-eager {cfg.name} {mode} {wfmt}"
+        check_graphs(run, stats[True], new)
+        if stats[False].captures or stats[False].replays:
+            raise AssertionError(f"{run}: the eager backend captured")
+        toks = {g: np.stack([s for r in out[g] for s in r.samples])
+                for g in out}
+        lp_err = max(abs(a - b) for ra, rb in zip(out[True], out[False])
+                     for a, b in zip(ra.logprobs, rb.logprobs))
+        equal = float((toks[True] == toks[False]).mean())
+        emit("graphs-vs-eager", dict(arch=cfg.name, mode=mode, weights=wfmt,
+                                     layers=cfg.n_layers,
+                                     sequences=toks[True].shape[0],
+                                     token_agreement=equal,
+                                     max_logprob_diff=lp_err,
+                                     graph_replays=stats[True].replays))
+        if equal != 1.0:
+            raise AssertionError(f"{run}: {equal:.4f} of the tokens equal")
+        del params, model
+        torch.cuda.empty_cache()
 
 
 def agreement_bf16(seed: int) -> None:
@@ -1162,6 +1264,7 @@ def main() -> int:
     counts = serve(args.seed)
     counts.update(serve_moe(args.seed))
     counts.update(serve_ssm(args.seed))
+    graphs_vs_eager(args.seed)
     agreement_bf16(args.seed)
     parity(args.seed)
 

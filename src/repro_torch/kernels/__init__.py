@@ -3,7 +3,12 @@
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors; its ``launches`` attribute counts kernel
 launches, so a run can show that the main path went through the kernels.
+A CUDA graph replays launches without calling the wrappers: its owner adds
+the launches it captured at every replay (`add_launches`), so the counts
+stay launches on the card.
 """
+from typing import Dict
+
 from repro_torch.kernels.decode_attention.ops import (decode_attention_cache,
                                                       paged_decode_attention)
 from repro_torch.kernels.dequant_matmul.ops import (dequant_matmul_int4,
@@ -31,3 +36,9 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (kernel name -> launches) to the wrappers' counts."""
+    for name, n in delta.items():
+        KERNELS[name].launches += n

@@ -1,8 +1,10 @@
-"""Checks shared by the kernel wrappers before a pointer reaches CUDA."""
+"""Checks shared by the kernel wrappers before a pointer reaches CUDA, and
+the split kernels' workspaces."""
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Sequence
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -45,3 +47,43 @@ def check_launch(op: str, err: int) -> None:
     the C entry point returns ``cudaGetLastError()`` and this raises on it."""
     if err != 0:
         raise RuntimeError(f"{op}: CUDA kernel launch failed (cudaError {err})")
+
+
+_workspaces: Dict[Tuple[str, torch.device],
+                  Tuple[torch.Tensor, torch.Tensor]] = {}
+_holders: List[Dict[int, torch.Tensor]] = []
+
+
+def workspace(owner: str, device: torch.device, n_counters: int,
+              n_part: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scratch of ``owner``'s split kernels on ``device``, allocated once
+    and grown when a call needs more: int32 merge counters, zero between
+    launches (each launch leaves them 0), and f32 partials. Kernels on one
+    stream share it; calls on two streams at once would race.
+
+    Growth drops the cached pair. A CUDA graph keeps the raw pointers it
+    captured, so a capture runs inside `holding_workspaces`, and the graph's
+    owner keeps every pair handed out there alive as long as the graph."""
+    counters, part = _workspaces.get((owner, device), (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32,
+                               device=device)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
+                           device=device)
+    _workspaces[(owner, device)] = (counters, part)
+    for held in _holders:
+        held[id(counters)], held[id(part)] = counters, part
+    return counters, part
+
+
+@contextlib.contextmanager
+def holding_workspaces() -> Iterator[Dict[int, torch.Tensor]]:
+    """Collect every workspace tensor `workspace` hands out inside the
+    block; the caller keeps the collection (and so the tensors) alive."""
+    held: Dict[int, torch.Tensor] = {}
+    _holders.append(held)
+    try:
+        yield held
+    finally:
+        _holders.remove(held)

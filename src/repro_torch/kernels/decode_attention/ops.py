@@ -14,12 +14,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_launch, check_tensors, stream_of
+from repro_torch.kernels.common import (check_launch, check_tensors,
+                                        stream_of, workspace)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.decode_attention.split import plan_splits
@@ -47,9 +48,6 @@ def _lib() -> ctypes.CDLL:
     lib.decode_attention_split_blocks_per_sm.argtypes = [_I, _I, _I, _I]
     lib.decode_attention_split_blocks_per_sm.restype = _I
     return lib
-
-
-_workspaces: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,22 +85,6 @@ def paged_split_plan(B: int, n_slots: int, H: int, Hkv: int, D: int,
     return plan_splits(B, Hkv, n_slots, H // Hkv, _sm_count(device),
                        _paged_blocks_per_sm(D, Dv, dtype == torch.bfloat16))
 
-
-def _workspace(device: torch.device, n_counters: int,
-               n_part: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split kernels' scratch on ``device``, allocated once and grown
-    when a call needs more: int32 merge counters, zero between launches
-    (each launch leaves them 0), and f32 split partials. Kernels on one
-    stream share it; calls on two streams at once would race."""
-    counters, part = _workspaces.get(device, (None, None))
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32,
-                               device=device)
-    if part is None or part.numel() < n_part:
-        part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
-                           device=device)
-    _workspaces[device] = (counters, part)
-    return counters, part
 
 
 def _check_q(op: str, q: torch.Tensor, kv_heads: int, d_k: int) -> None:
@@ -169,8 +151,8 @@ def decode_attention_cache(q: torch.Tensor, k_cache: torch.Tensor,
         scale = D ** -0.5
     n_split, split_slots, n_hb = split_plan(B, W, H, Hkv, D, Dv, q.dtype,
                                             q.device)
-    counters, part = _workspace(q.device, B * Hkv * n_hb,
-                                B * H * n_split * (Dv + 2))
+    counters, part = workspace("decode_attention", q.device,
+                               B * Hkv * n_hb, B * H * n_split * (Dv + 2))
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
     with kernel_scope(op, cuda=True):
         err = lib.decode_attention_fwd(
@@ -238,8 +220,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         scale = D ** -0.5
     n_split, split_slots, n_hb = paged_split_plan(B, nb * bs, H, Hkv, D, Dv,
                                                   q.dtype, q.device)
-    counters, part = _workspace(q.device, B * Hkv * n_hb,
-                                B * H * n_split * (Dv + 2))
+    counters, part = workspace("decode_attention", q.device,
+                               B * Hkv * n_hb, B * H * n_split * (Dv + 2))
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
     with kernel_scope(op, cuda=True):
         err = lib.paged_decode_attention_fwd(

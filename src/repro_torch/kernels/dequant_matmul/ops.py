@@ -17,13 +17,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
-
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (INT32_MAX, check_launch,
-                                        check_tensors, stream_of)
+                                        check_tensors, stream_of, workspace)
 from repro_torch.kernels.dequant_matmul.ref import (dequant_matmul_int4_ref,
                                                     dequant_matmul_int8_ref,
                                                     dequantize_int4,
@@ -57,9 +55,6 @@ def _lib() -> ctypes.CDLL:
     lib.dequant_matmul_int8_tc_fwd.argtypes = [_P] * 4 + [_I] * 3 + [_P]
     lib.dequant_matmul_int8_tc_fwd.restype = _I
     return lib
-
-
-_workspaces: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,22 +97,6 @@ def int4_plan(x: torch.Tensor, packed: torch.Tensor,
     return _plan(M, K, packed.shape[1], K // scale.shape[0],
                  x.dtype == torch.bfloat16, aligned, x.device)
 
-
-def _workspace(device: torch.device, n_counters: int,
-               n_part: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split kernels' scratch on ``device``, allocated once and grown
-    when a call needs more: int32 merge counters, zero between launches
-    (each launch leaves them 0), and f32 slice partials. Kernels on one
-    stream share it; calls on two streams at once would race."""
-    counters, part = _workspaces.get(device, (None, None))
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32,
-                               device=device)
-    if part is None or part.numel() < n_part:
-        part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
-                           device=device)
-    _workspaces[device] = (counters, part)
-    return counters, part
 
 
 def _check(op: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
@@ -166,8 +145,8 @@ def dequant_matmul_int8(x: torch.Tensor, qw: torch.Tensor,
     plan = int8_plan(x, qw, scale)
     with kernel_scope(op, cuda=True):
         if plan.route == "split_k":
-            counters, part = _workspace(x.device, plan.n_strips,
-                                        plan.workspace_floats)
+            counters, part = workspace("dequant_matmul", x.device,
+                                       plan.n_strips, plan.workspace_floats)
             err = _lib().dequant_matmul_int8_splitk_fwd(
                 x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
                 out.data_ptr(), part.data_ptr(), counters.data_ptr(),
@@ -217,8 +196,8 @@ def dequant_matmul_int4(x: torch.Tensor, packed: torch.Tensor,
     plan = int4_plan(x, packed, scale)
     with kernel_scope(op, cuda=True):
         if plan.route == "split_k":
-            counters, part = _workspace(x.device, plan.n_strips,
-                                        plan.workspace_floats)
+            counters, part = workspace("dequant_matmul", x.device,
+                                       plan.n_strips, plan.workspace_floats)
             err = _lib().dequant_matmul_int4_splitk_fwd(
                 x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
                 out.data_ptr(), part.data_ptr(), counters.data_ptr(),

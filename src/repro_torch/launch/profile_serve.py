@@ -14,10 +14,16 @@ each CUDA kernel's device time and launches, so that a source's routes
 read apart: the paged and the dense decode kernel, the split-K, wgmma and
 tiled dequant-matmul) whether or not it is among the top,
 and the device's busy share: the profiled run's device time over the timed
-run's wall time.
+run's wall time. The timed run is traced (`repro_torch.obs`): the line adds
+its CUDA graph captures, their host time, and its replays (one capture a
+batch, a replay for each decode step after the first), and the host's mean
+time a decode step
+(``decode_step_ms``, the mean of its ``decode`` spans: enqueue, replay or
+eager launches, and the wait for the step's tokens).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 from typing import List, Optional
@@ -26,6 +32,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.launch.serve import parse_args, report, setup
+from repro_torch.obs import make_observability
 
 
 def kernel_name(symbol: str) -> str:
@@ -87,9 +94,21 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    serve = setup(args)
+    serve, backend = setup(args)
+    obs = make_observability()
+    backend.set_obs(obs)
+    before = dataclasses.replace(backend.graph_stats)
     results, dt = serve()
+    backend.set_obs(None)
     report(args, results, dt)
+    steps = [s.t1_s - s.t0_s for s in obs.tracer.spans if s.name == "decode"]
+    after = backend.graph_stats
+    graphs = {"graph_captures": after.captures - before.captures,
+              "graph_capture_ms": 1e3 * (after.capture_s - before.capture_s),
+              "graph_replays": after.replays - before.replays,
+              "decode_steps": len(steps),
+              "decode_step_ms": (1e3 * sum(steps) / len(steps)
+                                 if steps else None)}
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(args.device).type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -97,6 +116,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         _, dt_prof = serve()
     summary = profile_summary(prof, dt)
     summary["profiled_wall_s"] = dt_prof
+    summary.update(graphs)
     print("[profile] " + json.dumps(summary))
 
 

@@ -74,10 +74,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def setup(args: argparse.Namespace) -> Callable[[], Tuple[list, float]]:
+def setup(args: argparse.Namespace
+          ) -> Tuple[Callable[[], Tuple[list, float]], ExecutionBackend]:
     """Build the model, plan the workload, draw the prompts and, on the
     card, build and warm the kernels. Returns ``serve()``, which serves the
-    requests once and gives ``(results, wall seconds)``."""
+    requests once and gives ``(results, wall seconds)``, and the backend it
+    serves through."""
     if args.kv_int8 and args.kv_blocks is None:
         raise SystemExit("--kv-int8 requires --kv-blocks (paged cache)")
     dev = resolve_device(args.device)
@@ -129,8 +131,9 @@ def setup(args: argparse.Namespace) -> Callable[[], Tuple[list, float]]:
         extras["vision_embeds"] = np.zeros((len(prompts), 4, cfg.d_model),
                                            np.float32)
 
-    backend = None
-    if args.kv_blocks is not None:
+    if args.kv_blocks is None:
+        backend = ExecutionBackend(model, params)
+    else:
         if not paged_supported(cfg):
             raise SystemExit(f"--kv-blocks: arch {cfg.name!r} unsupported "
                              "for paging")
@@ -160,7 +163,7 @@ def setup(args: argparse.Namespace) -> Callable[[], Tuple[list, float]]:
             torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    return serve
+    return serve, backend
 
 
 def report(args: argparse.Namespace, results: list, dt: float) -> None:
@@ -173,7 +176,8 @@ def report(args: argparse.Namespace, results: list, dt: float) -> None:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    report(args, *setup(args)())
+    serve, _ = setup(args)
+    report(args, *serve())
 
 
 if __name__ == "__main__":

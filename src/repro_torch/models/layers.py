@@ -142,9 +142,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         if positions.shape[-1] != 3 or sum(mrope_sections) != rot // 2:
             raise ValueError(f"mrope sections {mrope_sections} need (..., 3) "
                              f"positions and must sum to {rot // 2}")
-        # each frequency f uses one of the 3 position kinds (t/h/w sections)
-        sec_id = np.repeat(np.arange(3), np.asarray(mrope_sections))
-        pos_sel = positions[..., torch.as_tensor(sec_id, device=x.device)]
+        # each frequency f uses one of the 3 position kinds (t/h/w
+        # sections); built from views, with no host-to-device index copy,
+        # so that a CUDA graph can capture it
+        pos_sel = torch.cat([positions[..., i:i + 1].expand(
+            *positions.shape[:-1], n) for i, n in enumerate(mrope_sections)],
+            dim=-1)
         ang = pos_sel.float() * inv
     else:
         ang = positions[..., None].float() * inv  # (..., seq, rot/2)

@@ -27,8 +27,11 @@ callable ``(shape, device) -> tensor`` the caller injects (a test can feed
 plain argmax and draws nothing.
 
 The reference's ``jax.jit`` step functions are plain methods here, and the
-KV cache is updated in place. ``kv_format="int8"`` (paged mode only) keeps
-the KV pools in int8 with per-slot scales. The resident prefix pool,
+KV cache is updated in place. On the card, a batch's decode steps from the
+second on replay one CUDA graph of the step (`repro_torch.serving.graphs`;
+``cuda_graphs=False`` decodes eagerly); prefill runs eagerly, once a batch.
+``kv_format="int8"`` (paged mode only) keeps the KV pools in int8 with
+per-slot scales. The resident prefix pool,
 chunked prefill and speculative decode arrive with later slices of the port;
 their constructor arguments raise until then.
 """
@@ -47,6 +50,8 @@ from repro_torch.models import cache as cache_mod
 from repro_torch.models.model import Model
 from repro_torch.obs import NULL_OBS
 from repro_torch.quant.quantize import param_bytes, params_quant_format
+from repro_torch.serving.graphs import (DecodeGraph, GraphStats,
+                                        StaticDecodeStep)
 
 #: ``(shape, device) -> float32 tensor`` of standard Gumbel draws
 NoiseSource = Callable[[Tuple[int, ...], torch.device], torch.Tensor]
@@ -272,6 +277,7 @@ class InFlightBatch:
     block_table: Optional[torch.Tensor] = None  # decode table on device
     prefill_bytes_saved: float = 0.0   # KV bytes prefix sharing did not move
     freed_seqs: Set[int] = field(default_factory=set)   # early-released rows
+    graph: Optional[DecodeGraph] = None  # the decode step, on the card
 
     @property
     def n_sequences(self) -> int:
@@ -280,6 +286,23 @@ class InFlightBatch:
     @property
     def done(self) -> bool:
         return self.step >= self.max_new
+
+
+def _host(tok: torch.Tensor,
+          lp: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+    """A step's sampled tokens and logprobs on the host. From the card: one
+    synchronisation a step, as the reference copies both at once
+    (non-blocking copies into pinned buffers, then one event)."""
+    if tok.is_cuda:
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in (tok, lp)]
+        for dst, src in zip(host, (tok, lp)):
+            dst.copy_(src, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        tok, lp = host
+    return tok.numpy(), lp.numpy()
 
 
 def bucket_key(prompt: np.ndarray, max_new: int,
@@ -301,7 +324,12 @@ class ExecutionBackend:
     (prompt x samples rows); ``None`` means unbounded. Paged mode
     (``kv_blocks`` set): a `BlockAllocator` of ``kv_blocks`` blocks of
     ``kv_block_size`` token slots is the budget, and admission prices a
-    request at shared-prefix cost (`request_blocks`)."""
+    request at shared-prefix cost (`request_blocks`).
+
+    ``cuda_graphs`` (on by default) decodes each batch on the card through
+    one CUDA graph of its decode step; ``False`` decodes eagerly, so that a
+    run can hold the graphs against the eager step. CPU tensors always
+    decode eagerly. ``graph_stats`` counts captures and replays."""
 
     def __init__(self, model: Model, params, eos_token: Optional[int] = None,
                  max_slots: Optional[int] = None,
@@ -309,7 +337,8 @@ class ExecutionBackend:
                  kv_format: str = "bf16", obs=None,
                  spec_policy=None, spec_n: int = 0,
                  kv_pool: bool = False, pool_evict: str = "lru",
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 cuda_graphs: bool = True):
         if spec_policy is not None or spec_n:
             raise _not_yet("speculative decode (spec_policy/spec_n)", "spec")
         if kv_pool or pool_evict != "lru":
@@ -331,6 +360,8 @@ class ExecutionBackend:
         self.max_slots = max_slots
         self.slots_in_use = 0
         self.kv_format = kv_format
+        self.cuda_graphs = cuda_graphs
+        self.graph_stats = GraphStats()
         self.quant_format = params_quant_format(params)
         self.weight_bytes = param_bytes(params)
         self.allocator: Optional[BlockAllocator] = None
@@ -397,20 +428,6 @@ class ExecutionBackend:
             # CoW fan-out of the shared partial prefix block, in place
             cache = cache_mod.copy_cache_blocks(cache, copy_src, copy_dst)
         return logits[:, -1], cache
-
-    def _decode_step(self, params, tok, step_pos, cache, noise, temperature,
-                     extras, block_table=None, *, kv_len=None):
-        B = tok.shape[0]
-        pos = torch.full((B, 1), step_pos, dtype=torch.int32,
-                         device=tok.device)
-        if self.model.cfg.mrope_sections:
-            pos = pos[..., None].expand(B, 1, 3)
-        b = {"tokens": tok, "positions": pos, **extras}
-        if block_table is not None:
-            b["block_table"] = block_table
-        logits, cache, _ = self.model.forward(params, b, cache, kv_len=kv_len)
-        sample, lp = sample_tokens(logits[:, 0].float(), temperature, noise)
-        return sample, lp, cache
 
     # ---------------------------------------------------------------- plumbing
     @property
@@ -543,8 +560,9 @@ class ExecutionBackend:
         lf = self._tile(last_logits.float(), rep)
         tok, lp = sample_tokens(lf, h.temperature, h.noise)
         h.tok = tok
-        h.out_toks = [tok.cpu().numpy()]
-        h.out_lps = [lp.cpu().numpy()]
+        toks, lps = _host(tok, lp)
+        h.out_toks = [toks]
+        h.out_lps = [lps]
         return h
 
     def _start_batch_dense(self, prompts, repeats, rep, base, B, plen,
@@ -615,12 +633,24 @@ class ExecutionBackend:
             return False
         tracer = self.obs.tracer
         t0 = time.perf_counter() if tracer.enabled else 0.0
-        h.tok, lp, h.cache = self._decode_step(
-            self.params, h.tok[:, None], h.plen + h.step - 1, h.cache,
-            h.noise, h.temperature, h.extras, h.block_table,
-            kv_len=h.paged.kv_len if h.paged is not None else None)
-        h.out_toks.append(h.tok.cpu().numpy())
-        h.out_lps.append(lp.cpu().numpy())
+        step_pos = h.plen + h.step - 1
+        if h.graph is None and h.step >= 2 and self._graphs_on(h):
+            # no fallback: a capture that fails raises
+            t_cap = time.perf_counter()
+            h.graph = DecodeGraph.capture(self._static_step(h))
+            self.graph_stats.captures += 1
+            self.graph_stats.capture_s += time.perf_counter() - t_cap
+            self.graph_stats.pool_bytes += h.graph.pool_bytes
+        if h.graph is not None:
+            h.tok, lp = h.graph.replay(step_pos, h.noise)
+            self.graph_stats.replays += 1
+        else:
+            pos = torch.full((h.n_sequences, 1), step_pos, dtype=torch.int32,
+                             device=h.tok.device)
+            h.tok, lp = self._decode_fn(h)(h.tok[:, None], pos, h.noise)
+        toks, lps = _host(h.tok, lp)
+        h.out_toks.append(toks)
+        h.out_lps.append(lps)
         h.step += 1
         if tracer.enabled:
             tracer.emit("decode", t0, time.perf_counter(), clock="wall",
@@ -628,6 +658,39 @@ class ExecutionBackend:
         if self._m is not None:
             self._m["tokens_out"].inc(h.n_sequences - len(h.freed_seqs))
         return not h.done
+
+    def _graphs_on(self, h: InFlightBatch) -> bool:
+        """Whether ``h`` decodes through a CUDA graph: on the card, unless
+        the backend was built with ``cuda_graphs=False``."""
+        return self.cuda_graphs and h.tok.is_cuda
+
+    def _decode_fn(self, h: InFlightBatch):
+        """The reference's ``_decode_step`` for ``h``: ``(tok (B, 1) token
+        ids, pos (B, 1) int32 positions, noise) -> (tokens, logprobs)``, one
+        decode step over the batch's cache, updated in place. Closes over
+        the batch's state, not the handle, so a graph that holds it does
+        not hold the batch."""
+        cache, temp = h.cache, h.temperature
+        b = dict(h.extras)
+        if h.block_table is not None:
+            b["block_table"] = h.block_table
+        kv_len = h.paged.kv_len if h.paged is not None else None
+        mrope = bool(self.model.cfg.mrope_sections)
+
+        def decode(tok, pos, noise):
+            if mrope:
+                pos = pos[..., None].expand(tok.shape[0], 1, 3)
+            logits, _, _ = self.model.forward(
+                self.params, {"tokens": tok, "positions": pos, **b}, cache,
+                kv_len=kv_len)
+            return sample_tokens(logits[:, 0].float(), temp, noise)
+        return decode
+
+    def _static_step(self, h: InFlightBatch) -> StaticDecodeStep:
+        """The body of ``h``'s decode graph, reading ``h``'s last token."""
+        return StaticDecodeStep(self._decode_fn(h), h.tok,
+                                self.model.cfg.padded_vocab,
+                                sampled=h.temperature > 0)
 
     def release(self, h: InFlightBatch) -> None:
         """Return a batch's remaining KV budget (blocks or slots). Raises on
@@ -645,6 +708,7 @@ class ExecutionBackend:
             self.slots_in_use -= h.n_sequences - len(h.freed_seqs)
         h.freed_seqs = set(range(h.n_sequences))
         h.cache = None                     # the KV memory goes with the batch
+        h.graph = None                     # and the graph that addresses it
         self._note_occupancy()
 
     def release_sequences(self, h: InFlightBatch,

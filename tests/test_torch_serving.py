@@ -232,5 +232,7 @@ def test_profile_serve_takes_the_launcher_flags_on_the_cpu(capsys):
           "--max-new", "3", "--kv-blocks", "32", "--kv-block-size", "4"])
     out = capsys.readouterr().out
     assert "[serve] 2 requests x 2 samples, 12 tokens" in out
-    # a CPU run has no device activity to report
+    # a CPU run has no device activity to report, and decodes eagerly
     assert '"device_busy_share": null' in out
+    assert '"graph_captures": 0, "graph_capture_ms": 0.0, "graph_replays": 0, ' \
+        '"decode_steps": 2' in out
