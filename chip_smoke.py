@@ -52,6 +52,19 @@ Phases, each of which fails the script on error:
    backend's default on the card): its one batch runs its first decode
    step eagerly, captures the second and replays it, and replays every
    later step; a serve fails unless it made one capture and 30 replays.
+   Then chatglm3-6b in bf16 on the resident prefix pool (512 blocks of 16,
+   LRU eviction): two rounds through ``ServingEngine.generate`` of the same
+   traffic, every prompt a shared 192-token system prompt (12 blocks) and
+   64 tokens of its own, new ones in round 2. The run fails unless round 1
+   finds no cached block and round 2 finds 96 (12 a prompt), round 2 saves
+   the prefill bytes of all but its 8 x 64 tail tokens, 76 blocks stay
+   resident, and the two rounds make one graph capture and 61 replays (the
+   second round replays from its first decode step), 1736 paged decode
+   launches and no flash launch (a pooled prefill takes the tail path);
+   then the same with ``prefill_chunk=64``: the same hits and one capture.
+   It prints each round's wall time, tok/s, host ms a decode step and
+   capture ms, and the bf16 token agreement of chunked against one-shot
+   and of pooled against the per-batch paged serve of the same prompts.
    The launch counts are set to 0 just before each run and read just
    after; a replay adds the launches its graph captured, and a capture,
    which runs nothing, adds none. A forward is a ``model.forward`` call
@@ -81,7 +94,12 @@ Phases, each of which fails the script on error:
    and paged) and deepseek (dense), then mamba2 (2 layers) and, last, jamba
    at one super-block (8 layers, about 53 GB of f32 weights), both over
    prompts of 300 tokens, which cross a 256-row chunk and pad a tail; each
-   must give the same tokens and log-probabilities within 1e-3. Before
+   must give the same tokens and log-probabilities within 1e-3. chatglm3-6b
+   on the prefix pool, the pooled serve's prompts in two rounds (cold, then
+   warm): the kernel path must equal the plain path (tokens, and
+   log-probabilities within 1e-3), the per-batch paged serve (tokens) and
+   the chunked serve (``prefill_chunk=64``: tokens, and log-probabilities
+   within 1e-3). Before
    them, as information and not a gate, the same greedy comparison in
    bf16, where the new tensor-core kernels run: granite at its 2 MoE
    layers (dense) and chatglm3-6b at 2 layers in int4 and in int8 weights
@@ -155,6 +173,10 @@ ATTN_KERNELS = {"dense": ("flash_attention", "decode_attention"),
 # layers hold 103 GB of bf16 weights, so it serves 2 of its 4 super-blocks)
 SSM_SERVES = {"mamba2-370m": ("mamba2-dense", 48),
               "jamba-v0.1-52b": ("jamba-dense", 16)}
+# the pooled serve: one resident cache of 512 blocks of 16 tokens; every
+# prompt is a shared system prompt of 192 tokens (12 blocks) and 64 tokens
+# of its own; two rounds, the second with new suffixes
+POOL = dict(kv_blocks=512, kv_block_size=16, system_len=192, rounds=2)
 # the f32 parity of the SSM archs: layers, and a prompt length that crosses
 # a 256-row chunk and pads a tail
 SSM_PARITY = {"mamba2-370m": 2, "jamba-v0.1-52b": 8}
@@ -866,10 +888,190 @@ def serve_run(model, params, prompts, seed: int, paged: bool,
     return counts, tokens, fwd, info
 
 
+def pooled_rounds(cfg, seed: int) -> list:
+    """The pooled serve's prompts, drawn from ``seed``: each round
+    SERVE["requests"] prompts of one shared system prompt and a suffix of
+    their own, new suffixes each round."""
+    rng = np.random.default_rng(seed)
+    plen, head = SERVE["prompt_len"], POOL["system_len"]
+    system = rng.integers(0, cfg.vocab_size, head).astype(np.int32)
+    return [[np.concatenate([system, rng.integers(
+        0, cfg.vocab_size, plen - head).astype(np.int32)])
+        for _ in range(SERVE["requests"])] for _ in range(POOL["rounds"])]
+
+
+def serve_rounds(model, params, rounds, seed: int, backend_kw: dict, k: int,
+                 new: int, temperature: float):
+    """Serve each round of prompts through one ``ServingEngine.generate``,
+    all rounds over one backend built with ``backend_kw`` (round r on
+    Gumbel noise seeded ``seed + r``). Returns the backend and, per round,
+    the results, the sampled tokens, the batch handles the round started,
+    its wall seconds and tok/s, the host's mean ms a decode step (the
+    tracer's ``decode`` spans), its prefill spans' ms (``start_batch``,
+    and each chunked slice, through the first token's copy to the host),
+    the host's ms in the tail prefill forwards, and its graph captures,
+    their ms and its replays."""
+    from repro_torch.obs import make_observability
+    from repro_torch.serving import (ExecutionBackend, GumbelNoise,
+                                     ServingEngine)
+    backend = ExecutionBackend(model, params, **backend_kw)
+    engine = ServingEngine(model, params, max_new_tokens=new,
+                           temperature=temperature, backend=backend)
+    handles = []
+    start = backend.start_batch
+
+    def recorded(*a, **kw):
+        handles.append(start(*a, **kw))
+        return handles[-1]
+
+    backend.start_batch = recorded
+    # the host's time in the tail prefill's forwards (their enqueue: no
+    # synchronisation inside), to weigh capturing them too
+    tail_s = []
+    tail = backend._tail_prefill
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        logits = tail(*a, **kw)
+        tail_s.append(time.perf_counter() - t)
+        return logits
+
+    backend._tail_prefill = timed
+    out = []
+    for r, prompts in enumerate(rounds):
+        tail_s.clear()
+        obs = make_observability()
+        backend.set_obs(obs)
+        before = dataclasses.replace(backend.graph_stats)
+        n0 = len(handles)
+        noise = GumbelNoise(torch.Generator(device="cuda").manual_seed(
+            seed + r))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.generate(prompts, n_samples=k, noise=noise)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        backend.set_obs(None)
+        check_results(results, model.cfg, k, new)
+        steps = [sp.t1_s - sp.t0_s for sp in obs.tracer.spans
+                 if sp.name == "decode"]
+        prefill = [sp.t1_s - sp.t0_s for sp in obs.tracer.spans
+                   if sp.name == "prefill"]
+        st = backend.graph_stats
+        n_tok = sum(res.decode_tokens for res in results)
+        out.append(dict(
+            results=results, handles=handles[n0:],
+            tokens=np.stack([smp for res in results for smp in res.samples]),
+            seconds=dt, tokens_per_s=n_tok / dt,
+            decode_step_ms=1e3 * sum(steps) / len(steps),
+            prefill_span_ms=1e3 * sum(prefill),
+            tail_prefill_host_ms=1e3 * sum(tail_s),
+            graph_captures=st.captures - before.captures,
+            graph_capture_ms=1e3 * (st.capture_s - before.capture_s),
+            graph_replays=st.replays - before.replays))
+    del backend.start_batch, backend._tail_prefill    # the class's again
+    return out, backend
+
+
+def serve_pooled(model, params, seed: int) -> dict:
+    """Phase 3, the resident prefix pool: full chatglm3-6b in bf16, two
+    rounds one-shot and two chunked (``prefill_chunk=64``), each pair on a
+    pool of its own; then the per-batch paged serve of the same rounds, for
+    the token agreement. Returns the launch counts of each pooled run."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ExecutionBackend, ServingEngine
+    cfg = model.cfg
+    k, new, R = SERVE["samples"], SERVE["max_new"], SERVE["requests"]
+    plen, bs = SERVE["prompt_len"], POOL["kv_block_size"]
+    rounds = pooled_rounds(cfg, seed)
+    base = dict(kv_blocks=POOL["kv_blocks"], kv_block_size=bs)
+    pooled = dict(base, kv_pool=True, pool_evict="lru")
+    # kernels and cuBLAS warm before the timed rounds: a prompt shorter
+    # than a block caches nothing in the trie
+    warm = ExecutionBackend(model, params, **pooled)
+    ServingEngine(model, params, backend=warm).generate(
+        [rounds[0][0][:bs - 1]], n_samples=1, max_new_tokens=2)
+    if warm.prefix_pool.blocks_resident:
+        raise AssertionError("the warm-up cached a block")
+    del warm
+    system_blocks = POOL["system_len"] // bs
+    suffix = plen - POOL["system_len"]
+    counts, tokens = {}, {}
+    for run, chunk in (("chatglm-pooled", None),
+                       ("chatglm-pooled-chunked", 64)):
+        reset_launch_counts()
+        info, backend = serve_rounds(model, params, rounds, seed,
+                                     dict(pooled, prefill_chunk=chunk), k,
+                                     new, SERVE["temperature"])
+        counts[run] = c = launch_counts()
+        tokens[run] = [i["tokens"] for i in info]
+        ktb = backend.kv_token_bytes
+        for r, i in enumerate(info):
+            hits = sum(h.pool_hit_blocks for h in i["handles"])
+            saved = sum(h.prefill_bytes_saved for h in i["handles"])
+            emit("serve-pooled", dict(
+                run=run, round=r + 1, prefill_chunk=chunk,
+                batches=len(i["handles"]), pool_hit_blocks=hits,
+                prefill_bytes_saved=saved,
+                **{key: i[key] for key in (
+                    "seconds", "tokens_per_s", "decode_step_ms",
+                    "prefill_span_ms", "tail_prefill_host_ms",
+                    "graph_captures", "graph_capture_ms",
+                    "graph_replays")}))
+            want = 0 if r == 0 else R * system_blocks
+            if hits != want:
+                raise AssertionError(f"{run} round {r + 1}: {hits} blocks "
+                                     f"found in the pool, want {want}")
+            if r == 1 and saved != (R * k * plen - R * suffix) * ktb:
+                raise AssertionError(f"{run} round 2 saved {saved} prefill "
+                                     "bytes, want the bytes of all but its "
+                                     f"{R} x {suffix} tail tokens")
+        resident = backend.prefix_pool.blocks_resident
+        # round 1: one system chain + every suffix chain; round 2: its own
+        # suffix chains
+        want_resident = system_blocks + 2 * R * (plen // bs - system_blocks)
+        stats = backend.graph_stats
+        emit("serve-pooled", dict(
+            run=run, kv_blocks=POOL["kv_blocks"], kv_token_bytes=ktb,
+            pool_gb=POOL["kv_blocks"] * bs * ktb / 1e9,
+            blocks_in_use=backend.blocks_in_use, blocks_resident=resident,
+            graph_captures=stats.captures, graph_replays=stats.replays,
+            graph_pool_gb=stats.pool_bytes / 1e9, launches=c))
+        if backend.blocks_in_use != resident or resident != want_resident:
+            raise AssertionError(f"{run}: {backend.blocks_in_use} blocks in "
+                                 f"use and {resident} resident, want "
+                                 f"{want_resident} each")
+        if (stats.captures, stats.replays) != (1, 2 * (new - 1) - 1):
+            raise AssertionError(f"{run}: {stats.captures} graph captures "
+                                 f"and {stats.replays} replays, want 1 and "
+                                 f"{2 * (new - 1) - 1}")
+        want = {"paged_decode_attention": cfg.n_layers * 2 * (new - 1),
+                "flash_attention": 0}
+        for name, n in want.items():
+            if c[name] != n:
+                raise AssertionError(f"{run}: {name} launched {c[name]} "
+                                     f"times, want {n}")
+        del backend
+    paged, _ = serve_rounds(model, params, rounds, seed, base, k, new,
+                            SERVE["temperature"])
+    # information, not a gate: bf16 sums the pooled tail prefill, the
+    # chunked slices and the per-batch flash prefill in other orders
+    emit("serve-agreement", dict(
+        pooled_vs_paged_token_match=[
+            float((a == b["tokens"]).mean())
+            for a, b in zip(tokens["chatglm-pooled"], paged)],
+        chunked_vs_one_shot_token_match=[
+            float((a == b).mean()) for a, b in zip(
+                tokens["chatglm-pooled-chunked"], tokens["chatglm-pooled"])]))
+    torch.cuda.empty_cache()
+    return counts
+
+
 def serve(seed: int) -> dict:
-    """Phase 3: full chatglm3-6b, dense then paged in bf16, then paged with
-    int8, int4 and int4 + int8-KV weights quantized on the card. Returns
-    the launch counts of each run."""
+    """Phase 3: full chatglm3-6b, dense then paged in bf16, then on the
+    resident prefix pool (`serve_pooled`), then paged with int8, int4 and
+    int4 + int8-KV weights quantized on the card. Returns the launch counts
+    of each run."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.quant.quantize import param_bytes, quantize_model
@@ -896,6 +1098,7 @@ def serve(seed: int) -> dict:
     emit("serve-agreement", dict(
         dense_vs_paged_token_match=float((tokens["dense"]
                                           == tokens["paged"]).mean())))
+    counts.update(serve_pooled(model, params, seed))
 
     per_forward = LINEARS_PER_LAYER * cfg.n_layers
     for run, (wfmt, kv_format) in QUANT_RUNS.items():
@@ -1178,6 +1381,56 @@ def agreement_bf16(seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+def parity_pooled(cfg, mk, mp, params, seed: int) -> None:
+    """Phase 4, the resident prefix pool in f32: the pooled serve's prompts
+    in two rounds (cold, then warm), greedy, 2 samples, 16 new tokens,
+    through the kernel path and the plain path on a pool each, the
+    per-batch paged serve and the chunked one (``prefill_chunk=64``), all
+    decoding through CUDA graphs. Raises unless the kernel path gives the
+    plain path's tokens with log-probabilities within 1e-3, the paged
+    serve's tokens and the chunked serve's tokens with log-probabilities
+    within 1e-3."""
+    k, new = 2, 16
+    rounds = pooled_rounds(cfg, seed)
+    base = dict(kv_blocks=POOL["kv_blocks"],
+                kv_block_size=POOL["kv_block_size"])
+    pooled = dict(base, kv_pool=True)
+    runs = {}
+    for name, model, kw, graphs in (
+            ("kernel", mk, pooled, (1, 2 * (new - 1) - 1)),
+            ("plain", mp, pooled, (1, 2 * (new - 1) - 1)),
+            ("paged", mk, base, (2, 2 * (new - 2))),
+            ("chunked", mk, dict(pooled, prefill_chunk=64),
+             (1, 2 * (new - 1) - 1))):
+        info, backend = serve_rounds(model, params, rounds, seed, kw, k, new,
+                                     0.0)
+        st = backend.graph_stats
+        if (st.captures, st.replays) != graphs:
+            raise AssertionError(f"pooled parity, {name}: {st.captures} "
+                                 f"captures and {st.replays} replays, want "
+                                 f"{graphs}")
+        runs[name] = info
+    for other, lp_tol in (("plain", 1e-3), ("paged", None),
+                          ("chunked", 1e-3)):
+        for r, (a, b) in enumerate(zip(runs["kernel"], runs[other])):
+            equal = int((a["tokens"] == b["tokens"]).all(axis=1).sum())
+            n = a["tokens"].shape[0]
+            lp_err = max(abs(x - y) for ra, rb in zip(a["results"],
+                                                       b["results"])
+                         for x, y in zip(ra.logprobs, rb.logprobs))
+            emit("parity-f32", dict(
+                arch=cfg.name, mode=f"pooled vs {other}",
+                round="cold" if r == 0 else "warm", weights="f32",
+                layers=cfg.n_layers, prompt_len=len(rounds[r][0]),
+                sequences=n, tokens_equal=equal, max_logprob_diff=lp_err,
+                tol=lp_tol,
+                pool_hit_blocks=sum(h.pool_hit_blocks for h in a["handles"])))
+            if equal != n or (lp_tol is not None and lp_err > lp_tol):
+                raise AssertionError(f"f32 pooled parity against {other}, "
+                                     f"round {r + 1}: {equal}/{n} sequences "
+                                     f"equal, logprob diff {lp_err:.3e}")
+
+
 def parity(seed: int) -> None:
     """Phase 4: f32, full width, 2 layers; kernel path vs plain path, in
     f32 weights and, quantized, against the plain path over the dequantized
@@ -1192,6 +1445,7 @@ def parity(seed: int) -> None:
     prompts = make_prompts(cfg, seed + 1)
     for mode in ("dense", "paged"):
         compare_paths(cfg, mk, mp, params, params, prompts, mode, "f32")
+    parity_pooled(cfg, mk, mp, params, seed + 1)
     for wfmt, mode, kv_format in (("int8", "dense", "bf16"),
                                   ("int4", "paged", "int8")):
         qp = quantize_model(params, wfmt, 32)

@@ -20,6 +20,12 @@ batch, a replay for each decode step after the first), and the host's mean
 time a decode step
 (``decode_step_ms``, the mean of its ``decode`` spans: enqueue, replay or
 eager launches, and the wait for the step's tokens).
+
+With ``--kv-pool`` the first pass over the requests fills the prefix pool
+and every later pass finds each prompt's cached blocks there. So a pooled
+run serves the requests once more before the timed run: that cold pass is
+reported, traced the same way, under ``"cold"``, and the timed and the
+profiled runs are both warm.
 """
 from __future__ import annotations
 
@@ -92,23 +98,41 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
             "port_kernels": port}
 
 
-def main(argv: Optional[List[str]] = None) -> None:
-    args = parse_args(argv)
-    serve, backend = setup(args)
+def traced(serve, backend) -> tuple:
+    """One traced serve: ``(results, wall seconds, stats)``, the stats its
+    graph captures, their host ms, replays, decode steps, the host's mean
+    ms a decode step and, on a prefix pool, the blocks its batches found
+    cached (``pool_hit_blocks``)."""
     obs = make_observability()
     backend.set_obs(obs)
     before = dataclasses.replace(backend.graph_stats)
     results, dt = serve()
     backend.set_obs(None)
-    report(args, results, dt)
     steps = [s.t1_s - s.t0_s for s in obs.tracer.spans if s.name == "decode"]
     after = backend.graph_stats
-    graphs = {"graph_captures": after.captures - before.captures,
-              "graph_capture_ms": 1e3 * (after.capture_s - before.capture_s),
-              "graph_replays": after.replays - before.replays,
-              "decode_steps": len(steps),
-              "decode_step_ms": (1e3 * sum(steps) / len(steps)
-                                 if steps else None)}
+    stats = {"graph_captures": after.captures - before.captures,
+             "graph_capture_ms": 1e3 * (after.capture_s - before.capture_s),
+             "graph_replays": after.replays - before.replays,
+             "decode_steps": len(steps),
+             "decode_step_ms": (1e3 * sum(steps) / len(steps)
+                                if steps else None)}
+    if backend.prefix_pool is not None:
+        stats["pool_hit_blocks"] = obs.metrics.counter(
+            "serving_prefix_pool_hits_total").value()
+    return results, dt, stats
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    serve, backend = setup(args)
+    cold = None
+    if backend.prefix_pool is not None:
+        results, dt, stats = traced(serve, backend)
+        print("[cold]", end=" ")
+        report(args, results, dt)
+        cold = dict(wall_s=dt, **stats)
+    results, dt, stats = traced(serve, backend)
+    report(args, results, dt)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(args.device).type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -116,7 +140,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         _, dt_prof = serve()
     summary = profile_summary(prof, dt)
     summary["profiled_wall_s"] = dt_prof
-    summary.update(graphs)
+    summary.update(stats)
+    if cold is not None:
+        summary["cold"] = cold
     print("[profile] " + json.dumps(summary))
 
 

@@ -3,7 +3,8 @@ greedy orchestration plan and safety monitoring in the loop.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
         --requests 8 --samples 4 --prompt-len 256 --max-new 32 --kv-blocks 256 \
-        [--quant int8|int4 [--group-size 32]] [--kv-int8]
+        [--quant int8|int4 [--group-size 32]] [--kv-int8] \
+        [--kv-pool [--pool-evict lru|off]] [--prefill-chunk N]
 
 Weights are random, drawn from a seeded ``torch.Generator``. On ``cuda``
 (the default) the model runs in bf16 with ``use_kernel=True``: prefill goes
@@ -17,10 +18,13 @@ gather path, as in the reference. MoE archs run their expert products
 through the grouped-GEMM kernel, and Mamba-2 layers (``--arch mamba2-370m``,
 ``--arch jamba-v0.1-52b``) their prefill through the SSD chunk kernel; archs
 without a paged layout (MLA, SSM) serve dense only and refuse
-``--kv-blocks``. The launcher serves the full depth of the arch, and all 32
-layers of jamba-v0.1-52b (103 GB of bf16 weights) do not fit one 80 GB
-card. ``--device cpu`` runs the plain PyTorch path; ``--smoke`` serves the
-arch's reduced config in f32.
+``--kv-blocks``. ``--kv-pool`` serves the paged cache as one resident
+prefix pool that outlives batches (a prompt whose leading blocks are cached
+prefills only its tail), and ``--prefill-chunk N`` prefills in slices of at
+most N tokens; both need ``--kv-blocks``. The launcher serves the full
+depth of the arch, and all 32 layers of jamba-v0.1-52b (103 GB of bf16
+weights) do not fit one 80 GB card. ``--device cpu`` runs the plain
+PyTorch path; ``--smoke`` serves the arch's reduced config in f32.
 ``repro_torch.launch.profile_serve`` takes the same flags and says where the
 device time goes.
 """
@@ -69,6 +73,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--kv-int8", action="store_true",
                     help="store the paged KV cache int8 (needs --kv-blocks; "
                          "halves cache bytes per token slot)")
+    ap.add_argument("--kv-pool", action="store_true",
+                    help="resident prefix pool: one paged cache shared by "
+                         "every batch, cached prompt blocks reused across "
+                         "batches (needs --kv-blocks)")
+    ap.add_argument("--pool-evict", default="lru", choices=["lru", "off"],
+                    help="prefix-pool eviction of idle (zero-ref) trie "
+                         "blocks: lru reclaims them, off never does")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill: slices of at most this many "
+                         "tokens, one a decode step (needs --kv-blocks)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels on) or cpu (plain PyTorch path)")
     return ap.parse_args(argv)
@@ -82,6 +96,11 @@ def setup(args: argparse.Namespace
     serves through."""
     if args.kv_int8 and args.kv_blocks is None:
         raise SystemExit("--kv-int8 requires --kv-blocks (paged cache)")
+    if args.kv_pool and args.kv_blocks is None:
+        raise SystemExit("--kv-pool requires --kv-blocks (paged cache)")
+    if args.prefill_chunk is not None and args.kv_blocks is None:
+        raise SystemExit("--prefill-chunk requires --kv-blocks (paged "
+                         "cache)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -139,16 +158,30 @@ def setup(args: argparse.Namespace
                              "for paging")
         backend = ExecutionBackend(model, params, kv_blocks=args.kv_blocks,
                                    kv_block_size=args.kv_block_size,
-                                   kv_format=kv_format)
+                                   kv_format=kv_format, kv_pool=args.kv_pool,
+                                   pool_evict=args.pool_evict,
+                                   prefill_chunk=args.prefill_chunk)
         print(f"[kv] paged cache: {args.kv_blocks} blocks x "
               f"{args.kv_block_size} slots ({kv_format}, "
               f"{backend.kv_token_bytes} B/token)")
+        if args.kv_pool:
+            print(f"[kv] resident prefix pool: cross-batch block reuse, "
+                  f"evict={args.pool_evict}")
+        if args.prefill_chunk:
+            print(f"[kv] chunked prefill: <= {args.prefill_chunk} tokens "
+                  "per slice, interleaved with decode")
     engine = ServingEngine(model, params, max_new_tokens=args.max_new,
                            temperature=args.temperature, backend=backend)
     if on_card:
         t0 = time.perf_counter()
         build.build()
-        engine.generate(prompts[:1], n_samples=1, max_new_tokens=2,
+        # a prompt whose first token starts none of the served prompts
+        # shares no block with them: on a prefix pool it caches nothing
+        # they could hit
+        warm = prompts[0].copy()
+        warm[0] = min(set(range(cfg.vocab_size))
+                      - {int(p[0]) for p in prompts})
+        engine.generate([warm], n_samples=1, max_new_tokens=2,
                         extras={k: v[:1] for k, v in extras.items()})
         torch.cuda.synchronize()
         print(f"[warm-up] kernels built and one request served in "

@@ -18,7 +18,8 @@ reference, the port writes caches in place (see `copy_cache_blocks` and
 int8 KV (``kv_dtype=torch.int8``, paged only): k/v pools are int8 with f32
 per-(block, slot, kv-head) scales ``k_scale`` / ``v_scale``
 ``(n_blocks, block_size, n_kv)`` beside them; `copy_cache_blocks` moves the
-scales with the blocks.
+scales with the blocks, and `reset_cache_block_positions` (the resident
+prefix pool's reuse of a freed block) resets only the positions.
 
 MLA entries (dense only, as in the reference): the latent ``c_kv``
 ``(B, W, kv_lora)``, the shared rope key ``k_rope`` ``(B, W, rope_hd)`` and
@@ -161,6 +162,21 @@ def copy_cache_blocks(cache: Dict, src: torch.Tensor,
     return cache
 
 
+def reset_cache_block_positions(cache: Dict, gids: torch.Tensor) -> Dict:
+    """Invalidate the position slots of blocks ``gids`` in every attention
+    pool, in place. A resident pooled cache outlives batches, so a block
+    back from the free list still carries its previous occupant's positions,
+    and a stale slot whose old position falls inside the new sequence's
+    visible window would leak stale KV into attention. Only ``pos`` needs
+    resetting: position -1 masks the slot. Returns ``cache``."""
+    gids = gids.long()
+    for entry in cache["prefix"]:
+        entry["pos"][gids] = -1
+    for entry in cache["blocks"].values():
+        entry["pos"][:, gids] = -1
+    return cache
+
+
 def kv_bytes_per_token(cfg: ArchConfig, bytes_per_el: int = 2) -> int:
     """KV-cache bytes one token position occupies across the whole stack
     (k + v + int32 position, summed over attention layers)."""
@@ -180,6 +196,15 @@ def paged_cache_bytes(cfg: ArchConfig, n_blocks: int, block_size: int,
     """Real memory of a paged pool: the block budget admission prices
     requests against."""
     return n_blocks * block_size * kv_bytes_per_token(cfg, bytes_per_el)
+
+
+def prefix_pool_bytes(cfg: ArchConfig, n_resident: int, block_size: int,
+                      bytes_per_el: int = 2) -> int:
+    """Bytes of cached KV the resident prefix pool indexes
+    (`PrefixPool.blocks_resident` blocks): the prefill bytes the next hit on
+    each chain does not have to move. The physical array is
+    `paged_cache_bytes` of the whole budget regardless."""
+    return n_resident * block_size * kv_bytes_per_token(cfg, bytes_per_el)
 
 
 def cache_bytes(cfg: ArchConfig, batch: int, cache_len: int,

@@ -1,12 +1,13 @@
 """Execution backend: the *how* of serving, as a stepwise batch API.
 
-Ported from ``repro.serving.backend`` (dense-slot and paged-block modes).
-The step API:
+Ported from ``repro.serving.backend`` (dense-slot, paged-block and resident
+prefix-pool modes, and chunked prefill). The step API:
 
 * ``start_batch`` — prefill a group of equal-length prompts (each tiled by
   its per-request sample count) and sample the first token; returns an
   `InFlightBatch` holding the KV cache and the batch's noise stream.
-* ``decode_step`` — advance an in-flight batch by one autoregressive token.
+* ``decode_step`` — advance an in-flight batch by one autoregressive token
+  (or, while a chunked prefill drains, by one prefill slice).
 * ``finalize`` — stack the sampled tokens into per-request
   `GenerationResult`s and release the batch's KV budget.
 
@@ -19,6 +20,19 @@ full prefix blocks by reference, a partially filled last prefix block is
 copied once per repeat (copy-on-write) at ``start_batch``, and decode reads
 through per-sequence block tables that stay fixed for the batch's life.
 
+Resident prefix pool (``kv_pool=True``, paged mode): ONE physical cache of
+``kv_blocks`` blocks outlives every batch, and a `PrefixPool` radix trie
+indexes its filled full-prefix blocks. A batch resolves each prompt's
+longest cached chain, evicts idle chains (LRU) to fit the rest, prefills
+only the tails (``_tail_prefill``: explicit positions through the block
+table, ``decode=True``), fans the copy-on-write blocks out, and indexes its
+new chains. Its tables carry global block ids into the resident cache.
+
+Chunked prefill (``prefill_chunk=``, paged mode): the prefill is cut into
+slices of at most ``prefill_chunk`` tokens, one slice a ``decode_step``
+call, so a long prompt interleaves with in-flight decode; the first token
+is sampled when the last slice lands.
+
 Sampling: where the reference draws ``jax.random.categorical``, the port
 samples ``argmax(logits / T + g)`` with Gumbel noise ``g`` from the batch's
 noise source: `GumbelNoise` over a ``torch.Generator`` by default, or any
@@ -30,10 +44,12 @@ The reference's ``jax.jit`` step functions are plain methods here, and the
 KV cache is updated in place. On the card, a batch's decode steps from the
 second on replay one CUDA graph of the step (`repro_torch.serving.graphs`;
 ``cuda_graphs=False`` decodes eagerly); prefill runs eagerly, once a batch.
-``kv_format="int8"`` (paged mode only) keeps the KV pools in int8 with
-per-slot scales. The resident prefix pool,
-chunked prefill and speculative decode arrive with later slices of the port;
-their constructor arguments raise until then.
+A per-batch cache takes its graph with it; on the resident pool, one graph
+serves every batch of its shape (`_graph_key`), as the reference's jit
+compiles once per static shape, so a later batch of that shape replays
+from its first decode step. ``kv_format="int8"`` (paged mode only) keeps
+the KV pools in int8 with per-slot scales. Speculative decode arrives with
+a later slice of the port; its constructor arguments raise until then.
 """
 from __future__ import annotations
 
@@ -49,9 +65,11 @@ import torch
 from repro_torch.models import cache as cache_mod
 from repro_torch.models.model import Model
 from repro_torch.obs import NULL_OBS
+from repro_torch.obs.metrics import RATIO_BUCKETS
 from repro_torch.quant.quantize import param_bytes, params_quant_format
 from repro_torch.serving.graphs import (DecodeGraph, GraphStats,
                                         StaticDecodeStep)
+from repro_torch.serving.prefix_pool import PrefixPool
 
 #: ``(shape, device) -> float32 tensor`` of standard Gumbel draws
 NoiseSource = Callable[[Tuple[int, ...], torch.device], torch.Tensor]
@@ -104,7 +122,9 @@ class BlockAllocator:
     The admission budget of paged serving: every in-flight batch's physical
     pool layout is mirrored here block for block, double frees raise, and a
     shared prefix block returns to the free list only when its *last* holder
-    releases it.
+    releases it. Blocks indexed by a resident `PrefixPool` are protected:
+    their last reference belongs to the trie, and only the pool's eviction
+    returns them.
     """
 
     def __init__(self, n_blocks: int, block_size: int):
@@ -114,6 +134,8 @@ class BlockAllocator:
         self.block_size = block_size
         self._free: List[int] = list(range(n_blocks - 1, -1, -1))
         self._ref: Dict[int, int] = {}
+        # trie-resident blocks: block id -> owning-prefix description
+        self._protected: Dict[int, str] = {}
 
     @property
     def blocks_free(self) -> int:
@@ -159,12 +181,34 @@ class BlockAllocator:
         self._ref[bid] = ref - 1
         return new, True
 
+    def protect(self, bid: int, owner: str) -> None:
+        """Mark a live block as trie-resident: `free` refuses to return it
+        to the free list, so eviction must go through the pool."""
+        if bid not in self._ref:
+            raise KeyError(f"protect of unallocated block {bid}")
+        self._protected[bid] = owner
+
+    def unprotect(self, bid: int) -> None:
+        self._protected.pop(bid, None)
+
+    def protected_owner(self, bid: int) -> Optional[str]:
+        return self._protected.get(bid)
+
     def free(self, bid: int) -> bool:
         """Drop one reference; returns True when the block physically went
-        back to the free list. Freeing an unallocated block raises."""
+        back to the free list. Freeing an unallocated block raises, and so
+        does freeing the *last* reference of a trie-resident block (naming
+        the block and its owning prefix): cached KV returning to the free
+        list behind the pool's back would corrupt the prefix index."""
         ref = self._ref.get(bid)
         if ref is None:
             raise RuntimeError(f"double free / free of unallocated block {bid}")
+        owner = self._protected.get(bid)
+        if owner is not None and ref == 1:
+            raise RuntimeError(
+                f"free of trie-resident block {bid} (owning prefix: "
+                f"{owner}) would return an indexed block to the free list; "
+                "evict it through PrefixPool.evict instead")
         if ref > 1:
             self._ref[bid] = ref - 1
             return False
@@ -178,17 +222,24 @@ class PagedBatchLayout:
     """Physical pool layout of one in-flight batch, built once at
     ``start_batch`` and fixed for the batch's life."""
     block_size: int
-    n_pool_blocks: int                 # physical pool size (local ids)
+    n_pool_blocks: int                 # physical pool size
     kv_len: int                        # logical slots per sequence
-    prefill_table: np.ndarray          # (R, ceil(plen/bs)) local block ids
-    decode_table: np.ndarray           # (B, ceil(kv_len/bs)) local block ids
+    prefill_table: np.ndarray          # (R, ceil(plen/bs)) block ids
+    decode_table: np.ndarray           # (B, ceil(kv_len/bs)) block ids
     copy_src: np.ndarray               # CoW pairs: partial prefix block ->
     copy_dst: np.ndarray               #   each repeat's private copy
     seq_gids: List[List[int]]          # allocator ids referenced per sequence
+    # resident-pool path (`hit_chains` given): tables carry GLOBAL allocator
+    # ids into the backend's resident cache, and each prompt's leading
+    # ``hit_counts[i]`` prefill blocks are already filled
+    pooled: bool = False
+    hit_counts: List[int] = field(default_factory=list)
 
 
 def build_paged_layout(allocator: BlockAllocator, plen: int, max_new: int,
-                       repeats: Sequence[int]) -> PagedBatchLayout:
+                       repeats: Sequence[int],
+                       hit_chains: Optional[Sequence[List[int]]] = None
+                       ) -> PagedBatchLayout:
     """Allocate one batch's blocks and build its tables.
 
     Per request: the ``plen // bs`` full prefix blocks are allocated once and
@@ -197,17 +248,29 @@ def build_paged_layout(allocator: BlockAllocator, plen: int, max_new: int,
     private. Blocks cover written positions only: the last is
     ``plen + max_new - 2`` (the final sampled token is never cached). The
     caller must have checked ``request_blocks`` against ``blocks_free``.
-    Tables hold local ids ``0 .. n_pool_blocks - 1`` into the batch's pool.
+
+    Without ``hit_chains`` the tables hold local ids ``0 .. n_pool_blocks -
+    1`` into the batch's own pool. With them (the resident prefix pool),
+    ``hit_chains[i]`` is prompt *i*'s cached full-prefix chain, already
+    filled and already holding one reference per repeat
+    (``PrefixPool.acquire``): those blocks head the prompt's tables, only
+    the tail is allocated, and every table holds global allocator ids into
+    the resident cache.
     """
     bs = allocator.block_size
     n_logical = max(-(-(plen + max_new - 1) // bs), 1)
     full_prefix = plen // bs
     has_partial = plen % bs != 0
+    pooled = hit_chains is not None
+    if not pooled:
+        hit_chains = [[] for _ in repeats]
 
     pool_gids: List[int] = []
     local_of: Dict[int, int] = {}
 
     def loc(gid: int) -> int:
+        if pooled:                     # resident pool: global ids ARE the map
+            return gid
         if gid not in local_of:
             local_of[gid] = len(pool_gids)
             pool_gids.append(gid)
@@ -219,11 +282,15 @@ def build_paged_layout(allocator: BlockAllocator, plen: int, max_new: int,
     copy_src: List[int] = []
     copy_dst: List[int] = []
 
-    for k in repeats:
-        shared = [allocator.alloc() for _ in range(full_prefix)]
+    for k, hits in zip(repeats, hit_chains):
+        if len(hits) > full_prefix:
+            raise ValueError(f"hit chain of {len(hits)} blocks exceeds the "
+                             f"{full_prefix} full prefix blocks of plen={plen}")
+        shared = list(hits) + [allocator.alloc()
+                               for _ in range(full_prefix - len(hits))]
         part = allocator.alloc() if has_partial else None
         for _ in range(k - 1):
-            for g in shared:
+            for g in shared[len(hits):]:   # hit refs already taken by acquire
                 allocator.fork(g)
             if part is not None:
                 allocator.fork(part)
@@ -248,13 +315,32 @@ def build_paged_layout(allocator: BlockAllocator, plen: int, max_new: int,
 
     return PagedBatchLayout(
         block_size=bs,
-        n_pool_blocks=len(pool_gids),
+        n_pool_blocks=allocator.n_blocks if pooled else len(pool_gids),
         kv_len=plen + max_new,
         prefill_table=np.asarray(prefill_rows, np.int32),
         decode_table=np.asarray(decode_rows, np.int32),
         copy_src=np.asarray(copy_src, np.int32),
         copy_dst=np.asarray(copy_dst, np.int32),
-        seq_gids=seq_gids)
+        seq_gids=seq_gids,
+        pooled=pooled,
+        hit_counts=[len(h) for h in hit_chains])
+
+
+@dataclass
+class PendingPrefill:
+    """Prefill work of a batch that has its blocks but not yet its KV:
+    ``jobs`` are (prompt idxs, start, end) token slices. A chunked prefill
+    drains one per ``decode_step`` call; the finish pass (CoW fan-out, trie
+    indexing, first-token sampling) runs when the last one lands. The
+    handle's ``step`` stays 0 and its ``tok`` None throughout, and a
+    preemption mid-prefill releases instead of parking (no block is
+    guaranteed filled yet)."""
+    jobs: Deque[Tuple[List[int], int, int]]
+    base: np.ndarray                   # (R, L) stacked unique prompts
+    extras: Dict[str, torch.Tensor]    # per-prompt rows (untiled)
+    last_rows: List[Optional[torch.Tensor]]  # final-position logits
+    rep: Union[int, np.ndarray]
+    full_prefix: int                   # blocks to trie-index at finish
 
 
 @dataclass
@@ -267,17 +353,22 @@ class InFlightBatch:
     temperature: float
     noise: NoiseSource                 # Gumbel stream of this batch
     extras: Dict[str, torch.Tensor]    # already tiled to sequence count
-    cache: Dict
-    tok: torch.Tensor                  # last sampled token (B,)
-    step: int                          # tokens sampled so far (>= 1)
+    cache: Optional[Dict]              # None on the resident pool
+    tok: Optional[torch.Tensor]        # last sampled token (B,); None while
+    #                                    a chunked prefill drains
+    step: int                          # tokens sampled so far
     out_toks: List[np.ndarray] = field(default_factory=list)
     out_lps: List[np.ndarray] = field(default_factory=list)
     # paged state (None in dense mode)
     paged: Optional[PagedBatchLayout] = None
     block_table: Optional[torch.Tensor] = None  # decode table on device
     prefill_bytes_saved: float = 0.0   # KV bytes prefix sharing did not move
+    # prefix-pool accounting (pooled batches only)
+    pool_hit_blocks: int = 0           # trie-cached blocks this batch reused
+    pool_evictions: int = 0            # idle blocks evicted to fit the tail
     freed_seqs: Set[int] = field(default_factory=set)   # early-released rows
     graph: Optional[DecodeGraph] = None  # the decode step, on the card
+    pending_prefill: Optional[PendingPrefill] = None
 
     @property
     def n_sequences(self) -> int:
@@ -286,6 +377,11 @@ class InFlightBatch:
     @property
     def done(self) -> bool:
         return self.step >= self.max_new
+
+    @property
+    def pooled(self) -> bool:
+        """Whether the batch lives in the backend's resident cache."""
+        return self.paged is not None and self.paged.pooled
 
 
 def _host(tok: torch.Tensor,
@@ -324,10 +420,12 @@ class ExecutionBackend:
     (prompt x samples rows); ``None`` means unbounded. Paged mode
     (``kv_blocks`` set): a `BlockAllocator` of ``kv_blocks`` blocks of
     ``kv_block_size`` token slots is the budget, and admission prices a
-    request at shared-prefix cost (`request_blocks`).
+    request at shared-prefix cost (`request_blocks`). ``kv_pool`` adds the
+    resident prefix pool (``pool_evict``: ``"lru"`` reclaims idle chains,
+    ``"off"`` never does), and ``prefill_chunk`` chunked prefill.
 
     ``cuda_graphs`` (on by default) decodes each batch on the card through
-    one CUDA graph of its decode step; ``False`` decodes eagerly, so that a
+    a CUDA graph of its decode step; ``False`` decodes eagerly, so that a
     run can hold the graphs against the eager step. CPU tensors always
     decode eagerly. ``graph_stats`` counts captures and replays."""
 
@@ -341,11 +439,6 @@ class ExecutionBackend:
                  cuda_graphs: bool = True):
         if spec_policy is not None or spec_n:
             raise _not_yet("speculative decode (spec_policy/spec_n)", "spec")
-        if kv_pool or pool_evict != "lru":
-            raise _not_yet("the resident prefix pool (kv_pool/pool_evict)",
-                           "prefix-pool")
-        if prefill_chunk is not None:
-            raise _not_yet("chunked prefill (prefill_chunk)", "prefix-pool")
         if kv_format not in ("bf16", "int8"):
             raise ValueError(f"unknown kv_format {kv_format!r} "
                              "(supported: bf16, int8)")
@@ -365,6 +458,11 @@ class ExecutionBackend:
         self.quant_format = params_quant_format(params)
         self.weight_bytes = param_bytes(params)
         self.allocator: Optional[BlockAllocator] = None
+        self.prefix_pool: Optional[PrefixPool] = None
+        self._pool_cache: Optional[Dict] = None   # resident physical cache
+        # decode graphs of the resident pool, one per shape (`_graph_key`),
+        # kept as long as the cache they address
+        self._pool_graphs: Dict[tuple, DecodeGraph] = {}
         if kv_blocks is not None:
             if not cache_mod.paged_supported(model.cfg):
                 raise ValueError(
@@ -372,6 +470,20 @@ class ExecutionBackend:
                     f"{model.cfg.name!r} (see repro_torch.models.cache."
                     "paged_supported); use the dense max_slots budget")
             self.allocator = BlockAllocator(kv_blocks, kv_block_size)
+            if kv_pool:
+                self.prefix_pool = PrefixPool(self.allocator,
+                                              evict=pool_evict)
+        elif kv_pool:
+            raise ValueError("kv_pool requires the paged cache (set "
+                             "kv_blocks)")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk must be >= 1 "
+                                 f"(got {prefill_chunk})")
+            if self.allocator is None:
+                raise ValueError("prefill_chunk requires the paged cache "
+                                 "(set kv_blocks)")
+        self.prefill_chunk = prefill_chunk
         # live handles: release() must be called exactly once per batch
         self._live: Dict[int, InFlightBatch] = {}
         self.last_placement = None
@@ -401,6 +513,25 @@ class ExecutionBackend:
                 "slots": reg.gauge(
                     "serving_slots_in_use",
                     "Dense KV sequence slots currently resident"),
+                "pool_hits": reg.counter(
+                    "serving_prefix_pool_hits_total",
+                    "Full prefix blocks resolved from the resident "
+                    "prefix-pool trie (prefill skipped)"),
+                "pool_misses": reg.counter(
+                    "serving_prefix_pool_misses_total",
+                    "Full prefix blocks prefilled fresh and inserted "
+                    "into the trie"),
+                "pool_evictions": reg.counter(
+                    "serving_prefix_pool_evictions_total",
+                    "Idle (zero-ref) trie blocks evicted LRU to fit "
+                    "new tails"),
+                "pool_resident": reg.gauge(
+                    "serving_prefix_pool_blocks_resident",
+                    "KV blocks currently indexed by the prefix-pool trie"),
+                "pool_ratio": reg.histogram(
+                    "serving_prefix_pool_hit_ratio",
+                    "Per-batch fraction of full prefix blocks served "
+                    "from the trie", buckets=RATIO_BUCKETS),
             }
 
     def _note_occupancy(self) -> None:
@@ -410,6 +541,9 @@ class ExecutionBackend:
             used = self.allocator.blocks_in_use
             self._m["kv_blocks"].set(used)
             self._m["kv_high"].set_max(used)
+            if self.prefix_pool is not None:
+                self._m["pool_resident"].set(
+                    self.prefix_pool.blocks_resident)
         else:
             self._m["slots"].set(self.slots_in_use)
 
@@ -428,6 +562,32 @@ class ExecutionBackend:
             # CoW fan-out of the shared partial prefix block, in place
             cache = cache_mod.copy_cache_blocks(cache, copy_src, copy_dst)
         return logits[:, -1], cache
+
+    def _tail_prefill(self, tokens: torch.Tensor, start_pos: int, cache,
+                      extras, block_table: torch.Tensor,
+                      kv_len: int) -> torch.Tensor:
+        """Prefill the prompt positions ``start_pos ..`` against the blocks
+        already filled; returns the last position's logits.
+
+        ``decode=True`` forces the cache-attending branch at S > 1: the
+        queries write their KV through ``block_table`` in place before
+        attending, then each attends to every cached position ``<=`` its
+        own (the hit chain's prefix and the slice itself), gathered and
+        sliced to ``kv_len``. The pooled and the chunked prefill run here;
+        so does a zero-hit prompt, from position 0. Summed over other
+        shapes than a one-shot prefill, its logits agree with it to f32
+        rounding, not bit for bit."""
+        B, S = tokens.shape
+        pos = (start_pos + torch.arange(S, dtype=torch.int32,
+                                        device=tokens.device))[None]
+        pos = pos.expand(B, S)
+        if self.model.cfg.mrope_sections:
+            pos = pos[..., None].expand(B, S, 3)
+        b = {"tokens": tokens, "positions": pos, "block_table": block_table,
+             **extras}
+        logits, _, _ = self.model.forward(self.params, b, cache,
+                                          kv_len=kv_len, decode=True)
+        return logits[:, -1]
 
     # ---------------------------------------------------------------- plumbing
     @property
@@ -450,11 +610,29 @@ class ExecutionBackend:
         return self.allocator.blocks_in_use if self.allocator else None
 
     @property
+    def pool_blocks_resident(self) -> Optional[int]:
+        """Physical pool blocks resident right now. Per-batch pools live
+        until their batch retires, so this can exceed ``blocks_in_use``
+        after early releases; the resident prefix pool is ONE cache of
+        ``kv_blocks`` blocks shared by every batch."""
+        if self.allocator is None:
+            return None
+        if self.prefix_pool is not None:
+            return self.allocator.n_blocks if self._pool_cache is not None \
+                else 0
+        return sum(h.paged.n_pool_blocks for h in self._live.values()
+                   if h.paged is not None)
+
+    @property
     def capacity_free(self) -> Optional[int]:
         """Admission budget remaining, in this backend's currency: KV blocks
-        (paged) or sequence slots (dense); None = unbounded."""
+        (paged) or sequence slots (dense); None = unbounded. Idle prefix-pool
+        blocks count as free: a pooled start evicts them on demand."""
         if self.allocator is not None:
-            return self.allocator.blocks_free
+            free = self.allocator.blocks_free
+            if self.prefix_pool is not None:
+                free += self.prefix_pool.evictable_blocks
+            return free
         return self.slots_free
 
     @property
@@ -463,20 +641,54 @@ class ExecutionBackend:
             return self.allocator.n_blocks
         return self.max_slots
 
-    def request_blocks(self, plen: int, max_new: int, n_samples: int) -> int:
+    def request_blocks(self, plen: int, max_new: int, n_samples: int,
+                       prompt: Optional[np.ndarray] = None) -> int:
         """Block cost of a request at shared-prefix price: the full prefix
         blocks once, plus per-sample privates (the CoW copy of a partial
-        prefix block and the decode blocks). Mirrors `build_paged_layout`."""
+        prefix block and the decode blocks). Mirrors `build_paged_layout`.
+
+        With the resident prefix pool and the prompt given, the cost is
+        *marginal* against `capacity_free` (free + evictable blocks): a hit
+        already pinned by a live batch (refcount >= 2) is free, while an
+        idle hit still charges one unit, because admitting the request pins
+        it and removes it from the evictable headroom. Under
+        ``pool_evict="off"`` every hit is free. The lookup leaves the LRU
+        order as it is."""
         bs = self.allocator.block_size
         n_logical = max(-(-(plen + max_new - 1) // bs), 1)
         full_prefix = plen // bs
-        return full_prefix + n_samples * (n_logical - full_prefix)
+        shared = full_prefix
+        if prompt is not None and self.prefix_pool is not None:
+            chain = self.prefix_pool.lookup(prompt, self._max_hit(plen),
+                                            touch=False)
+            if self.prefix_pool.evict_policy == "off":
+                free_hits = len(chain)
+            else:
+                free_hits = sum(1 for g in chain
+                                if self.allocator.refcount(g) >= 2)
+            shared = full_prefix - free_hits
+        return shared + n_samples * (n_logical - full_prefix)
 
-    def request_cost(self, plen: int, max_new: int, n_samples: int) -> int:
+    def request_cost(self, plen: int, max_new: int, n_samples: int,
+                     prompt: Optional[np.ndarray] = None) -> int:
         """Admission cost in ``capacity_free`` units (blocks or slots)."""
         if self.allocator is not None:
-            return self.request_blocks(plen, max_new, n_samples)
+            return self.request_blocks(plen, max_new, n_samples,
+                                       prompt=prompt)
         return n_samples
+
+    def marginal_request_cost(self, prompt: np.ndarray, max_new: int,
+                              n_samples: int) -> int:
+        """Post-dedup admission price of one request: `request_cost` with
+        the prompt, so that hits pinned by live batches are free."""
+        return self.request_cost(len(prompt), max_new, n_samples,
+                                 prompt=np.asarray(prompt))
+
+    def _max_hit(self, plen: int) -> int:
+        """Cap on trie-reusable full prefix blocks: at least one prompt
+        token stays in the tail, whose forward gives the logits of the
+        first sample."""
+        return (plen - 1) // self.allocator.block_size
 
     @property
     def kv_token_bytes(self) -> int:
@@ -491,7 +703,7 @@ class ExecutionBackend:
         self.last_placement = placement
         self.placements.append(placement)
 
-    def _tokens(self, a: np.ndarray) -> torch.Tensor:
+    def _tokens(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
 
     def _tile(self, t: torch.Tensor, rep: Union[int, np.ndarray]):
@@ -499,6 +711,9 @@ class ExecutionBackend:
             return torch.repeat_interleave(t, rep, dim=0)
         return torch.repeat_interleave(
             t, torch.as_tensor(rep, device=t.device), dim=0)
+
+    def _cache(self, h: InFlightBatch) -> Dict:
+        return self._pool_cache if h.pooled else h.cache
 
     # ---------------------------------------------------------------- step API
     @torch.no_grad()
@@ -511,7 +726,8 @@ class ExecutionBackend:
         ``n_samples`` may be one count or one per prompt. ``extras`` values
         are per-prompt rows, tiled to the sequence count here, once. Paged
         mode prefills one row per *prompt* and fans the result out to the
-        repeats through shared prefix blocks.
+        repeats through shared prefix blocks. With ``prefill_chunk`` the
+        prefill is only planned here: ``decode_step`` runs it.
         """
         extras = extras or {}
         repeats = ([int(n_samples)] * len(prompts)
@@ -535,7 +751,13 @@ class ExecutionBackend:
 
         tracer = self.obs.tracer
         t0 = time.perf_counter() if tracer.enabled else 0.0
-        if self.allocator is not None:
+        if self.prefix_pool is not None:
+            h = self._start_batch_pooled(prompts, repeats, rep, base, B, plen,
+                                         max_new, temperature, noise, extras)
+            # only the post-dedup tails were prefilled
+            prefilled = (len(prompts) * plen
+                         - h.pool_hit_blocks * self.allocator.block_size)
+        elif self.allocator is not None:
             h = self._start_batch_paged(prompts, repeats, rep, base, B, plen,
                                         max_new, temperature, noise, extras)
             prefilled = len(prompts) * plen     # one row per unique prompt
@@ -543,13 +765,25 @@ class ExecutionBackend:
             h = self._start_batch_dense(prompts, repeats, rep, base, B, plen,
                                         max_new, temperature, noise, extras)
             prefilled = B * plen
+        if h.pending_prefill is not None:
+            prefilled = 0            # each slice meters its own tokens
         self._live[id(h)] = h
         if tracer.enabled:
             tracer.emit("prefill", t0, time.perf_counter(), clock="wall",
                         prefill_tokens=prefilled, n_sequences=B, plen=plen)
         if self._m is not None:
             self._m["tokens_in"].inc(prefilled)
-            self._m["tokens_out"].inc(B)    # first token per sequence
+            if h.pending_prefill is None:       # else metered at finish
+                self._m["tokens_out"].inc(B)    # first token per sequence
+            if self.prefix_pool is not None:
+                lookupable = len(prompts) * (plen // self.allocator.block_size)
+                self._m["pool_hits"].inc(h.pool_hit_blocks)
+                self._m["pool_misses"].inc(lookupable - h.pool_hit_blocks)
+                if h.pool_evictions:
+                    self._m["pool_evictions"].inc(h.pool_evictions)
+                if lookupable:
+                    self._m["pool_ratio"].observe(
+                        h.pool_hit_blocks / lookupable)
             self._note_occupancy()
         return h
 
@@ -560,6 +794,7 @@ class ExecutionBackend:
         lf = self._tile(last_logits.float(), rep)
         tok, lp = sample_tokens(lf, h.temperature, h.noise)
         h.tok = tok
+        h.step = 1
         toks, lps = _host(tok, lp)
         h.out_toks = [toks]
         h.out_lps = [lps]
@@ -582,9 +817,23 @@ class ExecutionBackend:
         h = InFlightBatch(
             prompts=list(prompts), repeats=repeats, plen=plen,
             max_new=max_new, temperature=temperature, noise=noise,
-            extras=tiled_extras, cache=cache, tok=None, step=1)
+            extras=tiled_extras, cache=cache, tok=None, step=0)
         # the first token comes from the prefill logits of each (tiled) row
         return self._first_token(h, last_logits, 1)
+
+    def _slices(self, starts: Dict[int, List[int]],
+                plen: int) -> Deque[Tuple[List[int], int, int]]:
+        """Prefill jobs: for each start position (the prompts whose tail
+        begins there), slices of at most ``prefill_chunk`` tokens up to
+        ``plen``, or one slice without chunking."""
+        step = self.prefill_chunk or plen
+        jobs: Deque[Tuple[List[int], int, int]] = deque()
+        for s, idxs in sorted(starts.items()):
+            while s < plen:
+                e = min(s + step, plen)
+                jobs.append((idxs, s, e))
+                s = e
+        return jobs
 
     def _start_batch_paged(self, prompts, repeats, rep, base, B, plen,
                            max_new, temperature, noise,
@@ -604,8 +853,23 @@ class ExecutionBackend:
             # prefill rows are the unique prompts (extras per prompt as is);
             # decode rows are the tiled sequences: both tiled exactly once
             decode_extras = {k: self._tile(v, rep) for k, v in extras.items()}
+            h = InFlightBatch(
+                prompts=list(prompts), repeats=repeats, plen=plen,
+                max_new=max_new, temperature=temperature, noise=noise,
+                extras=decode_extras, cache=cache, tok=None, step=0,
+                paged=layout, block_table=self._tokens(layout.decode_table),
+                prefill_bytes_saved=float((B - R) * plen
+                                          * self.kv_token_bytes))
+            if self.prefill_chunk is not None:
+                # chunked: the fresh cache masks every position, so slices
+                # can fill it one at a time; `decode_step` drains them
+                h.pending_prefill = PendingPrefill(
+                    jobs=self._slices({0: list(range(R))}, plen), base=base,
+                    extras=extras, last_rows=[None] * R, rep=rep,
+                    full_prefix=0)
+                return h
             has_cow = layout.copy_src.size > 0
-            last_logits, cache = self._prefill(
+            last_logits, _ = self._prefill(
                 self.params, self._tokens(base), cache, extras,
                 self._tokens(layout.prefill_table),
                 self._tokens(layout.copy_src) if has_cow else None,
@@ -613,41 +877,233 @@ class ExecutionBackend:
         except BaseException:
             # no handle exists yet to release(): return every reference the
             # layout took, or a failed prefill permanently shrinks the budget
-            for gids in layout.seq_gids:
-                for g in gids:
-                    self.allocator.free(g)
+            self._free_layout(layout)
             raise
-        h = InFlightBatch(
-            prompts=list(prompts), repeats=repeats, plen=plen,
-            max_new=max_new, temperature=temperature, noise=noise,
-            extras=decode_extras, cache=cache, tok=None, step=1,
-            paged=layout, block_table=self._tokens(layout.decode_table),
-            prefill_bytes_saved=float((B - R) * plen * self.kv_token_bytes))
         return self._first_token(h, last_logits, rep)
+
+    def _free_layout(self, layout: PagedBatchLayout) -> None:
+        for gids in layout.seq_gids:
+            for g in gids:
+                self.allocator.free(g)
+
+    def _ensure_pool_cache(self) -> Dict:
+        """The single resident physical cache, sized to the whole
+        ``kv_blocks`` budget and made at the first pooled batch. Block
+        tables index it with global allocator ids; it outlives every batch,
+        and nothing rebinds its tensors (the decode graphs address them)."""
+        if self._pool_cache is None:
+            self._pool_cache = self.model.init_paged_cache(
+                self.allocator.n_blocks, self.allocator.block_size,
+                kv_dtype=torch.int8 if self.kv_format == "int8" else None)
+        return self._pool_cache
+
+    def _start_batch_pooled(self, prompts, repeats, rep, base, B, plen,
+                            max_new, temperature, noise,
+                            extras) -> InFlightBatch:
+        """Paged start on the resident prefix pool: resolve each prompt's
+        longest cached block chain (pinning it with per-sequence refs),
+        evict idle LRU blocks to fit the post-dedup tails, reset the
+        positions of the blocks allocated fresh, then prefill *only the
+        tails*, one forward per hit depth (or, chunked, plan them), fan the
+        CoW blocks out and index the newly filled chains."""
+        pool = self.prefix_pool
+        alloc = self.allocator
+        bs = alloc.block_size
+        R = len(prompts)
+        full_prefix = plen // bs
+        # 1. acquire hit chains first: refs pin them, so the eviction pass
+        #    below can never reclaim a block this batch just resolved
+        hit_chains = [pool.acquire(p, self._max_hit(plen), holders=k)
+                      for p, k in zip(prompts, repeats)]
+        n_logical = max(-(-(plen + max_new - 1) // bs), 1)
+        need = sum(full_prefix - len(ch) + k * (n_logical - full_prefix)
+                   for ch, k in zip(hit_chains, repeats))
+        # 2. make room for the tails (LRU over idle trie leaves only)
+        evicted = pool.ensure_free(need)
+        if need > alloc.blocks_free:
+            for ch, k in zip(hit_chains, repeats):
+                for g in ch:
+                    for _ in range(k):
+                        alloc.free(g)
+            raise RuntimeError(
+                f"KV block budget exceeded: need {need} tail blocks > "
+                f"{alloc.blocks_free} free after {evicted} eviction(s) "
+                "(scheduler must check capacity_free)")
+        # 3. static block schedule over GLOBAL ids (cannot fail past the
+        #    check above)
+        layout = build_paged_layout(alloc, plen, max_new, repeats,
+                                    hit_chains=hit_chains)
+        try:
+            cache = self._ensure_pool_cache()
+            # a block back from the free list still holds its previous
+            # occupant's positions; a stale slot of a partly filled tail
+            # block would become visible once decode moves past it
+            hit_gids = {g for ch in hit_chains for g in ch}
+            fresh = sorted({g for gids in layout.seq_gids
+                            for g in gids} - hit_gids)
+            if fresh:
+                cache_mod.reset_cache_block_positions(cache,
+                                                      self._tokens(fresh))
+            # 4. tail-only prefill, one job per hit depth (chunked: slices)
+            starts: Dict[int, List[int]] = {}
+            for i, c in enumerate(layout.hit_counts):
+                starts.setdefault(c * bs, []).append(i)
+            tail_tokens = sum(plen - c * bs for c in layout.hit_counts)
+            h = InFlightBatch(
+                prompts=list(prompts), repeats=repeats, plen=plen,
+                max_new=max_new, temperature=temperature, noise=noise,
+                extras={k: self._tile(v, rep) for k, v in extras.items()},
+                cache=None, tok=None, step=0, paged=layout,
+                block_table=self._tokens(layout.decode_table),
+                prefill_bytes_saved=float((B * plen - tail_tokens)
+                                          * self.kv_token_bytes),
+                pool_hit_blocks=sum(layout.hit_counts),
+                pool_evictions=evicted,
+                pending_prefill=PendingPrefill(
+                    jobs=self._slices(starts, plen), base=base,
+                    extras=extras, last_rows=[None] * R, rep=rep,
+                    full_prefix=full_prefix))
+            if self.prefill_chunk is None:
+                while h.pending_prefill.jobs:
+                    self._prefill_job(h)
+                self._finish_prefill(h)
+        except BaseException:
+            # every reference the batch took (hits included: their holder
+            # refs unwind to the trie ref) must return
+            self._free_layout(layout)
+            raise
+        return h
+
+    def _prefill_job(self, h: InFlightBatch) -> Tuple[List[int], int, int]:
+        """Run the next prefill slice of ``h`` through `_tail_prefill`;
+        returns it."""
+        pp = h.pending_prefill
+        idxs, s, e = pp.jobs.popleft()
+        sel = torch.as_tensor(idxs, device=self.device)
+        gl = self._tail_prefill(
+            self._tokens(pp.base[idxs][:, s:e]), s, self._cache(h),
+            {k: v[sel] for k, v in pp.extras.items()},
+            self._tokens(h.paged.prefill_table[idxs]), h.plen)
+        if e == h.plen:
+            for j, i in enumerate(idxs):
+                pp.last_rows[i] = gl[j]
+        return idxs, s, e
+
+    def _finish_prefill(self, h: InFlightBatch) -> None:
+        """The last slice landed: CoW-fan-out the shared partial block,
+        index the now-filled full-prefix chains (resident pool), and sample
+        the first token with the one-shot path's noise draw."""
+        pp = h.pending_prefill
+        layout = h.paged
+        if layout.copy_src.size > 0:
+            cache_mod.copy_cache_blocks(self._cache(h),
+                                        self._tokens(layout.copy_src),
+                                        self._tokens(layout.copy_dst))
+        if h.pooled:
+            # after the fill: the trie must never point at unfilled blocks;
+            # a same-prefix sibling of this batch keeps the first writer's
+            for i, p in enumerate(h.prompts):
+                self.prefix_pool.insert(
+                    p, [int(g) for g in
+                        layout.prefill_table[i][:pp.full_prefix]])
+        self._first_token(h, torch.stack(pp.last_rows), pp.rep)
+        h.pending_prefill = None
+
+    def _prefill_chunk_step(self, h: InFlightBatch) -> None:
+        """Run ONE pending prefill slice: the unit a ``decode_step`` call
+        spends instead of a token while a chunked prefill drains."""
+        tracer = self.obs.tracer
+        t0 = time.perf_counter() if tracer.enabled else 0.0
+        idxs, s, e = self._prefill_job(h)
+        if tracer.enabled:
+            tracer.emit("prefill", t0, time.perf_counter(), clock="wall",
+                        prefill_tokens=len(idxs) * (e - s),
+                        n_sequences=h.n_sequences, plen=h.plen,
+                        chunk=[s, e])
+        if self._m is not None:
+            self._m["tokens_in"].inc(len(idxs) * (e - s))
+        if not h.pending_prefill.jobs:
+            self._finish_prefill(h)
+            if self._m is not None:
+                self._m["tokens_out"].inc(h.n_sequences)
+
+    def park_batch(self, h: InFlightBatch,
+                   histories: Sequence[np.ndarray]) -> int:
+        """Preemption handoff: index the victim's *filled* full blocks in
+        the resident prefix pool before releasing the batch, so resuming it
+        is a trie hit that prefills only the post-preemption tail.
+
+        ``histories[i]`` is sequence row *i*'s token history (prompt +
+        committed tokens). After ``step`` sampled tokens the KV holds
+        positions through ``plen + step - 2`` (the newest token is sampled,
+        not yet written), so the leading ``(len(history) - 1) //
+        block_size`` blocks of the row's table are full and correct.
+        Returns parked blocks; releases instead when there is no resident
+        pool, or mid-chunked-prefill (no block is guaranteed filled)."""
+        pool = self.prefix_pool
+        if pool is None or h.paged is None or h.pending_prefill is not None:
+            self.release(h)
+            return 0
+        if len(histories) != h.n_sequences:
+            raise ValueError(
+                f"park_batch needs one history per sequence row "
+                f"({h.n_sequences}), got {len(histories)}")
+        bs = self.allocator.block_size
+        parked = 0
+        for i, hist in enumerate(histories):
+            if i in h.freed_seqs:
+                continue
+            hist = np.asarray(hist)
+            filled = (len(hist) - 1) // bs
+            if filled <= 0:
+                continue
+            pool.insert(hist, [int(g) for g in
+                               h.paged.decode_table[i][:filled]])
+            parked += filled
+        self.release(h)
+        return parked
 
     @torch.no_grad()
     def decode_step(self, h: InFlightBatch) -> bool:
-        """Advance one token; returns True while the batch still has decode
-        steps left (so ``while backend.decode_step(h): pass`` drains it)."""
+        """Advance one token (or run one slice of a pending chunked
+        prefill); returns True while the batch still has steps left (so
+        ``while backend.decode_step(h): pass`` drains it)."""
+        if h.pending_prefill is not None:
+            self._prefill_chunk_step(h)
+            return True
         if h.done:
             return False
         tracer = self.obs.tracer
         t0 = time.perf_counter() if tracer.enabled else 0.0
         step_pos = h.plen + h.step - 1
-        if h.graph is None and h.step >= 2 and self._graphs_on(h):
-            # no fallback: a capture that fails raises
-            t_cap = time.perf_counter()
-            h.graph = DecodeGraph.capture(self._static_step(h))
-            self.graph_stats.captures += 1
-            self.graph_stats.capture_s += time.perf_counter() - t_cap
-            self.graph_stats.pool_bytes += h.graph.pool_bytes
+        shared = h.pooled
+        if h.graph is None and self._graphs_on(h):
+            key = self._graph_key(h) if shared else None
+            h.graph = self._pool_graphs.get(key)
+            if h.graph is None and h.step >= 2:
+                # no fallback: a capture that fails raises
+                t_cap = time.perf_counter()
+                h.graph = DecodeGraph.capture(self._static_step(h, shared))
+                self.graph_stats.captures += 1
+                self.graph_stats.capture_s += time.perf_counter() - t_cap
+                self.graph_stats.pool_bytes += h.graph.pool_bytes
+                if shared:
+                    self._pool_graphs[key] = h.graph
         if h.graph is not None:
-            h.tok, lp = h.graph.replay(step_pos, h.noise)
+            # a shared graph serves every batch of its shape: load this
+            # batch's last tokens and decode inputs, and keep its sampled
+            # tokens apart from the graph's output, which the next batch's
+            # replay overwrites
+            batch = (dict(tok=h.tok, inputs=self._decode_inputs(h))
+                     if shared else {})
+            tok, lp = h.graph.replay(step_pos, h.noise, **batch)
+            h.tok = tok.clone() if shared else tok
             self.graph_stats.replays += 1
         else:
             pos = torch.full((h.n_sequences, 1), step_pos, dtype=torch.int32,
                              device=h.tok.device)
-            h.tok, lp = self._decode_fn(h)(h.tok[:, None], pos, h.noise)
+            h.tok, lp = self._decode_fn(h, self._decode_inputs(h))(
+                h.tok[:, None], pos, h.noise)
         toks, lps = _host(h.tok, lp)
         h.out_toks.append(toks)
         h.out_lps.append(lps)
@@ -664,16 +1120,30 @@ class ExecutionBackend:
         the backend was built with ``cuda_graphs=False``."""
         return self.cuda_graphs and h.tok.is_cuda
 
-    def _decode_fn(self, h: InFlightBatch):
+    def _graph_key(self, h: InFlightBatch) -> tuple:
+        """The shape of a pooled batch's decode step: what its graph bakes
+        in besides the resident cache and the weights. Rows, table width,
+        logical cache length, the temperature's value (the step samples
+        with it) and the KV format, and the shapes of any extra inputs."""
+        return (h.n_sequences, tuple(h.block_table.shape), h.paged.kv_len,
+                float(h.temperature), self.kv_format,
+                tuple((k, tuple(v.shape), v.dtype)
+                      for k, v in sorted(h.extras.items())))
+
+    def _decode_inputs(self, h: InFlightBatch) -> Dict[str, torch.Tensor]:
+        """A batch's decode inputs besides tokens and positions."""
+        inputs = dict(h.extras)
+        if h.block_table is not None:
+            inputs["block_table"] = h.block_table
+        return inputs
+
+    def _decode_fn(self, h: InFlightBatch, inputs: Dict[str, torch.Tensor]):
         """The reference's ``_decode_step`` for ``h``: ``(tok (B, 1) token
         ids, pos (B, 1) int32 positions, noise) -> (tokens, logprobs)``, one
-        decode step over the batch's cache, updated in place. Closes over
-        the batch's state, not the handle, so a graph that holds it does
-        not hold the batch."""
-        cache, temp = h.cache, h.temperature
-        b = dict(h.extras)
-        if h.block_table is not None:
-            b["block_table"] = h.block_table
+        decode step over the batch's cache, updated in place, reading the
+        decode ``inputs`` given. Closes over the batch's state, not the
+        handle, so a graph that holds it does not hold the batch."""
+        cache, temp = self._cache(h), h.temperature
         kv_len = h.paged.kv_len if h.paged is not None else None
         mrope = bool(self.model.cfg.mrope_sections)
 
@@ -681,16 +1151,22 @@ class ExecutionBackend:
             if mrope:
                 pos = pos[..., None].expand(tok.shape[0], 1, 3)
             logits, _, _ = self.model.forward(
-                self.params, {"tokens": tok, "positions": pos, **b}, cache,
-                kv_len=kv_len)
+                self.params, {"tokens": tok, "positions": pos, **inputs},
+                cache, kv_len=kv_len)
             return sample_tokens(logits[:, 0].float(), temp, noise)
         return decode
 
-    def _static_step(self, h: InFlightBatch) -> StaticDecodeStep:
-        """The body of ``h``'s decode graph, reading ``h``'s last token."""
-        return StaticDecodeStep(self._decode_fn(h), h.tok,
+    def _static_step(self, h: InFlightBatch,
+                     shared: bool) -> StaticDecodeStep:
+        """The body of ``h``'s decode graph, reading ``h``'s last token. A
+        graph shared by the batches of one shape reads static copies of the
+        decode inputs, which each replay refills from its batch's."""
+        inputs = self._decode_inputs(h)
+        if shared:
+            inputs = {k: v.clone() for k, v in inputs.items()}
+        return StaticDecodeStep(self._decode_fn(h, inputs), h.tok,
                                 self.model.cfg.padded_vocab,
-                                sampled=h.temperature > 0)
+                                sampled=h.temperature > 0, inputs=inputs)
 
     def release(self, h: InFlightBatch) -> None:
         """Return a batch's remaining KV budget (blocks or slots). Raises on
@@ -708,7 +1184,7 @@ class ExecutionBackend:
             self.slots_in_use -= h.n_sequences - len(h.freed_seqs)
         h.freed_seqs = set(range(h.n_sequences))
         h.cache = None                     # the KV memory goes with the batch
-        h.graph = None                     # and the graph that addresses it
+        h.graph = None                     # and a per-batch graph with it
         self._note_occupancy()
 
     def release_sequences(self, h: InFlightBatch,
@@ -717,8 +1193,11 @@ class ExecutionBackend:
         The batch keeps decoding with its shapes, but the released rows'
         blocks/slots are free for new admissions now. Returns blocks (or
         slots) actually returned to the budget; shared prefix blocks only
-        come back with their last holder. This frees budget, not bytes: the
-        batch's pool is resident until retirement."""
+        come back with their last holder. This frees budget, not bytes: a
+        per-batch pool is resident until retirement. As in the reference,
+        the released rows go on writing their KV through their tables; on
+        the resident pool those blocks may already belong to a later
+        batch."""
         if id(h) not in self._live:
             raise RuntimeError("release_sequences on unknown or "
                                "already-released batch handle")

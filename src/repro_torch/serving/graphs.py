@@ -7,16 +7,23 @@ decode step is one XLA program. Here, on the card, each in-flight batch's
 decode step is one ``torch.cuda.CUDAGraph``:
 
 * `StaticDecodeStep` is the body: the backend's decode step over static
-  buffers (the token ids, the step position, the Gumbel noise). It writes
+  buffers (the token ids, the step position, the Gumbel noise, and any
+  decode inputs a shared graph must refill). It writes
   its sampled tokens back into the token buffer, so the ids stay on the
   device from one step to the next. It runs eagerly on any device, which
   is how the CPU tests hold it to the plain decode step.
 * `DecodeGraph.capture` records the body once; `DecodeGraph.replay` fills
   the position and the noise, replays, and returns the static outputs.
 
-The batch owns its graph (`repro_torch.serving.backend.InFlightBatch`):
-captured at the batch's second decode step and dropped with the batch,
-whose cache the graph addresses by pointer. The first decode step runs
+A batch over its own cache owns its graph
+(`repro_torch.serving.backend.InFlightBatch`): captured at the batch's
+second decode step and dropped with the batch, whose cache the graph
+addresses by pointer. On the backend's resident prefix pool, whose cache
+outlives every batch, the backend keeps one graph per decode shape and
+every later batch of that shape replays it from its first decode step: the
+step then reads static copies of its decode inputs (the block table among
+them), which `StaticDecodeStep.load` refills from the batch's, with its
+last tokens. Until a batch's shape has a graph, its first decode step runs
 eagerly and pays each kernel's first-use work (planners,
 ``cudaFuncSetAttribute``, TMA descriptors, workspace growth) outside the
 capture. A decode step is not idempotent (it writes a KV slot and advances
@@ -30,8 +37,9 @@ which every replay overwrites.
 """
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Callable, Dict, List, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -65,21 +73,34 @@ class StaticDecodeStep:
     ``tok`` (B, 1) holds the token ids the step reads; the step writes its
     sampled tokens back into it. ``pos`` (B, 1) int32 holds the step
     position and ``noise`` (B, vocab) f32 the step's Gumbel draws (only
-    when ``sampled``, i.e. temperature > 0); `load` fills both."""
+    when ``sampled``, i.e. temperature > 0); `load` fills both. ``inputs``
+    are the decode inputs ``decode`` reads (the block table (B, W) int32,
+    extras): `load` copies another batch's into them when the step serves
+    more than one batch."""
 
     def __init__(self, decode: DecodeFn, tok: torch.Tensor, vocab: int,
-                 sampled: bool):
+                 sampled: bool,
+                 inputs: Optional[Dict[str, torch.Tensor]] = None):
         self.decode = decode
         self.tok = tok.reshape(-1, 1).clone()
+        self.inputs = inputs if inputs is not None else {}
         B, dev = self.tok.shape[0], self.tok.device
         self.pos = torch.zeros((B, 1), dtype=torch.int32, device=dev)
         self.noise = (torch.zeros((B, vocab), dtype=torch.float32,
                                   device=dev) if sampled else None)
 
-    def load(self, step_pos: int, noise: NoiseSource) -> None:
+    def load(self, step_pos: int, noise: NoiseSource,
+             tok: Optional[torch.Tensor] = None,
+             inputs: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """Fill the inputs of the step at ``step_pos``: the position, and
         the step's draw from the batch's ``noise`` stream, in the shape and
-        order of the eager step's draw."""
+        order of the eager step's draw. With ``tok`` and ``inputs`` (a
+        batch's last tokens (B,) and decode inputs, by name), copy those
+        in too."""
+        if tok is not None:
+            self.tok.copy_(tok.reshape(-1, 1))
+        for name, value in (inputs or {}).items():
+            self.inputs[name].copy_(value)
         self.pos.fill_(step_pos)
         if self.noise is not None:
             self.noise.copy_(noise(tuple(self.noise.shape),
@@ -98,10 +119,11 @@ class StaticDecodeStep:
         self.tok.copy_(tok[:, None])
         return tok, lp
 
-    def run(self, step_pos: int,
-            noise: NoiseSource) -> Tuple[torch.Tensor, torch.Tensor]:
-        """`load`, then the step, eagerly."""
-        self.load(step_pos, noise)
+    def run(self, step_pos: int, noise: NoiseSource,
+            **batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`load` (``batch``: its ``tok`` and ``inputs``), then the step,
+        eagerly."""
+        self.load(step_pos, noise, **batch)
         return self()
 
 
@@ -126,15 +148,21 @@ class DecodeGraph:
         (global) capture mode, on a side stream. Nothing runs on the card;
         a capture that fails raises.
 
-        ``torch.cuda.graph`` would also collect garbage and empty the
-        allocator's cache before every capture, once a batch: not needed
-        here, so the capture calls ``capture_begin`` / ``capture_end``."""
+        Python's automatic garbage collection is off during the capture: a
+        collection there could free another graph held only by a reference
+        cycle (a dropped backend), and destroying a graph is refused while
+        a stream captures, which invalidates this capture.
+        ``torch.cuda.graph`` instead collects garbage and empties the
+        allocator's cache before every capture, which costs time once a
+        batch; so the capture calls ``capture_begin`` / ``capture_end``."""
         dev = step.tok.device
         graph = torch.cuda.CUDAGraph()
         reserved = torch.cuda.memory_reserved(dev)
         before = kernels.launch_counts()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with holding_workspaces() as held, torch.cuda.stream(side):
                 graph.capture_begin()
@@ -143,6 +171,8 @@ class DecodeGraph:
                 finally:
                     graph.capture_end()
         finally:
+            if collecting:
+                gc.enable()
             # the wrappers counted launches that only a replay makes
             after = kernels.launch_counts()
             launches = {k: n - before[k] for k, n in after.items()
@@ -152,12 +182,13 @@ class DecodeGraph:
         return cls(step, graph, outputs, launches, list(held.values()),
                    torch.cuda.memory_reserved(dev) - reserved)
 
-    def replay(self, step_pos: int,
-               noise: NoiseSource) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The step at ``step_pos``: load the inputs, replay, and count the
-        captured launches. Returns the outputs, which the next replay
-        overwrites."""
-        self.step.load(step_pos, noise)
+    def replay(self, step_pos: int, noise: NoiseSource,
+               **batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The step at ``step_pos``: load the inputs (``batch``: the
+        ``tok`` and ``inputs`` of the batch replaying a shared graph),
+        replay, and count the captured launches. Returns the outputs, which
+        the next replay overwrites."""
+        self.step.load(step_pos, noise, **batch)
         self.graph.replay()
         kernels.add_launches(self.launches)
         return self.outputs

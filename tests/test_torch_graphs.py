@@ -4,8 +4,11 @@ backend's own capture-and-replay loop, against the eager decode step (tokens
 equal, logprobs bit-equal) and against the reference backend on the same
 weights (tokens equal, logprobs within 1e-4, as tests/test_torch_serving.py
 holds them); the launch accounting of replays; the workspaces a capture
-holds; and that a capture that fails raises. Reduced configs: chatglm3-6b
-dense, paged and int4 paged, granite-moe paged, mamba2 (f32)."""
+holds; that a capture that fails raises; and, on the resident prefix pool,
+one graph shared by every batch of a shape (a later batch replays it from
+its first decode step, bit-equal to eager decoding) over a cache whose
+tensors never move. Reduced configs: chatglm3-6b dense, paged, int4 paged
+and pooled, granite-moe paged, mamba2 (f32).""" 
 import gc
 import weakref
 
@@ -67,8 +70,8 @@ class EagerGraph:
     def capture(cls, step):
         return cls(step)
 
-    def replay(self, step_pos, noise):
-        return self.step.run(step_pos, noise)
+    def replay(self, step_pos, noise, **batch):
+        return self.step.run(step_pos, noise, **batch)
 
 
 @pytest.fixture
@@ -214,3 +217,103 @@ def test_workspace_growth_keeps_what_a_holder_holds():
         assert bool((kept() == 7).all())
     finally:
         common._workspaces.pop((owner, dev), None)
+
+
+# ================================= one graph a shape on the resident pool
+
+POOLED = dict(kv_blocks=96, kv_block_size=4, kv_pool=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _pooled_serve(tm, tp, kw, batches, interleave=False):
+    """Serve ``batches`` [(prompts, temperature)] on one pooled backend, 3
+    samples a prompt, each batch on its own seeded noise: one after another,
+    or all started at once and decoded in turns. Returns per batch (step
+    tokens, step logprobs), the resident cache's tensor addresses after
+    each start, and the backend."""
+    be = TBackend(tm, tp, **kw)
+    handles, ptrs = [], []
+
+    def start(i):
+        prompts, temp = batches[i]
+        noise = GumbelNoise(torch.Generator().manual_seed(5 + i))
+        handles.append(be.start_batch(prompts, 3, NEW, temp, noise))
+        ptrs.append([t.data_ptr() for t in _leaves(be._pool_cache)])
+
+    out = {}
+
+    def drain(i):
+        h = handles[i]
+        out[i] = (np.stack(h.out_toks), np.stack(h.out_lps))
+        be.finalize(h)
+
+    if interleave:
+        for i in range(len(batches)):
+            start(i)
+        while any(not h.done for h in handles):
+            for h in handles:
+                be.decode_step(h)
+        for i in range(len(batches)):
+            drain(i)
+    else:
+        for i in range(len(batches)):
+            start(i)
+            while be.decode_step(handles[i]):
+                pass
+            drain(i)
+    return [out[i] for i in range(len(batches))], ptrs, be
+
+
+@pytest.mark.parametrize("chunk", [None, 3])
+def test_pooled_batches_of_one_shape_share_one_graph(chunk, monkeypatch):
+    """Two batches of one shape: one capture, at the first batch's second
+    decode step; the second replays from its first. A new temperature and
+    a new row count each capture their own. Every step bit-equal to
+    ``cuda_graphs=False``; the resident cache's tensors never move."""
+    _, _, tm, tp = _pair("chatglm-paged")
+    v = tm.cfg.vocab_size
+    kw = dict(POOLED, prefill_chunk=chunk)
+    p = [_prompts(v, lens=(13, 13), seed=s) for s in range(4)]
+    batches = [(p[0], 0.8), (p[1], 0.8), (p[2], 0.0), (p[3][:1], 0.8)]
+    eager, _, _ = _pooled_serve(tm, tp, dict(kw, cuda_graphs=False), batches)
+    monkeypatch.setattr(TBackend, "_graphs_on", lambda self, h: True)
+    monkeypatch.setattr(backend_mod, "DecodeGraph", EagerGraph)
+    graphed, ptrs, be = _pooled_serve(tm, tp, kw, batches)
+    for (gt, gl), (et, el) in zip(graphed, eager):
+        np.testing.assert_array_equal(gt, et)
+        np.testing.assert_array_equal(gl, el)
+    stats = be.graph_stats
+    assert stats.captures == len(be._pool_graphs) == 3
+    assert stats.replays == 3 * (NEW - 2) + (NEW - 1)
+    assert all(q == ptrs[0] for q in ptrs)
+    assert [t.data_ptr() for t in _leaves(be._pool_cache)] == ptrs[0]
+
+
+def test_interleaved_batches_of_one_shape_share_one_graph(monkeypatch):
+    """Two pooled batches of one shape decoded in turns through the one
+    graph they share: each replay loads its batch's tokens and block
+    table, so both equal their eager decoding bit for bit."""
+    _, _, tm, tp = _pair("chatglm-paged")
+    v = tm.cfg.vocab_size
+    batches = [(_prompts(v, lens=(9, 9), seed=s), 0.8) for s in (7, 8)]
+    eager, _, _ = _pooled_serve(tm, tp, dict(POOLED, cuda_graphs=False),
+                                batches, interleave=True)
+    monkeypatch.setattr(TBackend, "_graphs_on", lambda self, h: True)
+    monkeypatch.setattr(backend_mod, "DecodeGraph", EagerGraph)
+    graphed, _, be = _pooled_serve(tm, tp, POOLED, batches, interleave=True)
+    for (gt, gl), (et, el) in zip(graphed, eager):
+        np.testing.assert_array_equal(gt, et)
+        np.testing.assert_array_equal(gl, el)
+    # the second batch's step 2 came after the first's capture
+    assert (be.graph_stats.captures, be.graph_stats.replays) == \
+        (1, 2 * (NEW - 2))

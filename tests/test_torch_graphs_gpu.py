@@ -1,11 +1,13 @@
 """The decode step as a CUDA graph on the card (`repro_torch.serving.graphs`):
 a graphed serve against the eager one on reduced configs of every arch and
-format the serves of ``chip_smoke.py`` run (bf16 weights, kernels on). Marked
+format the serves of ``chip_smoke.py`` run (bf16 weights, kernels on), and
+two rounds on the resident prefix pool, where one graph serves both. Marked
 ``gpu``: they skip without a CUDA device. Run on a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_graphs_gpu.py
 """
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.quant.quantize import (  # noqa: E402
     quantize_int4, quantize_model)
 from repro_torch.serving import ExecutionBackend, GumbelNoise  # noqa: E402
+from repro_torch.serving.graphs import StaticDecodeStep  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -198,3 +201,66 @@ def test_profile_attributes_replayed_kernels_by_name(cuda):
                        ("moe_gemm", ("moe_gemm",)),
                        ("flash_attention", ("flash_attention",))):
         assert port[src]["count"] == sum(counts[n] for n in names), src
+
+
+@pytest.mark.parametrize("chunk", [None, 16])
+def test_pooled_graphed_rounds_equal_the_eager_rounds(cuda, chunk):
+    """Two rounds of 3 prompts x 4 samples on one resident prefix pool (a
+    shared 32-token head and 8 tokens of each prompt's own; the second
+    round hits the head's 2 blocks a prompt), one-shot or in slices of 16
+    tokens: one graph, captured in the first round and replayed from the
+    second round's first decode step, gives the eager rounds' tokens,
+    logprobs, cache and launch counts bit for bit."""
+    model, params, _ = _model("chatglm-paged")
+    rng = np.random.default_rng(4)
+    v = model.cfg.vocab_size
+    head = rng.integers(0, v, 32).astype(np.int32)
+    rounds = [[np.concatenate([head, rng.integers(0, v, 8).astype(np.int32)])
+               for _ in range(3)] for _ in range(2)]
+    out = {}
+    for graphs in (False, True):
+        be = ExecutionBackend(model, params, cuda_graphs=graphs, kv_blocks=64,
+                              kv_block_size=16, kv_pool=True,
+                              prefill_chunk=chunk)
+        kernels.reset_launch_counts()
+        steps = []
+        for r, prompts in enumerate(rounds):
+            noise = GumbelNoise(torch.Generator(device="cuda").manual_seed(r))
+            h = be.start_batch(prompts, 4, NEW, 0.8, noise)
+            while be.decode_step(h):
+                pass
+            steps.append((np.stack(h.out_toks), np.stack(h.out_lps),
+                          h.pool_hit_blocks))
+            be.finalize(h)
+        torch.cuda.synchronize()
+        out[graphs] = (steps, [t.clone() for t in _leaves(be._pool_cache)],
+                       kernels.launch_counts(), be.graph_stats)
+    (es, ec, en, est), (gs, gc, gn, gst) = out[False], out[True]
+    for (et, el, eh), (gt, gl, gh) in zip(es, gs):
+        np.testing.assert_array_equal(gt, et)
+        np.testing.assert_array_equal(gl, el)
+        assert gh == eh
+    assert [s[2] for s in gs] == [0, 6]
+    for a, b in zip(gc, ec):
+        assert torch.equal(a, b)
+    assert gn == en and gn["flash_attention"] == 0
+    assert (est.captures, est.replays) == (0, 0)
+    assert (gst.captures, gst.replays) == (1, 2 * NEW - 3)
+
+
+def test_no_automatic_garbage_collection_inside_a_capture(cuda, monkeypatch):
+    """A collection inside a capture could destroy a graph that only a
+    reference cycle held, which invalidates the capture: the capture turns
+    automatic collection off, and back on after it."""
+    model, params, kw = _model("chatglm-paged")
+    seen = []
+    body = StaticDecodeStep.__call__
+
+    def call(self):
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     gc.isenabled()))
+        return body(self)
+
+    monkeypatch.setattr(StaticDecodeStep, "__call__", call)
+    _serve(model, params, kw, graphs=True)
+    assert seen == [(True, False)] and gc.isenabled()

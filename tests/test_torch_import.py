@@ -24,7 +24,7 @@ MODULES = [
     "repro_torch.models.attention", "repro_torch.models.cache",
     "repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.obs",
     "repro_torch.quant",
-    "repro_torch.serving",
+    "repro_torch.serving", "repro_torch.serving.prefix_pool",
 ]
 FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)"

@@ -189,9 +189,8 @@ def test_metrics_and_spans_count_the_work(pair):
 
 def test_unported_backend_options_say_so(pair):
     _, _, tm, tp = pair
-    for kw in (dict(spec_n=2), dict(kv_pool=True), dict(prefill_chunk=8)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            TBackend(tm, tp, **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        TBackend(tm, tp, spec_n=2)
 
 
 @pytest.mark.parametrize("paged", [False, True])
@@ -236,3 +235,27 @@ def test_profile_serve_takes_the_launcher_flags_on_the_cpu(capsys):
     assert '"device_busy_share": null' in out
     assert '"graph_captures": 0, "graph_capture_ms": 0.0, "graph_replays": 0, ' \
         '"decode_steps": 2' in out
+
+
+@pytest.mark.parametrize("entry", ["serve", "profile_serve"])
+def test_launchers_serve_pooled_and_chunked_on_the_cpu(capsys, entry):
+    import importlib
+    main = importlib.import_module(f"repro_torch.launch.{entry}").main
+    argv = ["--arch", "chatglm3-6b", "--smoke", "--device", "cpu",
+            "--requests", "2", "--samples", "2", "--prompt-len", "7",
+            "--max-new", "3", "--kv-blocks", "32", "--kv-block-size", "4"]
+    main(argv + ["--kv-pool", "--prefill-chunk", "4"])
+    out = capsys.readouterr().out
+    assert "[kv] resident prefix pool: cross-batch block reuse, evict=lru" \
+        in out
+    assert "[kv] chunked prefill: <= 4 tokens per slice" in out
+    assert "[serve] 2 requests x 2 samples, 12 tokens" in out
+    if entry == "profile_serve":
+        # the cold pass fills the pool; the timed pass hits one block a
+        # prompt ((7 - 1) // 4) and prefills each 3-token tail in one slice
+        assert "[cold] [serve] 2 requests x 2 samples, 12 tokens" in out
+        assert '"pool_hit_blocks": 2.0' in out
+        assert '"cold": {"wall_s": ' in out and '"pool_hit_blocks": 0.0' in out
+    for flag in (["--kv-pool"], ["--prefill-chunk", "4"]):
+        with pytest.raises(SystemExit, match="requires --kv-blocks"):
+            main(argv[:-4] + flag)
