@@ -105,7 +105,42 @@ Phases, each of which fails the script on error:
    layers (dense) and chatglm3-6b at 2 layers in int4 and in int8 weights
    (paged): the share of equal tokens, the equal sequences and the largest
    log-probability difference.
-5. Print the script's wall time (the build included), the ``kernels``
+5. The scheduled stream: the reference's ``launch/serve.py --router``
+   path on the card. A PGSAM anneal (v2 energy, 1500 iterations) builds the
+   archive for chatglm3-6b, a `ParetoRouter` over one request of 4 samples
+   x (256 + 32) tokens gets the scheduling bench's interactive, standard
+   and economy tiers (caps off the frontier at batches of 4 and 8), and a
+   ``ContinuousBatchingScheduler`` (batches of at most 4 requests, 2 in
+   flight, tier preemption on) serves ``benchmarks/serving_schedule.py``'s
+   stream shape at the serve's widths: 24 Poisson arrivals at an offered
+   load of 1.6 on the router's simulated clock, tiers drawn 0.3 / 0.4 /
+   0.3, 4 samples of 32 tokens at temperature 0.8, every prompt the pooled
+   serve's shared 192-token system prompt and 64 tokens of its own, and
+   CSVET early stops (from a batch's step 2, each request with probability
+   0.5 releases samples 1..3). Full-width, full-depth chatglm3-6b in bf16
+   serves it on the resident prefix pool (512 blocks of 16, LRU), then on
+   per-batch paged caches. The pooled drain fails unless every request
+   completes (4 samples of 32 in-vocabulary tokens, none cancelled), its
+   batch records, blocks released early, preemptions and graph captures
+   and replays equal the CPU rehearsal's (`STREAM_REHEARSAL`: 10 batches
+   of 1, 4 and 3 requests at points 0 and 12, 468 pool hit blocks, 3 tier
+   preemptions each resumed as a one-request economy batch, 144 blocks
+   released early, 3 captures and 208 replays), every batch after the first
+   hits the pool, the paged decode kernel launched and flash did not, and
+   the allocator ends holding only the pool's resident blocks. The
+   per-batch paged drain fails unless every request completes, flash and
+   the paged decode kernel launched, and no block stays in use. Each
+   prints its wall time, tok/s, batches (point, energy, latency, caps),
+   preemptions, blocks released early, pool hits, prefill bytes saved,
+   graph captures, their ms and replays, and the F8 count (how often a
+   block that an early-released row still writes into was held by a later
+   batch). Then the stream in f32 at full width, 2 layers, greedy, on the
+   pool, without early stops: the kernel path must equal the plain path
+   (batch records, tokens, log-probabilities within 1e-3), the preempting
+   drain the one that never preempts (each request's tokens,
+   log-probabilities within 1e-3), and a drain with ``obs`` on the one
+   with it off (bit-equal).
+6. Print the script's wall time (the build included), the ``kernels``
    JSON line, the card again, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -122,6 +157,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -177,6 +213,31 @@ SSM_SERVES = {"mamba2-370m": ("mamba2-dense", 48),
 # prompt is a shared system prompt of 192 tokens (12 blocks) and 64 tokens
 # of its own; two rounds, the second with new suffixes
 POOL = dict(kv_blocks=512, kv_block_size=16, system_len=192, rounds=2)
+# the scheduled stream (phase 5): benchmarks/serving_schedule.py's stream at
+# the serve's widths: Poisson arrivals at an offered load of 1.6, tiers
+# drawn 0.3 / 0.4 / 0.3, every prompt the pooled serve's shared system
+# prompt and 64 tokens of its own; a scheduler of batches of at most 4
+# requests, 2 in flight, that preempts; CSVET early stops from step 2 with
+# probability 0.5
+STREAM = dict(requests=24, offered_load=1.6, samples=4, max_new=32,
+              temperature=0.8, max_batch=4, inflight=2)
+# what the CPU rehearsal of phase 5's bf16 drains gave (2 layers, f32, the
+# capture stand-in of .claude/skills/verify/SKILL.md): per batch its
+# request ids, tier counts (interactive, standard, economy), point index,
+# pool hit blocks and preemption; the blocks released early; the
+# preemptions; the graph captures and replays, pooled and per-batch paged
+STREAM_REHEARSAL = dict(
+    records=[[[0], [0, 0, 1], 0, 0, "tier"],
+             [[1, 2, 3, 4], [0, 3, 1], 12, 48, None],
+             [[0], [0, 0, 1], 0, 64, "tier"],
+             [[5, 6, 7, 8], [2, 1, 1], 12, 48, None],
+             [[0], [0, 0, 1], 0, 64, "tier"],
+             [[9, 10, 11, 12], [3, 1, 0], 12, 48, None],
+             [[0], [0, 0, 1], 0, 64, None],
+             [[13, 14, 15, 16], [1, 2, 1], 12, 48, None],
+             [[17, 18, 19, 20], [3, 1, 0], 12, 48, None],
+             [[21, 22, 23], [0, 2, 1], 12, 36, None]],
+    released=144, preemptions={"tier": 3}, graphs=[3, 208])
 # the f32 parity of the SSM archs: layers, and a prompt length that crosses
 # a 256-row chunk and pads a tail
 SSM_PARITY = {"mamba2-370m": 2, "jamba-v0.1-52b": 8}
@@ -1482,6 +1543,279 @@ def parity(seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ the scheduled stream
+
+def stream_setup(seed: int):
+    """Phase 5's router and stream. The router is the scheduling bench's
+    (`repro_torch.serving.stream.stream_router`) for full chatglm3-6b over
+    one request of STREAM's shape; the stream is drawn from one
+    ``default_rng(seed)``: the shared system prompt first, then for each
+    request its exponential gap, its tier and its own tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import Workload
+    from repro_torch.serving.stream import poisson_stream, stream_router
+    cfg = get_config(SERVE["arch"])
+    router = stream_router(cfg, Workload(
+        batch=1, prompt_tokens=SERVE["prompt_len"],
+        decode_tokens=STREAM["max_new"], samples=STREAM["samples"]))
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab_size,
+                          POOL["system_len"]).astype(np.int32)
+    own = SERVE["prompt_len"] - POOL["system_len"]
+    arrivals = poisson_stream(
+        router, STREAM["requests"], STREAM["offered_load"], rng,
+        lambda r: np.concatenate([system, r.integers(
+            0, cfg.vocab_size, own).astype(np.int32)]))
+    return router, arrivals
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_stream(model, params, router, arrivals, seed: int, backend_kw: dict,
+               temperature: float, preempt: bool = True,
+               early_stop: bool = True, obs=None) -> dict:
+    """Serve ``arrivals`` once through a `ContinuousBatchingScheduler` over
+    a new backend built with ``backend_kw`` (STREAM's scheduler settings;
+    the batch noise seeded from ``seed``), with CSVET early stops drawn
+    from ``default_rng(seed + 1)`` when ``early_stop``. Returns the
+    scheduler, the backend, the wall seconds, the launch counts of the
+    drain, the blocks released early and the F8 probe's count."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (ContinuousBatchingScheduler,
+                                     ExecutionBackend, SchedulerConfig)
+    from repro_torch.serving.stream import (CsvetStop, ReleasedWriteProbe,
+                                            drive)
+    backend = ExecutionBackend(model, params, obs=obs, **backend_kw)
+    sched = ContinuousBatchingScheduler(
+        backend, router,
+        SchedulerConfig(max_batch_requests=STREAM["max_batch"],
+                        max_inflight_batches=STREAM["inflight"],
+                        max_new_tokens=STREAM["max_new"],
+                        temperature=temperature, preempt=preempt, seed=seed),
+        obs=obs)
+    probe = ReleasedWriteProbe()
+    stop = CsvetStop(np.random.default_rng(seed + 1), probe=probe)
+    sync(backend.device)
+    reset_launch_counts()
+    wall = drive(sched, arrivals, STREAM["samples"],
+                 [probe, stop] if early_stop else [])
+    sync(backend.device)
+    counts = launch_counts()
+    return dict(sched=sched, backend=backend, wall_s=wall, launches=counts,
+                released=stop.released, f8=probe.hits)
+
+
+def stream_records(sched) -> list:
+    """The scheduling decisions of a drain that phase 5 gates on: per batch
+    its request ids, tier mix, point index, pool hit blocks and
+    preemption, as plain lists."""
+    return [[[e["id"] for e in r.request_entries],
+             [r.tier_mix.get(t, 0) for t in ("interactive", "standard",
+                                              "economy")],
+             r.point_index, r.pool_hit_blocks, r.preempted]
+            for r in sched.records]
+
+
+def check_stream(run: str, out: dict, cfg, pooled: bool) -> dict:
+    """Phase 5's gates on one sampled drain; returns its printed numbers."""
+    sched, backend = out["sched"], out["backend"]
+    st = sched.stats()
+    if st["cancelled"] or st["completed"] != STREAM["requests"]:
+        raise AssertionError(f"{run}: {st['completed']} requests completed "
+                             f"and {st['cancelled']} cancelled, want "
+                             f"{STREAM['requests']} and 0")
+    for c in sched.completed.values():
+        samples = c.result.samples
+        if len(samples) != STREAM["samples"] or any(
+                s.shape != (STREAM["max_new"],) or s.min() < 0
+                or s.max() >= cfg.vocab_size for s in samples):
+            raise AssertionError(f"{run}: request {c.request.id} gave "
+                                 f"{[s.shape for s in samples]}")
+    c = out["launches"]
+    want = (("paged_decode_attention",) if pooled
+            else ("paged_decode_attention", "flash_attention"))
+    for name in want:
+        if c[name] < 1:
+            raise AssertionError(f"{run}: never launched {name}")
+    if pooled and c["flash_attention"]:
+        raise AssertionError(f"{run}: flash launched {c['flash_attention']} "
+                             "times (a pooled prefill takes the tail path)")
+    resident = (backend.prefix_pool.blocks_resident if pooled else 0)
+    if backend.blocks_in_use != resident:
+        raise AssertionError(f"{run}: {backend.blocks_in_use} blocks in use "
+                             f"at the end, want the pool's {resident}")
+    gs = backend.graph_stats
+    n_tok = sum(c.result.decode_tokens for c in sched.completed.values())
+    return dict(run=run, seconds=out["wall_s"],
+                tokens_per_s=n_tok / out["wall_s"], batches=st["batches"],
+                preemptions=st["preemptions"],
+                released_early=out["released"], f8_hits=out["f8"],
+                pool_hit_blocks=st["pool_hit_blocks"],
+                prefill_bytes_saved=st["prefill_bytes_saved"],
+                graph_captures=gs.captures,
+                graph_capture_ms=1e3 * gs.capture_s,
+                graph_replays=gs.replays, launches=c,
+                records=[dict(batch=r.batch_id, requests=r.n_requests,
+                              tiers=r.tier_mix, point=r.point_index,
+                              energy_j=r.energy_j, latency_s=r.latency_s,
+                              caps_met=r.meets_caps,
+                              pool_hits=r.pool_hit_blocks,
+                              preempted=r.preempted)
+                         for r in sched.records])
+
+
+def check_stream_rehearsal(run: str, out: dict) -> None:
+    """Hold the pooled bf16 drain to the CPU rehearsal (STREAM_REHEARSAL):
+    its batch records, blocks released early, preemptions and graph
+    captures and replays; at least one tier preemption, whose requests
+    resumed and completed; every batch after the first hit the pool."""
+    sched, gs = out["sched"], out["backend"].graph_stats
+    st = sched.stats()
+    got = dict(records=stream_records(sched), released=out["released"],
+               preemptions=st["preemptions"],
+               graphs=[gs.captures, gs.replays])
+    for k, v in got.items():
+        if v != STREAM_REHEARSAL[k]:
+            raise AssertionError(f"{run}: {k} {v}, the CPU rehearsal gave "
+                                 f"{STREAM_REHEARSAL[k]}")
+    if st["preemptions"].get("tier", 0) < 1:
+        raise AssertionError(f"{run}: no tier preemption")
+    resumed = {e["id"] for r in sched.records for e in r.request_entries
+               if e["resumed"]}
+    if not resumed or not resumed <= set(sched.completed):
+        raise AssertionError(f"{run}: resumed requests {resumed} did not "
+                             "all complete")
+    if any(r.pool_hit_blocks < 1 for r in list(sched.records)[1:]):
+        raise AssertionError(f"{run}: a batch after the first missed the "
+                             "pool")
+
+
+def stream_pair(out_a: dict, out_b: dict, records: bool,
+                lp_tol: Optional[float]) -> dict:
+    """Compare two greedy drains request by request: equal tokens, and
+    log-probabilities within ``lp_tol`` (None: bit-equal); with
+    ``records``, equal batch records too (ids, requests, point, energy,
+    latency, caps)."""
+    a, b = out_a["sched"], out_b["sched"]
+    if records:
+        ra = [(r.batch_id, [e["id"] for e in r.request_entries],
+               r.point_index, r.energy_j, r.latency_s, r.meets_caps)
+              for r in a.records]
+        rb = [(r.batch_id, [e["id"] for e in r.request_entries],
+               r.point_index, r.energy_j, r.latency_s, r.meets_caps)
+              for r in b.records]
+        if ra != rb:
+            raise AssertionError(f"batch records differ: {ra} against {rb}")
+    if set(a.completed) != set(b.completed):
+        raise AssertionError("the drains completed different requests")
+    equal = n = 0
+    lp_err = 0.0
+    for rid, ca in a.completed.items():
+        cb = b.completed[rid]
+        for sa, sb, la, lb in zip(ca.result.samples, cb.result.samples,
+                                  ca.result.logprobs, cb.result.logprobs):
+            n += 1
+            equal += int(np.array_equal(sa, sb))
+            lp_err = max(lp_err, abs(la - lb))
+    ok = equal == n and (lp_err <= lp_tol if lp_tol is not None
+                         else lp_err == 0.0)
+    return dict(sequences=n, tokens_equal=equal, max_logprob_diff=lp_err,
+                tol=lp_tol, ok=ok)
+
+
+def serve_stream(seed: int) -> dict:
+    """Phase 5: the scheduled stream (STREAM) through the PGSAM archive,
+    the `ParetoRouter`'s tiers and the continuous-batching scheduler, on
+    full chatglm3-6b in bf16 with the kernels and CUDA graphs on: once on
+    the resident prefix pool and once on per-batch paged caches, each
+    held to its gates and to the CPU rehearsal. Then the f32 parity of the
+    stream at 2 layers (`parity_stream`). Returns the launch counts of the
+    two bf16 drains."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.obs import make_observability
+    from repro_torch.serving import ExecutionBackend, ServingEngine
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    router, arrivals = stream_setup(seed)
+    setup_s = time.perf_counter() - t0
+    cfg = get_config(SERVE["arch"])
+    model = Model(cfg, dtype=torch.bfloat16, device="cuda", use_kernel=True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    base = dict(kv_blocks=POOL["kv_blocks"],
+                kv_block_size=POOL["kv_block_size"])
+    pooled = dict(base, kv_pool=True, pool_evict="lru")
+    # kernels and cuBLAS warm before the timed drains: a prompt shorter
+    # than a block caches nothing
+    warm = ExecutionBackend(model, params, **pooled)
+    ServingEngine(model, params, backend=warm).generate(
+        [arrivals[0]["prompt"][:POOL["kv_block_size"] - 1]], n_samples=1,
+        max_new_tokens=2)
+    del warm
+    counts = {}
+    for run, kw, is_pooled in (("chatglm-stream-pooled", pooled, True),
+                               ("chatglm-stream-paged", base, False)):
+        out = run_stream(model, params, router, arrivals, seed, kw,
+                         STREAM["temperature"])
+        info = check_stream(run, out, cfg, is_pooled)
+        emit("serve-stream", info)
+        if is_pooled:
+            check_stream_rehearsal(run, out)
+        counts[run] = out["launches"]
+        del out
+    del params
+    torch.cuda.empty_cache()
+    parity_stream(router, arrivals, seed)
+    emit("serve-stream", dict(router_setup_s=setup_s,
+                              phase_s=time.perf_counter() - t_phase))
+    return counts
+
+
+def parity_stream(router, arrivals, seed: int) -> None:
+    """Phase 5's f32 parity: the stream at full width, 2 layers, greedy, on
+    the pool, with no early stop. The kernel path must equal the plain
+    path (batch records, tokens, log-probabilities within 1e-3), the
+    preempting drain the one that never preempts (each request's tokens,
+    log-probabilities within 1e-3), and a drain with ``obs`` on the one
+    with it off (bit-equal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.obs import make_observability
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), n_layers=2)
+    mk = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=True)
+    mp = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=False)
+    params = mk.init(torch.Generator(device="cuda").manual_seed(seed + 1))
+    pooled = dict(kv_blocks=POOL["kv_blocks"],
+                  kv_block_size=POOL["kv_block_size"], kv_pool=True)
+
+    def drain(model, **kw):
+        return run_stream(model, params, router, arrivals, seed, pooled,
+                          0.0, early_stop=False, **kw)
+
+    kernel = drain(mk)
+    for name, other, records, tol in (
+            ("kernel vs plain", drain(mp), True, 1e-3),
+            ("preempt vs no preemption", drain(mk, preempt=False), False,
+             1e-3),
+            ("obs off vs on", drain(mk, obs=make_observability()), True,
+             None)):
+        res = stream_pair(kernel, other, records, tol)
+        gs = kernel["backend"].graph_stats
+        emit("parity-f32", dict(arch=cfg.name, mode=f"stream {name}",
+                                layers=cfg.n_layers, weights="f32",
+                                preemptions=kernel["sched"].stats()[
+                                    "preemptions_total"],
+                                graph_captures=gs.captures,
+                                graph_replays=gs.replays, **res))
+        if not res["ok"]:
+            raise AssertionError(f"f32 stream parity, {name}: {res}")
+    del params
+    torch.cuda.empty_cache()
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1521,6 +1855,7 @@ def main() -> int:
     graphs_vs_eager(args.seed)
     agreement_bf16(args.seed)
     parity(args.seed)
+    counts.update(serve_stream(args.seed))
 
     kernels = []
     for name, r in main_cases.items():

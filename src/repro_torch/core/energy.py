@@ -154,18 +154,19 @@ def plan_costs(stages: List[Stage], assignment: Dict[str, DeviceProfile],
     transfers whenever consecutive layers live on different devices.
 
     ``model="v2"`` dispatches to the DASI/CPQ/Phi physics-grounded energy
-    equation of ``repro.qeil2.energy_v2``, which the port does not have yet;
-    the default keeps the v1 path bit-for-bit reproducible. ``temps`` (device -> junction degC) and
+    equation (`repro_torch.qeil2.energy_v2`); the default keeps the v1 path
+    bit-for-bit reproducible. ``temps`` (device -> junction degC) and
     ``headroom`` (allocator fraction that counts as CPQ=1) only affect the v2
     path, which models temperature-dependent leakage and capacity pressure.
-    ``provider`` (an optional ``repro.qeil2.telemetry.CalibratedSignalProvider``)
+    ``provider`` (an optional `repro_torch.qeil2.telemetry.CalibratedSignalProvider`)
     substitutes fitted coefficients and measured kernel times into the v2
     signals; it has no meaning for v1 and is rejected there.
     """
     if model == "v2":
-        raise NotImplementedError("the v2 energy model (qeil2.energy_v2) "
-                                  "arrives with the scheduler slice of the "
-                                  "port")
+        from repro_torch.qeil2.energy_v2 import plan_costs_v2
+        return plan_costs_v2(stages, assignment, quant, workload,
+                             throttle=throttle, temps=temps,
+                             headroom=headroom, provider=provider)
     if model != "v1":
         raise ValueError(f"unknown energy model {model!r} (want 'v1' or 'v2')")
     if provider is not None:

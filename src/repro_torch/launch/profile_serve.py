@@ -26,6 +26,11 @@ and every later pass finds each prompt's cached blocks there. So a pooled
 run serves the requests once more before the timed run: that cold pass is
 reported, traced the same way, under ``"cold"``, and the timed and the
 profiled runs are both warm.
+
+With ``--router`` each pass is the launcher's scheduled drain (a new
+`ContinuousBatchingScheduler` over the same backend and router), and the
+line adds the timed pass's ``"scheduler"`` numbers: batches, preemptions,
+completed and cancelled requests, and pool hits.
 """
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ from typing import List, Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.launch.serve import parse_args, report, setup
+from repro_torch.launch.serve import (parse_args, report,
+                                      report_scheduler, setup)
 from repro_torch.obs import make_observability
 
 
@@ -132,6 +138,13 @@ def main(argv: Optional[List[str]] = None) -> None:
         report(args, results, dt)
         cold = dict(wall_s=dt, **stats)
     results, dt, stats = traced(serve, backend)
+    sched = serve.scheduler
+    if sched is not None:
+        report_scheduler(args, sched, backend)
+        st = sched.stats()
+        stats["scheduler"] = {key: st[key] for key in (
+            "completed", "cancelled", "batches", "preemptions_total",
+            "pool_hit_blocks", "prefill_bytes_saved")}
     report(args, results, dt)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(args.device).type == "cuda":

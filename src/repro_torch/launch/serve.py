@@ -4,7 +4,10 @@ greedy orchestration plan and safety monitoring in the loop.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
         --requests 8 --samples 4 --prompt-len 256 --max-new 32 --kv-blocks 256 \
         [--quant int8|int4 [--group-size 32]] [--kv-int8] \
-        [--kv-pool [--pool-evict lru|off]] [--prefill-chunk N]
+        [--kv-pool [--pool-evict lru|off]] [--prefill-chunk N] \
+        [--router [--tier T | --mixed] [--max-batch N] [--preempt]
+         [--deadline F] [--chaos PLAN.json]] \
+        [--metrics-out FILE [--metrics-interval S]] [--spans-out FILE]
 
 Weights are random, drawn from a seeded ``torch.Generator``. On ``cuda``
 (the default) the model runs in bf16 with ``use_kernel=True``: prefill goes
@@ -27,6 +30,18 @@ weights) do not fit one 80 GB card. ``--device cpu`` runs the plain
 PyTorch path; ``--smoke`` serves the arch's reduced config in f32.
 ``repro_torch.launch.profile_serve`` takes the same flags and says where the
 device time goes.
+
+``--router`` serves as the reference's ``launch/serve.py --router`` does:
+a PGSAM anneal builds the non-dominated archive once, requests enter
+tier-aware admission, and the continuous-batching scheduler forms
+(optionally mixed-tier, with ``--mixed``) batches routed to shared
+operating points off the archive (`repro_torch.serving.scheduler` +
+`repro_torch.qeil2.runtime`) and drives the backend with them.
+``--preempt``, ``--deadline`` and ``--chaos`` need ``--router``. Without
+it the blocking ``ServingEngine.generate`` path serves one greedy plan.
+``--metrics-out`` and ``--spans-out`` write the run's metrics snapshot
+(JSON + ``.prom``; with ``--router`` refreshed every ``--metrics-interval``
+simulated seconds while the scheduler drains) and its spans (JSONL).
 """
 from __future__ import annotations
 
@@ -44,8 +59,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.models import Model
 from repro_torch.models.cache import paged_supported
+from repro_torch.obs import NULL_OBS, PeriodicReporter, make_observability
 from repro_torch.quant import param_bytes, quant_workload, quantize_model
-from repro_torch.serving import ExecutionBackend, GumbelNoise, ServingEngine
+from repro_torch.serving import (ContinuousBatchingScheduler,
+                                 ExecutionBackend, GumbelNoise,
+                                 SchedulerConfig, ServingEngine)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -83,9 +101,69 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked prefill: slices of at most this many "
                          "tokens, one a decode step (needs --kv-blocks)")
+    ap.add_argument("--router", action="store_true",
+                    help="scheduler-centric serving: tier-aware admission "
+                         "+ continuous batching over the PGSAM archive")
+    ap.add_argument("--tier", default="standard",
+                    choices=["interactive", "standard", "economy"],
+                    help="SLA tier to serve requests under (--router)")
+    ap.add_argument("--mixed", action="store_true",
+                    help="round-robin requests over all three tiers so "
+                         "batches mix tiers (--router)")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="scheduler batch size bound (--router)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="decode-boundary preemption (--router): an "
+                         "interactive arrival may cut a lower-tier "
+                         "in-flight batch; with --kv-pool the victim's "
+                         "blocks park in the trie and resume prefills "
+                         "only the tail")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-tier deadline factor (--router): cancel a "
+                         "queued request once it waits longer than "
+                         "FACTOR x its tier's p99 latency cap")
+    ap.add_argument("--chaos", default=None, metavar="PLAN.json",
+                    help="fault-injection plan (repro_torch.serving.chaos "
+                         "JSON) replayed on the simulated clock through "
+                         "the SafetyMonitor into the live scheduler")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write a metrics snapshot (JSON + .prom sibling) "
+                         "here; with --router, refreshed periodically while "
+                         "the scheduler drains")
+    ap.add_argument("--metrics-interval", type=float, default=5.0,
+                    help="simulated seconds between periodic metrics writes")
+    ap.add_argument("--spans-out", default=None,
+                    help="write request lifecycle spans (JSONL) here")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels on) or cpu (plain PyTorch path)")
     return ap.parse_args(argv)
+
+
+def build_router(cfg, w):
+    """The reference launcher's router: a PGSAM anneal over the edge
+    platform, and a `ParetoRouter` with the default tiers scaled to the
+    archive's fastest point. Prints the archive and each tier's route, and
+    returns ``(router, plan)``: ``router`` is None (and ``plan`` the
+    infeasible report) when no operating point places the model."""
+    from repro_torch.qeil2 import (PGSAMConfig, PGSAMOrchestrator,
+                                   ParetoRouter, default_tiers)
+    orch = PGSAMOrchestrator(
+        EDGE_PLATFORM, Constraints(latency_budget_factor=None),
+        config=PGSAMConfig(seed=0, incremental=True))
+    frontier = orch.pareto_frontier(cfg, w)
+    placed = [a for a in frontier if a.mapping]
+    if not placed:
+        print(f"[router] no placeable operating point: "
+              f"{'; '.join(frontier[0].violations)}")
+        return None, frontier[0]
+    base = min(a.latency_s for a in placed) / 0.9
+    router = ParetoRouter(orch, cfg, w, tiers=default_tiers(base))
+    print(f"[router] archive {len(placed)} operating points")
+    for name, d in sorted(router.route_all().items()):
+        print(f"[router] tier {name:12s} -> point {d.point_index:2d} "
+              f"E={d.energy_j:.2f} J T={d.latency_s * 1e3:.1f} ms "
+              f"P={d.avg_power_w:.1f} W caps_met={d.meets_caps}")
+    return router, None
 
 
 def setup(args: argparse.Namespace
@@ -101,6 +179,11 @@ def setup(args: argparse.Namespace
     if args.prefill_chunk is not None and args.kv_blocks is None:
         raise SystemExit("--prefill-chunk requires --kv-blocks (paged "
                          "cache)")
+    if (args.chaos or args.preempt or args.deadline) and not args.router:
+        raise SystemExit("--chaos/--preempt/--deadline need --router "
+                         "(the continuous-batching scheduler)")
+    obs = (make_observability() if args.metrics_out or args.spans_out
+           else NULL_OBS)
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -125,9 +208,15 @@ def setup(args: argparse.Namespace
                                 decode_tokens=args.max_new,
                                 samples=args.samples), args.quant,
                        kv_format=kv_format)
-    plan = GreedyOrchestrator(EDGE_PLATFORM,
-                              Constraints(latency_budget_factor=1.0)
-                              ).assign(cfg, w)
+    router = None
+    if args.router:
+        router, plan = build_router(cfg, w)
+        if router is not None:
+            plan = router.route(args.tier).assignment
+    else:
+        plan = GreedyOrchestrator(EDGE_PLATFORM,
+                                  Constraints(latency_budget_factor=1.0)
+                                  ).assign(cfg, w)
     print(f"[orchestrator] devices={plan.device_names()} "
           f"energy={plan.energy_j:.2f} J latency={plan.latency_s * 1e3:.1f} ms "
           f"feasible={plan.feasible}")
@@ -151,7 +240,7 @@ def setup(args: argparse.Namespace
                                            np.float32)
 
     if args.kv_blocks is None:
-        backend = ExecutionBackend(model, params)
+        backend = ExecutionBackend(model, params, obs=obs)
     else:
         if not paged_supported(cfg):
             raise SystemExit(f"--kv-blocks: arch {cfg.name!r} unsupported "
@@ -160,7 +249,7 @@ def setup(args: argparse.Namespace
                                    kv_block_size=args.kv_block_size,
                                    kv_format=kv_format, kv_pool=args.kv_pool,
                                    pool_evict=args.pool_evict,
-                                   prefill_chunk=args.prefill_chunk)
+                                   prefill_chunk=args.prefill_chunk, obs=obs)
         print(f"[kv] paged cache: {args.kv_blocks} blocks x "
               f"{args.kv_block_size} slots ({kv_format}, "
               f"{backend.kv_token_bytes} B/token)")
@@ -188,15 +277,102 @@ def setup(args: argparse.Namespace
               f"{time.perf_counter() - t0:.1f}s")
 
     def serve() -> Tuple[list, float]:
-        noise = GumbelNoise(torch.Generator(device=dev).manual_seed(0))
         t0 = time.perf_counter()
-        out = engine.generate(prompts, n_samples=args.samples, noise=noise,
-                              extras=extras)
+        if router is not None:
+            serve.scheduler, out = serve_scheduled(
+                args, router, backend, prompts, extras, cfg.vocab_size, obs)
+        else:
+            noise = GumbelNoise(torch.Generator(device=dev).manual_seed(0))
+            out = engine.generate(prompts, n_samples=args.samples,
+                                  noise=noise, extras=extras)
         if on_card:
             torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
+    serve.scheduler = None
+    serve.obs = obs
     return serve, backend
+
+
+def serve_scheduled(args: argparse.Namespace, router, backend, prompts,
+                    extras, vocab_size: int, obs):
+    """The reference launcher's ``--router`` drain: submit every prompt
+    (tiers round-robin with ``--mixed``) to a new scheduler over
+    ``backend`` and run it until idle, replaying the ``--chaos`` plan and
+    writing periodic metrics between steps. Returns the scheduler and the
+    results of the requests it completed, in submission order."""
+    sched = ContinuousBatchingScheduler(
+        backend, router,
+        SchedulerConfig(max_batch_requests=args.max_batch,
+                        max_new_tokens=args.max_new,
+                        temperature=args.temperature, preempt=args.preempt,
+                        deadline_factor=args.deadline), obs=obs)
+    chaos = None
+    if args.chaos:
+        from repro_torch.serving.chaos import FaultPlan, attach
+        plan_doc = FaultPlan.load(args.chaos)
+        safety = SafetyMonitor(EDGE_PLATFORM, max_seq_len=args.prompt_len * 4,
+                               vocab_size=vocab_size)
+        chaos = attach(plan_doc, safety, sched)
+        print(f"[chaos] plan seed={plan_doc.seed}: "
+              f"{len(plan_doc.actions)} actions")
+    tiers = (["interactive", "standard", "economy"] if args.mixed
+             else [args.tier])
+    ids = []
+    for i, p in enumerate(prompts):
+        row = {k: np.asarray(v)[i] for k, v in extras.items()} or None
+        adm = sched.submit(p, tier=tiers[i % len(tiers)],
+                           n_samples=args.samples, extras=row)
+        if adm.admitted:
+            ids.append(adm.request_id)
+        else:
+            print(f"[admission] rejected request {i}: {adm.reason}")
+    reporter = (PeriodicReporter(obs.metrics, args.metrics_out,
+                                 interval_s=args.metrics_interval)
+                if args.metrics_out and obs.metrics.enabled else None)
+    while sched.queue.pending or sched.inflight:
+        if chaos is not None:
+            for act in chaos.apply_due(sched.clock):
+                print(f"[chaos] t={act.t_s:.2f}s {act.kind} "
+                      f"{act.device or ''}".rstrip())
+        if not sched.step():
+            break
+        if reporter is not None:
+            reporter.maybe_write(sched.clock)
+    done = sched.completed
+    # lifecycle policies may cancel (deadline/shed); report completions
+    return sched, [done[i].result for i in ids if i in done]
+
+
+def report_scheduler(args: argparse.Namespace, sched, backend) -> None:
+    """The reference launcher's ``[robustness]``, ``[scheduler]`` and
+    pooled ``[kv]`` lines for one scheduled drain."""
+    st = sched.stats()
+    if st["preemptions_total"] or st["cancelled"]:
+        print(f"[robustness] preemptions={st['preemptions']} "
+              f"deadline_misses={st['deadline_misses']} "
+              f"retries={st['retries_total']} shed={st['shed_total']} "
+              f"resume_tail/full={st['resume_tail_tokens']}/"
+              f"{st['resume_full_tokens']} tokens")
+    for rec in sched.records:
+        pool = ""
+        if args.kv_pool:
+            pool = (f" pool_hits={rec.pool_hit_blocks}"
+                    f" evict={rec.pool_evictions}")
+        print(f"[scheduler] batch {rec.batch_id}: "
+              f"{rec.n_requests} req ({rec.tier_mix}) -> point "
+              f"{rec.point_index} E={rec.energy_j * 1e3:.2f} mJ "
+              f"T={rec.latency_s * 1e3:.2f} ms "
+              f"queue={rec.queue_delay_s * 1e3:.2f} ms "
+              f"caps_met={rec.meets_caps}{pool}")
+    if backend.prefix_pool is not None:
+        resident = backend.prefix_pool.blocks_resident
+        cached = resident * args.kv_block_size * backend.kv_token_bytes
+        print(f"[kv] prefix pool: {st['pool_hit_blocks']} hit blocks, "
+              f"{st['pool_evictions']} evictions, "
+              f"{st['prefill_bytes_saved'] / 1e3:.1f} kB prefill "
+              f"saved; {resident} blocks resident "
+              f"({cached / 1e3:.1f} kB cached)")
 
 
 def report(args: argparse.Namespace, results: list, dt: float) -> None:
@@ -207,10 +383,23 @@ def report(args: argparse.Namespace, results: list, dt: float) -> None:
         print(f"  req {i}: best logprob {max(r.logprobs):.3f}")
 
 
+def write_obs(args: argparse.Namespace, obs) -> None:
+    if args.metrics_out and obs.metrics.enabled:
+        obs.metrics.write(args.metrics_out)
+        print(f"[obs] metrics snapshot -> {args.metrics_out} (+ .prom)")
+    if args.spans_out and obs.tracer.enabled:
+        obs.tracer.save(args.spans_out)
+        print(f"[obs] {len(obs.tracer)} spans -> {args.spans_out}")
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    serve, _ = setup(args)
-    report(args, *serve())
+    serve, backend = setup(args)
+    results, dt = serve()
+    if serve.scheduler is not None:
+        report_scheduler(args, serve.scheduler, backend)
+    report(args, results, dt)
+    write_obs(args, serve.obs)
 
 
 if __name__ == "__main__":

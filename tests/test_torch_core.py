@@ -79,11 +79,16 @@ def test_exhaustive_oracle_and_pareto_frontier():
             for p in ft] == \
         [(p["samples"], p["energy_j"], p["latency_s"], p["coverage"])
          for p in fj]
-    with pytest.raises(NotImplementedError, match="v2"):
-        T.plan_costs(T.decompose(cfg_t, T.Workload(**w)),
-                     {s.name: T.EDGE_PLATFORM[0]
-                      for s in T.decompose(cfg_t, T.Workload(**w))},
-                     model="v2")
+    # the v2 energy model dispatches to the port's qeil2.energy_v2
+    costs = []
+    for M, cfg in ((T, cfg_t), (J, cfg_j)):
+        stages = M.decompose(cfg, M.Workload(**w))
+        pc = M.plan_costs(stages, {s.name: M.EDGE_PLATFORM[0]
+                                   for s in stages}, model="v2")
+        costs.append((pc.energy_j, pc.makespan_s,
+                      [type(e).__name__ for e in pc.executions]))
+    assert costs[0] == costs[1]
+    assert costs[0][2][0] == "StageExecutionV2"
 
 
 def test_safety_monitor_validates_alike():

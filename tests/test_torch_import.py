@@ -25,6 +25,9 @@ MODULES = [
     "repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.obs",
     "repro_torch.quant",
     "repro_torch.serving", "repro_torch.serving.prefix_pool",
+    "repro_torch.serving.scheduler", "repro_torch.serving.chaos",
+    "repro_torch.core.sampling", "repro_torch.qeil2",
+    "repro_torch.qeil2.runtime", "repro_torch.qeil2.telemetry",
 ]
 FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)"
