@@ -140,7 +140,37 @@ Phases, each of which fails the script on error:
    drain the one that never preempts (each request's tokens,
    log-probabilities within 1e-3), and a drain with ``obs`` on the one
    with it off (bit-equal).
-6. Print the script's wall time (the build included), the ``kernels``
+6. Speculative decode (`repro_torch.spec`): full-width, full-depth
+   chatglm3-6b in bf16, kernels and CUDA graphs on, the serve's traffic (8
+   prompts x 4 samples, prompt 256, 32 new tokens), draft depth 4. Prompt-
+   lookup (``ngram``) drafting per-batch paged (224 blocks of 16: the
+   speculative slack of 5 slots a sequence costs each request 28 blocks,
+   so all 8 fit one batch) at temperature 0.8 and greedy, then phase 3's
+   two pooled rounds (512 blocks, LRU), then paged in int4 weights; then
+   a draft model (2 layers at chatglm3-6b's widths, weights of its own from
+   ``--seed`` + 1) paged at 0.8. Each run fails unless every sample holds
+   32 in-vocabulary tokens, no step decodes one token (no decode graph;
+   neither decode kernel launched), flash launched 28 times a per-batch
+   prefill and never on the pool, each batch captured one verify graph at
+   its second verify and replayed it for every later one (on the pool one
+   graph for both rounds, and round 2 found 96 blocks cached), and only
+   the pool's resident blocks stay in use; the int4 run unless
+   ``dequant_matmul_int4`` launched 196 times a forward (its prefill and
+   every verify). Each prints its wall, tok/s, verify forwards, tokens
+   committed a forward, accept rate, host ms a verify and a ``propose``
+   call. Then phase 5's scheduled stream on the pool with a `SpecPlanner`
+   (``ngram``, depths 0, 2 and 4): every request completes, and the batch
+   records with their draft depths and the graphs' captures and replays
+   equal the CPU rehearsal's (`SPEC_STREAM_REHEARSAL`); it prints its wall
+   and tok/s beside phase 5's. Then f32 at full width, 2 layers, greedy
+   (2 samples, 16 new tokens), dense, per-batch paged and pooled (cold and
+   warm), for ``ngram`` and for ``draft`` with the target as its own draft
+   (which must accept every draft): the speculative serve must give plain
+   greedy decode's tokens and the plain path's speculative serve's, with
+   log-probabilities within 1e-3, and the eager verify's
+   (``cuda_graphs=False``) tokens, its largest log-probability difference
+   printed.
+7. Print the script's wall time (the build included), the ``kernels``
    JSON line, the card again, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -238,6 +268,32 @@ STREAM_REHEARSAL = dict(
              [[17, 18, 19, 20], [3, 1, 0], 12, 48, None],
              [[21, 22, 23], [0, 2, 1], 12, 36, None]],
     released=144, preemptions={"tier": 3}, graphs=[3, 208])
+# phase 6, speculative decode: the draft depth of every speculating serve,
+# the depths the scheduled drain's planner prices, the layers of the draft
+# model of the draft run
+SPEC = dict(n=4, depths=(0, 2, 4), draft_layers=2)
+# what the CPU rehearsal of phase 6's scheduled drain gave (2 layers, f32,
+# the capture stand-in, as STREAM_REHEARSAL): per batch its request ids,
+# tier counts, point index, pool hit blocks, preemption and draft depth;
+# the decode and the verify graphs' captures and replays; and, not gated
+# (a draft that a row of the card's bf16 model accepts changes them), the
+# drafts proposed and accepted
+SPEC_STREAM_REHEARSAL = dict(
+    records=[[[0], [0, 0, 1], 0, 0, "tier", 4],
+             [[1, 2, 3, 4], [0, 3, 1], 13, 48, None, 4],
+             [[0], [0, 0, 1], 0, 64, "tier", 4],
+             [[5, 6, 7], [1, 1, 1], 13, 36, None, 4],
+             [[0], [0, 0, 1], 0, 64, "tier", 4],
+             [[8, 9], [2, 0, 0], 13, 24, None, 4],
+             [[0], [0, 0, 1], 0, 64, "tier", 4],
+             [[10, 11, 12, 13], [2, 1, 1], 13, 48, None, 4],
+             [[0], [0, 0, 1], 0, 64, None, 4],
+             [[14, 15, 16, 17], [2, 2, 0], 13, 48, None, 4],
+             [[18, 19, 20, 21], [2, 2, 0], 13, 48, None, 4],
+             [[22], [0, 0, 1], 0, 12, "tier", 4],
+             [[23], [0, 1, 0], 12, 12, None, 4],
+             [[22], [0, 0, 1], 0, 64, None, 4]],
+    graphs=[0, 0], verify_graphs=[4, 266], proposed=11744, accepted=0)
 # the f32 parity of the SSM archs: layers, and a prompt length that crosses
 # a 256-row chunk and pads a tail
 SSM_PARITY = {"mamba2-370m": 2, "jamba-v0.1-52b": 8}
@@ -971,7 +1027,10 @@ def serve_rounds(model, params, rounds, seed: int, backend_kw: dict, k: int,
     tracer's ``decode`` spans), its prefill spans' ms (``start_batch``,
     and each chunked slice, through the first token's copy to the host),
     the host's ms in the tail prefill forwards, and its graph captures,
-    their ms and its replays."""
+    their ms and its replays; speculating (``spec_policy`` in
+    ``backend_kw``), also the host's mean ms a verify and a ``propose``
+    call (the ``verify`` and ``draft`` spans) and its verify graphs'
+    captures and replays."""
     from repro_torch.obs import make_observability
     from repro_torch.serving import (ExecutionBackend, GumbelNoise,
                                      ServingEngine)
@@ -1014,10 +1073,10 @@ def serve_rounds(model, params, rounds, seed: int, backend_kw: dict, k: int,
         dt = time.perf_counter() - t0
         backend.set_obs(None)
         check_results(results, model.cfg, k, new)
-        steps = [sp.t1_s - sp.t0_s for sp in obs.tracer.spans
-                 if sp.name == "decode"]
-        prefill = [sp.t1_s - sp.t0_s for sp in obs.tracer.spans
-                   if sp.name == "prefill"]
+        spans = {name: [sp.t1_s - sp.t0_s for sp in obs.tracer.spans
+                        if sp.name == name]
+                 for name in ("decode", "prefill", "verify", "draft")}
+        steps, prefill = spans["decode"], spans["prefill"]
         st = backend.graph_stats
         n_tok = sum(res.decode_tokens for res in results)
         out.append(dict(
@@ -1029,7 +1088,13 @@ def serve_rounds(model, params, rounds, seed: int, backend_kw: dict, k: int,
             tail_prefill_host_ms=1e3 * sum(tail_s),
             graph_captures=st.captures - before.captures,
             graph_capture_ms=1e3 * (st.capture_s - before.capture_s),
-            graph_replays=st.replays - before.replays))
+            graph_replays=st.replays - before.replays,
+            verify_ms=(1e3 * sum(spans["verify"]) / len(spans["verify"])
+                       if spans["verify"] else None),
+            propose_ms=(1e3 * sum(spans["draft"]) / len(spans["draft"])
+                        if spans["draft"] else None),
+            verify_captures=st.verify_captures - before.verify_captures,
+            verify_replays=st.verify_replays - before.verify_replays))
     del backend.start_batch, backend._tail_prefill    # the class's again
     return out, backend
 
@@ -1576,13 +1641,15 @@ def sync(device) -> None:
 
 def run_stream(model, params, router, arrivals, seed: int, backend_kw: dict,
                temperature: float, preempt: bool = True,
-               early_stop: bool = True, obs=None) -> dict:
+               early_stop: bool = True, obs=None,
+               spec_planner=None) -> dict:
     """Serve ``arrivals`` once through a `ContinuousBatchingScheduler` over
     a new backend built with ``backend_kw`` (STREAM's scheduler settings;
     the batch noise seeded from ``seed``), with CSVET early stops drawn
-    from ``default_rng(seed + 1)`` when ``early_stop``. Returns the
-    scheduler, the backend, the wall seconds, the launch counts of the
-    drain, the blocks released early and the F8 probe's count."""
+    from ``default_rng(seed + 1)`` when ``early_stop``; with
+    ``spec_planner`` the scheduler prices each batch's draft depth.
+    Returns the scheduler, the backend, the wall seconds, the launch counts
+    of the drain, the blocks released early and the F8 probe's count."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import (ContinuousBatchingScheduler,
                                      ExecutionBackend, SchedulerConfig)
@@ -1595,7 +1662,7 @@ def run_stream(model, params, router, arrivals, seed: int, backend_kw: dict,
                         max_inflight_batches=STREAM["inflight"],
                         max_new_tokens=STREAM["max_new"],
                         temperature=temperature, preempt=preempt, seed=seed),
-        obs=obs)
+        obs=obs, spec_planner=spec_planner)
     probe = ReleasedWriteProbe()
     stop = CsvetStop(np.random.default_rng(seed + 1), probe=probe)
     sync(backend.device)
@@ -1733,7 +1800,7 @@ def serve_stream(seed: int) -> dict:
     the resident prefix pool and once on per-batch paged caches, each
     held to its gates and to the CPU rehearsal. Then the f32 parity of the
     stream at 2 layers (`parity_stream`). Returns the launch counts of the
-    two bf16 drains."""
+    two bf16 drains, and the pooled drain's printed numbers."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.obs import make_observability
@@ -1755,12 +1822,12 @@ def serve_stream(seed: int) -> dict:
         [arrivals[0]["prompt"][:POOL["kv_block_size"] - 1]], n_samples=1,
         max_new_tokens=2)
     del warm
-    counts = {}
+    counts, infos = {}, {}
     for run, kw, is_pooled in (("chatglm-stream-pooled", pooled, True),
                                ("chatglm-stream-paged", base, False)):
         out = run_stream(model, params, router, arrivals, seed, kw,
                          STREAM["temperature"])
-        info = check_stream(run, out, cfg, is_pooled)
+        infos[run] = info = check_stream(run, out, cfg, is_pooled)
         emit("serve-stream", info)
         if is_pooled:
             check_stream_rehearsal(run, out)
@@ -1771,7 +1838,7 @@ def serve_stream(seed: int) -> dict:
     parity_stream(router, arrivals, seed)
     emit("serve-stream", dict(router_setup_s=setup_s,
                               phase_s=time.perf_counter() - t_phase))
-    return counts
+    return counts, infos["chatglm-stream-pooled"]
 
 
 def parity_stream(router, arrivals, seed: int) -> None:
@@ -1816,6 +1883,316 @@ def parity_stream(router, arrivals, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ speculative decode
+
+def spec_paged_kw(model, params) -> dict:
+    """Per-batch paged arguments of a speculating serve of the SERVE
+    requests in one batch: the slack of ``spec_n + 1`` token slots a
+    sequence costs each request 4 more blocks of 16 (28, not 24), so 8 x 28
+    = 224 blocks (192 would split the requests into batches of 6 and 2)."""
+    from repro_torch.serving import ExecutionBackend
+    from repro_torch.spec import NGramDraftPolicy
+    probe = ExecutionBackend(model, params, kv_blocks=1,
+                             kv_block_size=SERVE["kv_block_size"],
+                             spec_policy=NGramDraftPolicy(),
+                             spec_n=SPEC["n"])
+    return dict(kv_blocks=SERVE["requests"] * probe.request_blocks(
+        SERVE["prompt_len"], SERVE["max_new"], SERVE["samples"]),
+        kv_block_size=SERVE["kv_block_size"])
+
+
+def spec_serve(run: str, model, params, rounds, seed: int, backend_kw: dict,
+               policy, temperature: float, k: int = SERVE["samples"],
+               new: int = SERVE["max_new"], kernels: bool = True):
+    """Serve ``rounds`` speculatively (``policy`` at depth SPEC["n"])
+    through `serve_rounds`, the launch counts set to 0 just before and read
+    just after, and hold the run to its gates: every sample ``new``
+    in-vocabulary tokens (`serve_rounds`); no S = 1 decode step (no decode
+    graph, and with ``kernels`` neither decode kernel launched) and flash
+    launched once a layer a per-batch prefill and never on the pool; one
+    verify graph captured a per-batch batch, or one for the pool's shape,
+    and every other verify a replay; no block left in use but the pool's
+    resident ones. Returns (the printed numbers, the per-round info, the
+    backend)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    info, backend = serve_rounds(
+        model, params, rounds, seed,
+        dict(backend_kw, spec_policy=policy, spec_n=SPEC["n"]), k, new,
+        temperature)
+    c = launch_counts()
+    cfg = model.cfg
+    handles = [h for i in info for h in i["handles"]]
+    steps = sum(h.spec.steps for h in handles)
+    proposed = sum(h.spec.proposed for h in handles)
+    accepted = sum(h.spec.accepted for h in handles)
+    pooled = backend.prefix_pool is not None
+    st = backend.graph_stats
+    graphed = backend.cuda_graphs
+    want = dict(verify_captures=(1 if pooled else len(handles)) * graphed,
+                verify_replays=(steps - (1 if pooled else len(handles)))
+                * graphed,
+                captures=0, replays=0)
+    got = dict(verify_captures=st.verify_captures,
+               verify_replays=st.verify_replays, captures=st.captures,
+               replays=st.replays)
+    if got != want:
+        raise AssertionError(f"{run}: graphs {got}, want {want}")
+    if kernels:
+        want_k = {"flash_attention": 0 if pooled else
+                  cfg.n_layers * len(handles),
+                  "decode_attention": 0, "paged_decode_attention": 0}
+        for name, n in want_k.items():
+            if c[name] != n:
+                raise AssertionError(f"{run}: {name} launched {c[name]} "
+                                     f"times, want {n}")
+    resident = backend.prefix_pool.blocks_resident if pooled else 0
+    if backend.blocks_in_use not in (None, resident):
+        raise AssertionError(f"{run}: {backend.blocks_in_use} blocks in use "
+                             f"at the end, want {resident}")
+    rows = sum(h.n_sequences for h in handles)
+    out = dict(
+        run=run, policy=policy.name, n=SPEC["n"], temperature=temperature,
+        layers=cfg.n_layers, batches=len(handles),
+        kv_blocks=backend_kw.get("kv_blocks"),
+        seconds=[i["seconds"] for i in info],
+        tokens_per_s=[i["tokens_per_s"] for i in info],
+        verify_forwards=steps,
+        # the first token of a row comes from the prefill
+        committed_per_forward=rows * (new - 1) / steps,
+        accept_rate=accepted / proposed if proposed else None,
+        proposed=proposed, accepted=accepted,
+        verify_ms=[i["verify_ms"] for i in info],
+        propose_ms=[i["propose_ms"] for i in info],
+        decode_step_ms=[i["decode_step_ms"] for i in info],
+        verify_captures=st.verify_captures,
+        verify_capture_ms=1e3 * st.capture_s,
+        verify_replays=st.verify_replays,
+        pool_hit_blocks=[sum(h.pool_hit_blocks for h in i["handles"])
+                         for i in info], launches=c)
+    return out, info, backend
+
+
+def spec_bf16(seed: int, phase5: dict) -> dict:
+    """Phase 6 in bf16: full chatglm3-6b, kernels and graphs on, the
+    serve's traffic, ngram drafting at depth 4, per-batch paged at
+    temperature 0.8 and greedy, then phase 3's two pooled rounds, then in
+    int4 weights (the dequant kernels launched 196 times a forward: one
+    prefill and every verify); then draft-model drafting by a 2-layer
+    chatglm3-6b-width draft with weights of its own; then phase 5's
+    scheduled stream with a `SpecPlanner` (ngram, depths 0, 2, 4) on the
+    pool, held to the CPU rehearsal's batch records. Returns the launch
+    counts of each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.quant.quantize import quantize_model
+    from repro_torch.spec import (DraftModelPolicy, NGramDraftPolicy,
+                                  SpecPlanner)
+    cfg = get_config(SERVE["arch"])
+    model = Model(cfg, dtype=torch.bfloat16, device="cuda", use_kernel=True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    prompts = make_prompts(cfg, seed)
+    paged = spec_paged_kw(model, params)
+    counts = {}
+
+    def record(out):
+        emit("spec", {k: v for k, v in out.items() if k != "launches"})
+        counts[out["run"]] = out["launches"]
+
+    for run, temp in (("spec-ngram-paged", SERVE["temperature"]),
+                      ("spec-ngram-paged-greedy", 0.0)):
+        record(spec_serve(run, model, params, [prompts], seed, paged,
+                          NGramDraftPolicy(), temp)[0])
+    pooled = dict(kv_blocks=POOL["kv_blocks"],
+                  kv_block_size=POOL["kv_block_size"], kv_pool=True,
+                  pool_evict="lru")
+    out, _, backend = spec_serve("spec-ngram-pooled", model, params,
+                                 pooled_rounds(cfg, seed), seed, pooled,
+                                 NGramDraftPolicy(), SERVE["temperature"])
+    want_hits = [0, SERVE["requests"] * POOL["system_len"]
+                 // POOL["kv_block_size"]]
+    if out["pool_hit_blocks"] != want_hits:
+        raise AssertionError(f"spec-ngram-pooled: {out['pool_hit_blocks']} "
+                             f"pool hits, want {want_hits}")
+    record(out)
+    del backend
+    qparams = quantize_model(params, "int4", 32)
+    out = spec_serve("spec-ngram-int4-paged", model, qparams, [prompts],
+                     seed, paged, NGramDraftPolicy(),
+                     SERVE["temperature"])[0]
+    fwd = out["batches"] + out["verify_forwards"]
+    per_forward = LINEARS_PER_LAYER * cfg.n_layers
+    if out["launches"]["dequant_matmul_int4"] != per_forward * fwd:
+        raise AssertionError(
+            f"spec-ngram-int4-paged: dequant_matmul_int4 launched "
+            f"{out['launches']['dequant_matmul_int4']} times, want "
+            f"{per_forward} x {fwd} forwards")
+    record(out)
+    del qparams
+    torch.cuda.empty_cache()
+    dcfg = dataclasses.replace(cfg, n_layers=SPEC["draft_layers"])
+    draft = Model(dcfg, dtype=torch.bfloat16, device="cuda", use_kernel=True)
+    dparams = draft.init(torch.Generator(device="cuda").manual_seed(
+        seed + 1))
+    record(spec_serve("spec-draft-paged", model, params, [prompts], seed,
+                      paged, DraftModelPolicy(draft, dparams),
+                      SERVE["temperature"])[0])
+    del dparams, draft
+    torch.cuda.empty_cache()
+
+    router, arrivals = stream_setup(seed)
+    planner = SpecPlanner("ngram", depths=SPEC["depths"],
+                          model_name=cfg.name)
+    drain = run_stream(model, params, router, arrivals, seed,
+                       dict(pooled, spec_policy=NGramDraftPolicy(),
+                            spec_n=SPEC["n"]), STREAM["temperature"],
+                       spec_planner=planner)
+    emit("spec-stream", check_spec_stream("spec-stream-pooled", drain, cfg,
+                                          phase5))
+    counts["spec-stream-pooled"] = drain["launches"]
+    del drain, params, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def spec_stream_records(sched) -> list:
+    """`stream_records` with each batch's draft depth."""
+    return [r + [rec.spec_n] for r, rec in zip(stream_records(sched),
+                                               sched.records)]
+
+
+def check_spec_stream(run: str, out: dict, cfg, phase5: dict) -> dict:
+    """Phase 6's gates on the scheduled drain with a `SpecPlanner`: every
+    request completes with 4 samples of 32 in-vocabulary tokens, the batch
+    records (with each batch's draft depth) and the decode and verify
+    graphs' captures and replays equal the CPU rehearsal's, flash and the
+    decode kernels never launched (a pooled prefill takes the tail path,
+    and every batch speculates), and only the pool's resident blocks stay
+    in use. Returns its printed numbers, beside phase 5's wall and tok/s
+    and the rehearsal's drafts proposed and accepted."""
+    sched, backend = out["sched"], out["backend"]
+    st = sched.stats()
+    if st["cancelled"] or st["completed"] != STREAM["requests"]:
+        raise AssertionError(f"{run}: {st['completed']} requests completed "
+                             f"and {st['cancelled']} cancelled, want "
+                             f"{STREAM['requests']} and 0")
+    for c in sched.completed.values():
+        samples = c.result.samples
+        if len(samples) != STREAM["samples"] or any(
+                s.shape != (STREAM["max_new"],) or s.min() < 0
+                or s.max() >= cfg.vocab_size for s in samples):
+            raise AssertionError(f"{run}: request {c.request.id} gave "
+                                 f"{[s.shape for s in samples]}")
+    gs = backend.graph_stats
+    got = dict(records=spec_stream_records(sched),
+               graphs=[gs.captures, gs.replays],
+               verify_graphs=[gs.verify_captures, gs.verify_replays])
+    for k, v in got.items():
+        if v != SPEC_STREAM_REHEARSAL[k]:
+            raise AssertionError(f"{run}: {k} {v}, the CPU rehearsal gave "
+                                 f"{SPEC_STREAM_REHEARSAL[k]}")
+    for name in ("flash_attention", "decode_attention",
+                 "paged_decode_attention"):
+        if out["launches"][name]:
+            raise AssertionError(f"{run}: {name} launched "
+                                 f"{out['launches'][name]} times")
+    resident = backend.prefix_pool.blocks_resident
+    if backend.blocks_in_use != resident:
+        raise AssertionError(f"{run}: {backend.blocks_in_use} blocks in use "
+                             f"at the end, want the pool's {resident}")
+    n_tok = sum(c.result.decode_tokens for c in sched.completed.values())
+    return dict(run=run, seconds=out["wall_s"],
+                tokens_per_s=n_tok / out["wall_s"],
+                phase5_seconds=phase5.get("seconds"),
+                phase5_tokens_per_s=phase5.get("tokens_per_s"),
+                batches=st["batches"], preemptions=st["preemptions"],
+                released_early=out["released"],
+                spec_proposed=st["spec_proposed"],
+                spec_accepted=st["spec_accepted"],
+                rehearsal_proposed=SPEC_STREAM_REHEARSAL["proposed"],
+                rehearsal_accepted=SPEC_STREAM_REHEARSAL["accepted"],
+                graph_captures=gs.captures, graph_replays=gs.replays,
+                verify_captures=gs.verify_captures,
+                verify_replays=gs.verify_replays, launches=out["launches"],
+                records=[dict(batch=r.batch_id, requests=r.n_requests,
+                              point=r.point_index, spec_n=r.spec_n,
+                              proposed=r.spec_proposed,
+                              accepted=r.spec_accepted,
+                              pool_hits=r.pool_hit_blocks,
+                              preempted=r.preempted)
+                         for r in sched.records])
+
+
+def spec_parity(seed: int) -> None:
+    """Phase 6 in f32: chatglm3-6b at full width, 2 layers, greedy, the
+    serve's prompts (2 samples, 16 new tokens), dense, per-batch paged and
+    on the pool (cold and warm rounds), for ``ngram`` and for ``draft``
+    with the target as its own draft (which accepts every draft). The
+    speculative serve must give plain greedy decode's tokens, the plain
+    path's (``use_kernel=False``) speculative serve's and the eager
+    verify's (``cuda_graphs=False``), with log-probabilities within 1e-3
+    of the first two."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.spec import DraftModelPolicy, NGramDraftPolicy
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), n_layers=2)
+    mk = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=True)
+    mp = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=False)
+    params = mk.init(torch.Generator(device="cuda").manual_seed(seed + 1))
+    k, new = 2, 16
+    prompts = make_prompts(cfg, seed + 1)
+    bs = SERVE["kv_block_size"]
+    modes = {"dense": ({}, [prompts]),
+             "paged": (dict(kv_blocks=512, kv_block_size=bs), [prompts]),
+             "pooled": (dict(kv_blocks=POOL["kv_blocks"], kv_block_size=bs,
+                             kv_pool=True), pooled_rounds(cfg, seed + 1))}
+    policies = {"ngram": lambda m: NGramDraftPolicy(),
+                "draft": lambda m: DraftModelPolicy(m, params)}
+    for mode, (kw, rounds) in modes.items():
+        plain, _ = serve_rounds(mk, params, rounds, seed, kw, k, new, 0.0)
+        for kind, make in policies.items():
+            runs = {}
+            for name, m, extra in (("kernel", mk, {}), ("plain", mp, {}),
+                                   ("eager", mk, dict(cuda_graphs=False))):
+                runs[name] = spec_serve(
+                    f"spec-parity {mode} {kind} {name}", m, params, rounds,
+                    seed, dict(kw, **extra), make(m), 0.0, k, new,
+                    kernels=False)
+            spec = runs["kernel"][0]
+            if kind == "draft" and spec["accepted"] != spec["proposed"]:
+                raise AssertionError(f"spec parity {mode}: the target as "
+                                     f"its own draft accepted "
+                                     f"{spec['accepted']} of "
+                                     f"{spec['proposed']}")
+            for other, ref, lp_tol in (("plain decode", plain, 1e-3),
+                                       ("plain path", runs["plain"][1],
+                                        1e-3),
+                                       ("eager verify", runs["eager"][1],
+                                        None)):
+                for r, (a, b) in enumerate(zip(runs["kernel"][1], ref)):
+                    equal = int((a["tokens"] == b["tokens"]).all(
+                        axis=1).sum())
+                    n = a["tokens"].shape[0]
+                    lp_err = max(abs(x - y) for ra, rb in zip(
+                        a["results"], b["results"])
+                        for x, y in zip(ra.logprobs, rb.logprobs))
+                    emit("parity-f32", dict(
+                        arch=cfg.name, mode=f"spec {kind} {mode} vs {other}",
+                        round=r + 1, layers=cfg.n_layers, weights="f32",
+                        sequences=n, tokens_equal=equal,
+                        max_logprob_diff=lp_err, tol=lp_tol,
+                        verify_forwards=spec["verify_forwards"],
+                        accept_rate=spec["accept_rate"]))
+                    if equal != n or (lp_tol is not None
+                                      and lp_err > lp_tol):
+                        raise AssertionError(
+                            f"f32 spec parity ({kind} {mode}) against "
+                            f"{other}, round {r + 1}: {equal}/{n} sequences "
+                            f"equal, logprob diff {lp_err:.3e}")
+    del params
+    torch.cuda.empty_cache()
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1855,7 +2232,12 @@ def main() -> int:
     graphs_vs_eager(args.seed)
     agreement_bf16(args.seed)
     parity(args.seed)
-    counts.update(serve_stream(args.seed))
+    stream_counts, phase5 = serve_stream(args.seed)
+    counts.update(stream_counts)
+    t_phase = time.perf_counter()
+    counts.update(spec_bf16(args.seed, phase5))
+    spec_parity(args.seed)
+    emit("spec", dict(phase_s=time.perf_counter() - t_phase))
 
     kernels = []
     for name, r in main_cases.items():

@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch chatglm3-6b --requests 8 --samples 4 --prompt-len 256 \
-        --max-new 32 [--kv-blocks 192] [--quant int4] [--kv-int8]
+        --max-new 32 [--kv-blocks 192] [--quant int4] [--kv-int8] \
+        [--spec ngram|draft [--spec-n N]]
 
 Takes the flags of ``repro_torch.launch.serve``. Serves the requests once
 unprofiled (the timed run, reported as the launcher reports it), then the
@@ -31,6 +32,13 @@ With ``--router`` each pass is the launcher's scheduled drain (a new
 `ContinuousBatchingScheduler` over the same backend and router), and the
 line adds the timed pass's ``"scheduler"`` numbers: batches, preemptions,
 completed and cancelled requests, and pool hits.
+
+With ``--spec`` the line adds the speculative numbers of the timed run:
+verify forwards, the host's mean ms a verify (``verify_ms``, its
+``verify`` spans: the enqueue of the forward or the graph's replay, and the
+wait for its accept lengths and tokens) and a ``propose`` call
+(``propose_ms``, its ``draft`` spans), the verify graphs' captures and
+replays, and the drafts proposed and accepted.
 """
 from __future__ import annotations
 
@@ -107,8 +115,8 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
 def traced(serve, backend) -> tuple:
     """One traced serve: ``(results, wall seconds, stats)``, the stats its
     graph captures, their host ms, replays, decode steps, the host's mean
-    ms a decode step and, on a prefix pool, the blocks its batches found
-    cached (``pool_hit_blocks``)."""
+    ms a decode step, on a prefix pool the blocks its batches found cached
+    (``pool_hit_blocks``) and, speculating, its verify numbers."""
     obs = make_observability()
     backend.set_obs(obs)
     before = dataclasses.replace(backend.graph_stats)
@@ -125,6 +133,21 @@ def traced(serve, backend) -> tuple:
     if backend.prefix_pool is not None:
         stats["pool_hit_blocks"] = obs.metrics.counter(
             "serving_prefix_pool_hits_total").value()
+    if backend.spec_policy is not None:
+        spans = {name: [s.t1_s - s.t0_s for s in obs.tracer.spans
+                        if s.name == name] for name in ("verify", "draft")}
+        stats.update(
+            verify_forwards=len(spans["verify"]),
+            verify_ms=(1e3 * sum(spans["verify"]) / len(spans["verify"])
+                       if spans["verify"] else None),
+            propose_ms=(1e3 * sum(spans["draft"]) / len(spans["draft"])
+                        if spans["draft"] else None),
+            verify_captures=after.verify_captures - before.verify_captures,
+            verify_replays=after.verify_replays - before.verify_replays,
+            spec_proposed=obs.metrics.counter(
+                "serving_spec_proposed_total").value(),
+            spec_accepted=obs.metrics.counter(
+                "serving_spec_accepted_total").value())
     return results, dt, stats
 
 

@@ -5,6 +5,7 @@ greedy orchestration plan and safety monitoring in the loop.
         --requests 8 --samples 4 --prompt-len 256 --max-new 32 --kv-blocks 256 \
         [--quant int8|int4 [--group-size 32]] [--kv-int8] \
         [--kv-pool [--pool-evict lru|off]] [--prefill-chunk N] \
+        [--spec ngram|draft [--spec-n N] [--draft-model ARCH]] \
         [--router [--tier T | --mixed] [--max-batch N] [--preempt]
          [--deadline F] [--chaos PLAN.json]] \
         [--metrics-out FILE [--metrics-interval S]] [--spans-out FILE]
@@ -31,12 +32,22 @@ PyTorch path; ``--smoke`` serves the arch's reduced config in f32.
 ``repro_torch.launch.profile_serve`` takes the same flags and says where the
 device time goes.
 
+``--spec ngram|draft`` decodes speculatively (`repro_torch.spec`), in every
+cache mode: each decode step drafts up to ``--spec-n`` tokens (prompt-lookup
+n-grams, or a greedy rollout of the reduced config of ``--draft-model``,
+``--arch`` by default, which must share the target's vocabulary) and scores
+them in one verify forward, which replays a CUDA graph on the card. The
+reduced configs cap the vocabulary at 512, so ``--spec draft`` exits for a
+full-vocabulary target, as in the reference; ``--smoke`` serves one.
+
 ``--router`` serves as the reference's ``launch/serve.py --router`` does:
 a PGSAM anneal builds the non-dominated archive once, requests enter
 tier-aware admission, and the continuous-batching scheduler forms
 (optionally mixed-tier, with ``--mixed``) batches routed to shared
 operating points off the archive (`repro_torch.serving.scheduler` +
-`repro_torch.qeil2.runtime`) and drives the backend with them.
+`repro_torch.qeil2.runtime`) and drives the backend with them. With
+``--spec`` a `SpecPlanner` prices the draft depth of each batch among 0,
+``--spec-n // 2`` and ``--spec-n``.
 ``--preempt``, ``--deadline`` and ``--chaos`` need ``--router``. Without
 it the blocking ``ServingEngine.generate`` path serves one greedy plan.
 ``--metrics-out`` and ``--spans-out`` write the run's metrics snapshot
@@ -64,6 +75,9 @@ from repro_torch.quant import param_bytes, quant_workload, quantize_model
 from repro_torch.serving import (ContinuousBatchingScheduler,
                                  ExecutionBackend, GumbelNoise,
                                  SchedulerConfig, ServingEngine)
+from repro_torch.spec import (DEFAULT_ACCEPT_RATE, SpecPlanner,
+                              expected_tokens_per_step, make_draft_policy,
+                              spec_supported)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -101,6 +115,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked prefill: slices of at most this many "
                          "tokens, one a decode step (needs --kv-blocks)")
+    ap.add_argument("--spec", default="off",
+                    choices=["off", "ngram", "draft"],
+                    help="speculative decode draft policy (repro_torch."
+                         "spec): prompt-lookup n-grams or a small draft "
+                         "model; with --router the SpecPlanner prices "
+                         "draft depth per batch")
+    ap.add_argument("--spec-n", type=int, default=4,
+                    help="max draft tokens verified per decode step")
+    ap.add_argument("--draft-model", default=None, choices=ASSIGNED_ARCHS,
+                    help="arch whose reduced config serves as the draft "
+                         "model (--spec draft; defaults to --arch reduced; "
+                         "must share the target vocab)")
     ap.add_argument("--router", action="store_true",
                     help="scheduler-centric serving: tier-aware admission "
                          "+ continuous batching over the PGSAM archive")
@@ -201,6 +227,10 @@ def setup(args: argparse.Namespace
         print(f"[quant] weights {args.quant}: {before / 1e6:.1f} MB -> "
               f"{param_bytes(params) / 1e6:.1f} MB")
     kv_format = "int8" if args.kv_int8 else "bf16"
+    spec_kwargs = {}
+    if args.spec != "off":
+        spec_kwargs = dict(spec_policy=draft_policy(args, cfg, model, dev),
+                           spec_n=args.spec_n)
 
     # --- QEIL plan for this workload (simulated edge platform profile)
     w = quant_workload(Workload(batch=args.requests,
@@ -240,7 +270,7 @@ def setup(args: argparse.Namespace
                                            np.float32)
 
     if args.kv_blocks is None:
-        backend = ExecutionBackend(model, params, obs=obs)
+        backend = ExecutionBackend(model, params, obs=obs, **spec_kwargs)
     else:
         if not paged_supported(cfg):
             raise SystemExit(f"--kv-blocks: arch {cfg.name!r} unsupported "
@@ -249,7 +279,8 @@ def setup(args: argparse.Namespace
                                    kv_block_size=args.kv_block_size,
                                    kv_format=kv_format, kv_pool=args.kv_pool,
                                    pool_evict=args.pool_evict,
-                                   prefill_chunk=args.prefill_chunk, obs=obs)
+                                   prefill_chunk=args.prefill_chunk, obs=obs,
+                                   **spec_kwargs)
         print(f"[kv] paged cache: {args.kv_blocks} blocks x "
               f"{args.kv_block_size} slots ({kv_format}, "
               f"{backend.kv_token_bytes} B/token)")
@@ -294,19 +325,55 @@ def setup(args: argparse.Namespace
     return serve, backend
 
 
+def draft_policy(args: argparse.Namespace, cfg, model: Model,
+                 dev: torch.device):
+    """The reference launcher's ``--spec`` policy: an n-gram policy, or a
+    draft model of ``--draft-model``'s reduced config (``--arch``'s by
+    default) with its own weights (generator seed 1), which must share the
+    target's vocabulary. Prints the ``[spec]`` line; exits for an arch
+    that cannot speculate or a draft of another vocabulary."""
+    if not spec_supported(cfg):
+        raise SystemExit(f"--spec: arch {cfg.name!r} unsupported "
+                         "(needs uniform full attention, one codebook)")
+    draft_model = draft_params = None
+    if args.spec == "draft":
+        dcfg = get_config(args.draft_model or args.arch).reduced()
+        if dcfg.vocab_size != cfg.vocab_size:
+            raise SystemExit(
+                f"--draft-model {dcfg.name!r} vocab {dcfg.vocab_size} != "
+                f"target vocab {cfg.vocab_size}")
+        draft_model = Model(dcfg, dtype=model.dtype, device=dev)
+        draft_params = draft_model.init(
+            torch.Generator(device=dev).manual_seed(1))
+    policy = make_draft_policy(args.spec, draft_model=draft_model,
+                               draft_params=draft_params)
+    print(f"[spec] policy {policy.name} depth {args.spec_n}: "
+          f"~{expected_tokens_per_step(args.spec_n, DEFAULT_ACCEPT_RATE):.2f} "
+          f"tok/step at accept rate {DEFAULT_ACCEPT_RATE}")
+    return policy
+
+
 def serve_scheduled(args: argparse.Namespace, router, backend, prompts,
                     extras, vocab_size: int, obs):
     """The reference launcher's ``--router`` drain: submit every prompt
     (tiers round-robin with ``--mixed``) to a new scheduler over
     ``backend`` and run it until idle, replaying the ``--chaos`` plan and
     writing periodic metrics between steps. Returns the scheduler and the
-    results of the requests it completed, in submission order."""
+    results of the requests it completed, in submission order. A
+    speculating backend gets a `SpecPlanner` over depths 0, ``--spec-n //
+    2`` and ``--spec-n``."""
+    spec_planner = None
+    if backend.spec_policy is not None:
+        depths = tuple(sorted({0, args.spec_n // 2, args.spec_n}))
+        spec_planner = SpecPlanner(args.spec, depths=depths,
+                                   model_name=backend.model.cfg.name)
     sched = ContinuousBatchingScheduler(
         backend, router,
         SchedulerConfig(max_batch_requests=args.max_batch,
                         max_new_tokens=args.max_new,
                         temperature=args.temperature, preempt=args.preempt,
-                        deadline_factor=args.deadline), obs=obs)
+                        deadline_factor=args.deadline), obs=obs,
+        spec_planner=spec_planner)
     chaos = None
     if args.chaos:
         from repro_torch.serving.chaos import FaultPlan, attach
@@ -345,8 +412,9 @@ def serve_scheduled(args: argparse.Namespace, router, backend, prompts,
 
 
 def report_scheduler(args: argparse.Namespace, sched, backend) -> None:
-    """The reference launcher's ``[robustness]``, ``[scheduler]`` and
-    pooled ``[kv]`` lines for one scheduled drain."""
+    """The reference launcher's ``[robustness]``, ``[scheduler]`` (with
+    each speculating batch's ``spec=`` field) and pooled ``[kv]`` lines for
+    one scheduled drain."""
     st = sched.stats()
     if st["preemptions_total"] or st["cancelled"]:
         print(f"[robustness] preemptions={st['preemptions']} "
@@ -355,6 +423,11 @@ def report_scheduler(args: argparse.Namespace, sched, backend) -> None:
               f"resume_tail/full={st['resume_tail_tokens']}/"
               f"{st['resume_full_tokens']} tokens")
     for rec in sched.records:
+        spec = ""
+        if rec.spec_n:
+            rate = (f" a={rec.spec_accept_rate:.2f}"
+                    if rec.spec_accept_rate is not None else "")
+            spec = f" spec={rec.spec_policy}:{rec.spec_n}{rate}"
         pool = ""
         if args.kv_pool:
             pool = (f" pool_hits={rec.pool_hit_blocks}"
@@ -364,7 +437,7 @@ def report_scheduler(args: argparse.Namespace, sched, backend) -> None:
               f"{rec.point_index} E={rec.energy_j * 1e3:.2f} mJ "
               f"T={rec.latency_s * 1e3:.2f} ms "
               f"queue={rec.queue_delay_s * 1e3:.2f} ms "
-              f"caps_met={rec.meets_caps}{pool}")
+              f"caps_met={rec.meets_caps}{spec}{pool}")
     if backend.prefix_pool is not None:
         resident = backend.prefix_pool.blocks_resident
         cached = resident * args.kv_block_size * backend.kv_token_bytes

@@ -147,7 +147,7 @@ class Model:
     def forward(self, params: Dict, batch: Dict,
                 cache: Optional[Dict] = None,
                 kv_len: Optional[int] = None,
-                decode: bool = False
+                decode: bool = False, logits_at: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
         """Returns (logits, cache, aux_loss); ``cache`` is the one passed in,
         updated in place (None in train mode).
@@ -156,7 +156,10 @@ class Model:
         layout (prefill: one row per unique prompt; decode: one row per
         sequence); ``kv_len`` is the logical cache length the plain paged
         path slices the gathered pools to. ``decode=True`` forces the
-        cache-attending branches even when S > 1.
+        cache-attending branches even when S > 1. ``logits_at`` projects
+        only that sequence position to the vocabulary (logits (B, 1, V)):
+        a caller that reads one position skips the head's product over the
+        others.
         """
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -214,6 +217,8 @@ class Model:
             aux_total = aux_total + aux
 
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        if logits_at is not None:
+            h = h[:, logits_at:logits_at + 1]
         if cfg.tie_embeddings:
             table = params["embed"]["table"]
             logits = h @ table.T if table.dim() == 2 else torch.einsum(

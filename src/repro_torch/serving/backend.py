@@ -48,16 +48,35 @@ A per-batch cache takes its graph with it; on the resident pool, one graph
 serves every batch of its shape (`_graph_key`), as the reference's jit
 compiles once per static shape, so a later batch of that shape replays
 from its first decode step. ``kv_format="int8"`` (paged mode only) keeps
-the KV pools in int8 with per-slot scales. Speculative decode arrives with
-a later slice of the port; its constructor arguments raise until then.
+the KV pools in int8 with per-slot scales.
+
+Speculative decode (``spec_policy=``, ``spec_n=``): with a
+`repro_torch.spec` draft policy attached, ``decode_step`` on a drafting
+batch runs draft -> verify -> commit instead of one-token sampling. The
+policy proposes n tokens from each sequence's own history, ONE verify
+forward scores them against the cache (``decode=True`` takes the
+cache-attending branches at S = n + 1), and `repro_torch.spec.verify_tokens`
+keeps the longest accepted prefix plus a correction/bonus token:
+distribution-preserving under sampling, the same tokens as plain greedy
+decode under greedy. Sampled verifies take their draws, a uniform per draft
+and a Gumbel row, from the batch's noise stream (`verify_draws`). Rollback
+is free: a verify writes the KV of all its S positions before attending,
+positions above a query's own are masked, and the next verify writes the
+span again, so rejected drafts' KV entries are overwritten, with no
+allocator traffic. Rows progress raggedly (each commits 1 to n + 1 tokens a
+step), so a batch whose rows finish at different steps allocates a slack
+of ``spec_n + 1`` token slots a sequence for the tail writes of finished
+rows (`request_blocks` prices it). On the card a batch's verifies from the
+second on replay one CUDA graph of the verify step, keyed on the pool by
+the decode graph's key plus the draft depth.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import (Callable, Deque, Dict, List, Optional, Sequence, Set,
-                    Tuple, Union)
+from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
+                    Set, Tuple, Union)
 
 import numpy as np
 import torch
@@ -68,8 +87,10 @@ from repro_torch.obs import NULL_OBS
 from repro_torch.obs.metrics import RATIO_BUCKETS
 from repro_torch.quant.quantize import param_bytes, params_quant_format
 from repro_torch.serving.graphs import (DecodeGraph, GraphStats,
-                                        StaticDecodeStep)
+                                        StaticDecodeStep, StaticVerifyStep)
 from repro_torch.serving.prefix_pool import PrefixPool
+from repro_torch.spec.policy import spec_supported
+from repro_torch.spec.verify import verify_tokens
 
 #: ``(shape, device) -> float32 tensor`` of standard Gumbel draws
 NoiseSource = Callable[[Tuple[int, ...], torch.device], torch.Tensor]
@@ -89,6 +110,30 @@ class GumbelNoise:
                        device=self.generator.device)
         u = u.clamp_min(torch.finfo(torch.float32).tiny)
         return (-torch.log(-torch.log(u))).to(device)
+
+    def verify_draws(self, rows: int, n: int, vocab: int,
+                     device: torch.device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One sampled verify step's draws: (rows, n) uniform in [0, 1),
+        then (rows, vocab) Gumbel."""
+        u = torch.rand((rows, n), generator=self.generator,
+                       dtype=torch.float32, device=self.generator.device)
+        return u.to(device), self((rows, vocab), device)
+
+
+def verify_draws(noise: NoiseSource, rows: int, n: int, vocab: int,
+                 device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The draws of one sampled verify step from a batch's noise stream:
+    ``u`` (rows, n) uniform for the accept tests and ``g`` (rows, vocab)
+    Gumbel for the correction/bonus draw. A source with a ``verify_draws``
+    method gives them itself (`GumbelNoise`; a test replaying the
+    reference's keys); from any other, ``u`` is a (rows, n) Gumbel draw
+    mapped through the Gumbel CDF ``exp(-exp(-x))``."""
+    own = getattr(noise, "verify_draws", None)
+    if own is not None:
+        return own(rows, n, vocab, device)
+    u = torch.exp(-torch.exp(-noise((rows, n), device)))
+    return u, noise((rows, vocab), device)
 
 
 def sample_tokens(logits: torch.Tensor, temperature: float,
@@ -327,6 +372,34 @@ def build_paged_layout(allocator: BlockAllocator, plen: int, max_new: int,
 
 
 @dataclass
+class SpecState:
+    """Speculative decode state of one in-flight batch.
+
+    Sequences progress *raggedly* (each verify step commits between 1 and
+    n+1 tokens a row), so per-sequence token/logprob lists replace the
+    per-step stacked arrays, ``committed`` tracks each row's emitted count,
+    and ``InFlightBatch.step`` is ``committed.min()`` (the batch retires
+    when the slowest row reaches the horizon; finished rows keep riding the
+    fixed-shape verify forward, writing only into their slack slots).
+    ``proposed``/``accepted`` feed the "spec" telemetry record that the
+    `CalibrationFitter` learns accept rates from.
+    """
+    policy: Any                        # DraftPolicy proposing the drafts
+    n: int                             # draft depth for this batch
+    committed: np.ndarray              # (B,) tokens emitted per sequence
+    histories: List[np.ndarray]        # prompt + committed tokens, per seq
+    toks: List[List[int]]              # emitted tokens per sequence
+    lps: List[List[float]]             # emitted logprobs per sequence
+    proposed: int = 0                  # draft tokens offered to verify
+    accepted: int = 0                  # draft tokens verify accepted
+    steps: int = 0                     # verify forwards run
+
+    @property
+    def accept_rate(self) -> float:
+        return self.accepted / self.proposed if self.proposed else 0.0
+
+
+@dataclass
 class PendingPrefill:
     """Prefill work of a batch that has its blocks but not yet its KV:
     ``jobs`` are (prompt idxs, start, end) token slices. A chunked prefill
@@ -341,6 +414,7 @@ class PendingPrefill:
     last_rows: List[Optional[torch.Tensor]]  # final-position logits
     rep: Union[int, np.ndarray]
     full_prefix: int                   # blocks to trie-index at finish
+    n_spec: int = 0                    # draft depth armed at finish
 
 
 @dataclass
@@ -369,6 +443,8 @@ class InFlightBatch:
     freed_seqs: Set[int] = field(default_factory=set)   # early-released rows
     graph: Optional[DecodeGraph] = None  # the decode step, on the card
     pending_prefill: Optional[PendingPrefill] = None
+    spec: Optional[SpecState] = None   # set when this batch drafts (n > 0)
+    verify_graph: Optional[DecodeGraph] = None  # its verify step, on card
 
     @property
     def n_sequences(self) -> int:
@@ -384,21 +460,21 @@ class InFlightBatch:
         return self.paged is not None and self.paged.pooled
 
 
-def _host(tok: torch.Tensor,
-          lp: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
-    """A step's sampled tokens and logprobs on the host. From the card: one
-    synchronisation a step, as the reference copies both at once
-    (non-blocking copies into pinned buffers, then one event)."""
-    if tok.is_cuda:
+def _host(*ts: torch.Tensor) -> Tuple[np.ndarray, ...]:
+    """A step's outputs (its sampled tokens and logprobs; a verify's accept
+    lengths too) on the host. From the card: one synchronisation a step,
+    as the reference copies them at once (non-blocking copies into pinned
+    buffers, then one event)."""
+    if ts[0].is_cuda:
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                for t in (tok, lp)]
-        for dst, src in zip(host, (tok, lp)):
+                for t in ts]
+        for dst, src in zip(host, ts):
             dst.copy_(src, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         done.synchronize()
-        tok, lp = host
-    return tok.numpy(), lp.numpy()
+        ts = tuple(host)
+    return tuple(t.numpy() for t in ts)
 
 
 def bucket_key(prompt: np.ndarray, max_new: int,
@@ -423,6 +499,9 @@ class ExecutionBackend:
     request at shared-prefix cost (`request_blocks`). ``kv_pool`` adds the
     resident prefix pool (``pool_evict``: ``"lru"`` reclaims idle chains,
     ``"off"`` never does), and ``prefill_chunk`` chunked prefill.
+    ``spec_policy`` (a `repro_torch.spec` draft policy) speculates in every
+    mode, at the maximum draft depth ``spec_n``; `note_spec` lowers it for
+    the next batch.
 
     ``cuda_graphs`` (on by default) decodes each batch on the card through
     a CUDA graph of its decode step; ``False`` decodes eagerly, so that a
@@ -437,8 +516,21 @@ class ExecutionBackend:
                  kv_pool: bool = False, pool_evict: str = "lru",
                  prefill_chunk: Optional[int] = None,
                  cuda_graphs: bool = True):
-        if spec_policy is not None or spec_n:
-            raise _not_yet("speculative decode (spec_policy/spec_n)", "spec")
+        # speculative decode: spec_n is the MAXIMUM draft depth; it sizes the
+        # per-sequence slack allocation, so per-batch depths noted through
+        # note_spec may only go down from it
+        self.spec_policy = spec_policy
+        self.spec_n = int(spec_n)
+        self._next_spec_n: Optional[int] = None
+        if spec_policy is not None:
+            if self.spec_n < 1:
+                raise ValueError("spec_policy requires spec_n >= 1 "
+                                 "(the maximum draft depth)")
+            if not spec_supported(model.cfg):
+                raise ValueError(
+                    f"speculative decode unsupported for arch "
+                    f"{model.cfg.name!r} (see repro_torch.spec."
+                    "spec_supported)")
         if kv_format not in ("bf16", "int8"):
             raise ValueError(f"unknown kv_format {kv_format!r} "
                              "(supported: bf16, int8)")
@@ -513,6 +605,20 @@ class ExecutionBackend:
                 "slots": reg.gauge(
                     "serving_slots_in_use",
                     "Dense KV sequence slots currently resident"),
+                "spec_proposed": reg.counter(
+                    "serving_spec_proposed_total",
+                    "Draft tokens proposed to speculative verify"),
+                "spec_accepted": reg.counter(
+                    "serving_spec_accepted_total",
+                    "Draft tokens accepted by speculative verify"),
+                "spec_accept": reg.histogram(
+                    "serving_spec_accept_rate",
+                    "Per-verify-step draft token accept rate",
+                    buckets=RATIO_BUCKETS),
+                "spec_tps": reg.gauge(
+                    "serving_spec_tokens_per_step",
+                    "Tokens committed per decode step "
+                    "(last speculative verify)"),
                 "pool_hits": reg.counter(
                     "serving_prefix_pool_hits_total",
                     "Full prefix blocks resolved from the resident "
@@ -641,11 +747,24 @@ class ExecutionBackend:
             return self.allocator.n_blocks
         return self.max_slots
 
+    def _spec_slack(self) -> int:
+        """Extra token slots per sequence a speculative backend allocates.
+
+        A verify step writes KV for all its queries before masking decides
+        acceptance: a row that already finished (``committed == max_new``)
+        still rides the fixed-shape forward with base position ``plen +
+        max_new - 1``, writing up to ``plen + max_new - 1 + n``. Slack of
+        ``spec_n + 1`` slots past the non-speculative last written position
+        (``plen + max_new - 2``) covers the worst case; priced into
+        `request_blocks` so admission stays exact."""
+        return self.spec_n + 1 if self.spec_policy is not None else 0
+
     def request_blocks(self, plen: int, max_new: int, n_samples: int,
                        prompt: Optional[np.ndarray] = None) -> int:
         """Block cost of a request at shared-prefix price: the full prefix
         blocks once, plus per-sample privates (the CoW copy of a partial
-        prefix block and the decode blocks). Mirrors `build_paged_layout`.
+        prefix block and the decode blocks). Mirrors `build_paged_layout`,
+        with the speculative slack when a draft policy is attached.
 
         With the resident prefix pool and the prompt given, the cost is
         *marginal* against `capacity_free` (free + evictable blocks): a hit
@@ -655,7 +774,8 @@ class ExecutionBackend:
         ``pool_evict="off"`` every hit is free. The lookup leaves the LRU
         order as it is."""
         bs = self.allocator.block_size
-        n_logical = max(-(-(plen + max_new - 1) // bs), 1)
+        horizon = max_new + self._spec_slack()
+        n_logical = max(-(-(plen + horizon - 1) // bs), 1)
         full_prefix = plen // bs
         shared = full_prefix
         if prompt is not None and self.prefix_pool is not None:
@@ -702,6 +822,27 @@ class ExecutionBackend:
     def note_placement(self, placement) -> None:
         self.last_placement = placement
         self.placements.append(placement)
+
+    def note_spec(self, n: int) -> None:
+        """Set the draft depth for the NEXT ``start_batch`` (the router's
+        per-batch choice; 0 runs the batch without drafting). Depths above
+        ``spec_n`` raise: the slack allocation is sized for ``spec_n``."""
+        if self.spec_policy is None:
+            raise RuntimeError("note_spec on a backend with no draft policy")
+        n = int(n)
+        if not 0 <= n <= self.spec_n:
+            raise ValueError(f"spec depth {n} outside [0, {self.spec_n}] "
+                             "(slack allocation is sized for spec_n)")
+        self._next_spec_n = n
+
+    def _consume_spec_n(self) -> int:
+        """Draft depth the next batch runs at: the noted per-batch depth if
+        the router set one, else the configured maximum."""
+        if self.spec_policy is None:
+            return 0
+        n = self._next_spec_n if self._next_spec_n is not None else self.spec_n
+        self._next_spec_n = None
+        return n
 
     def _tokens(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
@@ -751,6 +892,7 @@ class ExecutionBackend:
 
         tracer = self.obs.tracer
         t0 = time.perf_counter() if tracer.enabled else 0.0
+        n_spec = self._consume_spec_n()
         if self.prefix_pool is not None:
             h = self._start_batch_pooled(prompts, repeats, rep, base, B, plen,
                                          max_new, temperature, noise, extras)
@@ -766,7 +908,12 @@ class ExecutionBackend:
                                         max_new, temperature, noise, extras)
             prefilled = B * plen
         if h.pending_prefill is not None:
-            prefilled = 0            # each slice meters its own tokens
+            # chunked: nothing forwarded yet; each slice meters its own
+            # tokens, and the draft depth arms when the last one lands
+            prefilled = 0
+            h.pending_prefill.n_spec = n_spec
+        elif n_spec > 0:
+            self._arm_spec(h, n_spec)
         self._live[id(h)] = h
         if tracer.enabled:
             tracer.emit("prefill", t0, time.perf_counter(), clock="wall",
@@ -810,7 +957,7 @@ class ExecutionBackend:
                 f"KV slot budget exceeded: {self.slots_in_use}+{B} > "
                 f"{self.max_slots} (scheduler must check slots_free)")
         tiled_extras = {k: self._tile(v, rep) for k, v in extras.items()}
-        cache = self.model.init_cache(B, plen + max_new)
+        cache = self.model.init_cache(B, plen + max_new + self._spec_slack())
         last_logits, cache = self._prefill(self.params, self._tokens(tokens),
                                            cache, tiled_extras)
         self.slots_in_use += B
@@ -845,7 +992,8 @@ class ExecutionBackend:
                 f"KV block budget exceeded: need {need} > "
                 f"{self.allocator.blocks_free} free (scheduler must check "
                 "blocks_free)")
-        layout = build_paged_layout(self.allocator, plen, max_new, repeats)
+        layout = build_paged_layout(self.allocator, plen,
+                                    max_new + self._spec_slack(), repeats)
         try:
             cache = self.model.init_paged_cache(
                 layout.n_pool_blocks, layout.block_size,
@@ -915,7 +1063,8 @@ class ExecutionBackend:
         #    below can never reclaim a block this batch just resolved
         hit_chains = [pool.acquire(p, self._max_hit(plen), holders=k)
                       for p, k in zip(prompts, repeats)]
-        n_logical = max(-(-(plen + max_new - 1) // bs), 1)
+        horizon = max_new + self._spec_slack()
+        n_logical = max(-(-(plen + horizon - 1) // bs), 1)
         need = sum(full_prefix - len(ch) + k * (n_logical - full_prefix)
                    for ch, k in zip(hit_chains, repeats))
         # 2. make room for the tails (LRU over idle trie leaves only)
@@ -931,7 +1080,7 @@ class ExecutionBackend:
                 "(scheduler must check capacity_free)")
         # 3. static block schedule over GLOBAL ids (cannot fail past the
         #    check above)
-        layout = build_paged_layout(alloc, plen, max_new, repeats,
+        layout = build_paged_layout(alloc, plen, horizon, repeats,
                                     hit_chains=hit_chains)
         try:
             cache = self._ensure_pool_cache()
@@ -991,8 +1140,9 @@ class ExecutionBackend:
 
     def _finish_prefill(self, h: InFlightBatch) -> None:
         """The last slice landed: CoW-fan-out the shared partial block,
-        index the now-filled full-prefix chains (resident pool), and sample
-        the first token with the one-shot path's noise draw."""
+        index the now-filled full-prefix chains (resident pool), sample the
+        first token with the one-shot path's noise draw, and arm the draft
+        state if a chunked batch noted a depth."""
         pp = h.pending_prefill
         layout = h.paged
         if layout.copy_src.size > 0:
@@ -1008,6 +1158,24 @@ class ExecutionBackend:
                         layout.prefill_table[i][:pp.full_prefix]])
         self._first_token(h, torch.stack(pp.last_rows), pp.rep)
         h.pending_prefill = None
+        if pp.n_spec > 0:
+            self._arm_spec(h, pp.n_spec)
+
+    def _arm_spec(self, h: InFlightBatch, n: int) -> None:
+        """Start ``h``'s draft state at depth ``n`` from its first token:
+        each row's history is its prompt and that token."""
+        first, lp0 = h.out_toks[0], h.out_lps[0]
+        hists: List[np.ndarray] = []
+        for prompt, k in zip(h.prompts, h.repeats):
+            p = np.asarray(prompt, np.int64).ravel()
+            for _ in range(k):
+                i = len(hists)
+                hists.append(np.concatenate([p, first[i:i + 1].astype(
+                    np.int64)]))
+        h.spec = SpecState(
+            policy=self.spec_policy, n=n,
+            committed=np.ones(h.n_sequences, np.int64), histories=hists,
+            toks=[[int(t)] for t in first], lps=[[float(x)] for x in lp0])
 
     def _prefill_chunk_step(self, h: InFlightBatch) -> None:
         """Run ONE pending prefill slice: the unit a ``decode_step`` call
@@ -1071,6 +1239,8 @@ class ExecutionBackend:
         if h.pending_prefill is not None:
             self._prefill_chunk_step(h)
             return True
+        if h.spec is not None:
+            return self._spec_decode_step(h)
         if h.done:
             return False
         tracer = self.obs.tracer
@@ -1168,6 +1338,154 @@ class ExecutionBackend:
                                 self.model.cfg.padded_vocab,
                                 sampled=h.temperature > 0, inputs=inputs)
 
+    # ------------------------------------------------------ speculative decode
+    def _spec_decode_step(self, h: InFlightBatch) -> bool:
+        """One draft -> verify -> commit round of a speculative batch.
+
+        Rows progress raggedly: each commits ``accept_len + 1`` tokens,
+        clamped to its remaining horizon room; a finished row stays in the
+        fixed-shape verify (its writes land in the slack slots, see
+        `_spec_slack`) but commits nothing. Early-released rows
+        (``freed_seqs``) keep committing as the non-speculative path keeps
+        sampling them (their tokens just stop counting toward metrics), so
+        a release between verify steps touches the allocator exactly once a
+        block, never the in-flight verify state."""
+        if h.done:
+            return False
+        sp = h.spec
+        tracer = self.obs.tracer
+        t_step = time.perf_counter() if tracer.enabled else 0.0
+        B = h.n_sequences
+        n = sp.n
+        drafts = np.asarray(sp.policy.propose(sp.histories, n), np.int32)
+        if drafts.shape != (B, n):
+            raise ValueError(f"draft policy {sp.policy.name!r} returned "
+                             f"shape {drafts.shape}, expected {(B, n)}")
+        t_draft = time.perf_counter() if tracer.enabled else 0.0
+        if tracer.enabled:
+            tracer.emit("draft", t_step, t_draft, clock="wall",
+                        policy=sp.policy.name, n=n, n_sequences=B)
+        last = np.asarray([row[-1] for row in sp.toks], np.int32)
+        toks_in = np.concatenate([last[:, None], drafts], axis=1)
+        base_pos = np.asarray(h.plen + sp.committed - 1, np.int32)
+        accept_len, out_tokens, out_lps = self._verify(h, toks_in, base_pos)
+
+        emitted = 0             # metric-visible tokens (non-released rows)
+        committed_this = 0      # tokens committed by rows still decoding
+        accepted_this = 0
+        active = 0
+        for b in range(B):
+            room = h.max_new - int(sp.committed[b])
+            if room <= 0:
+                continue        # finished row: verify output discarded
+            active += 1
+            a = int(accept_len[b])
+            accepted_this += a
+            sp.proposed += n
+            sp.accepted += a
+            e = min(a + 1, room)
+            new = out_tokens[b, :e]
+            sp.toks[b].extend(int(t) for t in new)
+            sp.lps[b].extend(float(x) for x in out_lps[b, :e])
+            sp.histories[b] = np.concatenate(
+                [sp.histories[b], new.astype(np.int64)])
+            sp.committed[b] += e
+            committed_this += e
+            if b not in h.freed_seqs:
+                emitted += e
+        sp.steps += 1
+        h.step = int(sp.committed.min())
+        if tracer.enabled:
+            now = time.perf_counter()
+            tracer.emit("verify", t_draft, now, clock="wall", n=n,
+                        n_sequences=B, accepted=accepted_this)
+            tracer.emit("decode", t_step, now, clock="wall", step=h.step,
+                        n_sequences=B)
+        if self._m is not None:
+            self._m["tokens_out"].inc(emitted)
+            if active and n > 0:
+                self._m["spec_proposed"].inc(active * n)
+                self._m["spec_accepted"].inc(accepted_this)
+                self._m["spec_accept"].observe(accepted_this / (active * n))
+                self._m["spec_tps"].set(committed_this / active)
+        return not h.done
+
+    def _verify(self, h: InFlightBatch, toks_in: np.ndarray,
+                base_pos: np.ndarray) -> Tuple[np.ndarray, ...]:
+        """One verify forward of ``h`` over ``toks_in`` (B, n + 1) from
+        ``base_pos`` (B,); returns (accept_len, out_tokens, out_lps) on the
+        host. A sampled batch draws its uniforms and Gumbel row from its
+        noise stream first (outside any graph). On the card the first
+        verify of a batch runs eagerly and later ones replay its verify
+        graph; on the resident pool one graph serves every batch of the
+        decode graph's key and the draft depth, and a batch whose shape has
+        one replays it from its first verify."""
+        B, n_q = toks_in.shape
+        greedy = h.temperature == 0.0
+        toks, pos = self._tokens(toks_in), self._tokens(base_pos)
+        draws = {} if greedy else dict(zip("ug", verify_draws(
+            h.noise, B, n_q - 1, self.model.cfg.padded_vocab, self.device)))
+        shared = h.pooled
+        if h.verify_graph is None and self._graphs_on(h):
+            key = (self._graph_key(h) + ("verify", n_q - 1, greedy)
+                   if shared else None)
+            h.verify_graph = self._pool_graphs.get(key)
+            if h.verify_graph is None and h.spec.steps >= 1:
+                # no fallback: a capture that fails raises
+                t_cap = time.perf_counter()
+                h.verify_graph = DecodeGraph.capture(
+                    self._static_verify(h, n_q - 1, shared))
+                self.graph_stats.verify_captures += 1
+                self.graph_stats.capture_s += time.perf_counter() - t_cap
+                self.graph_stats.pool_bytes += h.verify_graph.pool_bytes
+                if shared:
+                    self._pool_graphs[key] = h.verify_graph
+        if h.verify_graph is not None:
+            batch = dict(inputs=self._decode_inputs(h)) if shared else {}
+            out = h.verify_graph.replay(toks, pos, **draws, **batch)
+            self.graph_stats.verify_replays += 1
+        else:
+            out = self._verify_fn(h, self._decode_inputs(h))(
+                toks, pos, draws.get("u"), draws.get("g"))
+        return _host(*out)
+
+    def _verify_fn(self, h: InFlightBatch, inputs: Dict[str, torch.Tensor]):
+        """The reference's ``_spec_verify`` for ``h``: ``(toks (B, n + 1),
+        base_pos (B,) int32, u, g) -> (accept_len, out_tokens, out_lps)``,
+        one forward at S = n + 1 with ``decode=True`` over the batch's
+        cache (updated in place: the S positions are written before they
+        are attended), then `verify_tokens`. Rows progress raggedly, so
+        each has its own base position. Closes over the batch's state, not
+        the handle."""
+        cache, temp = self._cache(h), h.temperature
+        kv_len = h.paged.kv_len if h.paged is not None else None
+        mrope = bool(self.model.cfg.mrope_sections)
+
+        def verify(toks, base_pos, u, g):
+            B, n_q = toks.shape
+            pos = base_pos[:, None] + torch.arange(
+                n_q, dtype=torch.int32, device=toks.device)[None]
+            if mrope:
+                pos = pos[..., None].expand(B, n_q, 3)
+            logits, _, _ = self.model.forward(
+                self.params, {"tokens": toks, "positions": pos, **inputs},
+                cache, kv_len=kv_len, decode=True)
+            return verify_tokens(logits, toks[:, 1:], temp, temp == 0.0,
+                                 u, g)
+        return verify
+
+    def _static_verify(self, h: InFlightBatch, n: int,
+                       shared: bool) -> StaticVerifyStep:
+        """The body of ``h``'s verify graph at depth ``n``; a graph shared
+        by the batches of one shape reads static copies of the decode
+        inputs, which each replay refills from its batch's."""
+        inputs = self._decode_inputs(h)
+        if shared:
+            inputs = {k: v.clone() for k, v in inputs.items()}
+        return StaticVerifyStep(self._verify_fn(h, inputs), h.n_sequences, n,
+                                self.model.cfg.padded_vocab, self.device,
+                                sampled=h.temperature > 0, inputs=inputs)
+
     def release(self, h: InFlightBatch) -> None:
         """Return a batch's remaining KV budget (blocks or slots). Raises on
         an unknown or already-released handle."""
@@ -1185,6 +1503,7 @@ class ExecutionBackend:
         h.freed_seqs = set(range(h.n_sequences))
         h.cache = None                     # the KV memory goes with the batch
         h.graph = None                     # and a per-batch graph with it
+        h.verify_graph = None
         self._note_occupancy()
 
     def release_sequences(self, h: InFlightBatch,
@@ -1222,8 +1541,16 @@ class ExecutionBackend:
     def finalize(self, h: InFlightBatch) -> List[GenerationResult]:
         """Stack per-step samples into per-request results and release the
         batch's KV budget."""
-        toks = np.stack(h.out_toks, axis=1)             # (B, T)
-        lps = np.stack(h.out_lps, axis=1)               # (B, T)
+        if h.spec is not None:
+            # ragged per-sequence lists -> (B, max_new); the commit clamp
+            # means done implies every row holds exactly max_new tokens
+            toks = np.asarray([row[:h.max_new] for row in h.spec.toks],
+                              np.int64)
+            lps = np.asarray([row[:h.max_new] for row in h.spec.lps],
+                             np.float32)
+        else:
+            toks = np.stack(h.out_toks, axis=1)         # (B, T)
+            lps = np.stack(h.out_lps, axis=1)           # (B, T)
         results = []
         offset = 0
         for prompt, ns in zip(h.prompts, h.repeats):

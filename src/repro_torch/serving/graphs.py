@@ -12,8 +12,14 @@ decode step is one ``torch.cuda.CUDAGraph``:
   its sampled tokens back into the token buffer, so the ids stay on the
   device from one step to the next. It runs eagerly on any device, which
   is how the CPU tests hold it to the plain decode step.
-* `DecodeGraph.capture` records the body once; `DecodeGraph.replay` fills
-  the position and the noise, replays, and returns the static outputs.
+* `StaticVerifyStep` is the body of a speculating batch's verify step
+  (`repro_torch.serving.backend`): one forward at S = n + 1 over static
+  buffers of the tokens (the last committed token and the n drafts), each
+  row's base position and, when it samples, the uniform and Gumbel draws
+  of `repro_torch.spec.verify_tokens`; it returns the accept lengths, the
+  committed tokens and their logprobs.
+* `DecodeGraph.capture` records a body once; `DecodeGraph.replay` fills
+  its inputs, replays, and returns the static outputs.
 
 A batch over its own cache owns its graph
 (`repro_torch.serving.backend.InFlightBatch`): captured at the batch's
@@ -28,7 +34,10 @@ eagerly and pays each kernel's first-use work (planners,
 ``cudaFuncSetAttribute``, TMA descriptors, workspace growth) outside the
 capture. A decode step is not idempotent (it writes a KV slot and advances
 the SSM state), so no extra run of the body warms the capture up: the
-capture executes nothing, and the replay that follows it is the step.
+capture executes nothing, and the replay that follows it is the step. A
+verify step is keyed and warmed the same way: a batch's first verify runs
+eagerly, and its later ones replay one graph (on the pool, one a shape and
+draft depth).
 
 A graph keeps alive what it addresses: the body (and through it the cache,
 weights and buffers), the split kernels' workspaces handed out during the
@@ -53,17 +62,26 @@ if TYPE_CHECKING:
 #: logprobs (B,))``: one batch's decode step over its cache
 DecodeFn = Callable[[torch.Tensor, torch.Tensor, Callable],
                     Tuple[torch.Tensor, torch.Tensor]]
+#: ``(token ids (B, n + 1), base positions (B,) int32, u (B, n) or None,
+#: g (B, vocab) or None) -> (accept_len (B,), tokens (B, n + 1), logprobs
+#: (B, n + 1))``: one speculating batch's verify step over its cache
+VerifyFn = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+                     Optional[torch.Tensor]],
+                    Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
 @dataclass
 class GraphStats:
-    """A backend's graph work: captures, the host seconds they took (the
-    Python of one decode step, and the graph's instantiation), replays,
-    and the bytes the captures' private memory pools reserved."""
+    """A backend's graph work: decode-step captures and replays, verify-step
+    captures and replays (speculating batches), the host seconds all
+    captures took (the Python of one step, and the graph's instantiation),
+    and the bytes their private memory pools reserved."""
     captures: int = 0
     capture_s: float = 0.0
     replays: int = 0
     pool_bytes: int = 0
+    verify_captures: int = 0
+    verify_replays: int = 0
 
 
 class StaticDecodeStep:
@@ -88,6 +106,10 @@ class StaticDecodeStep:
         self.pos = torch.zeros((B, 1), dtype=torch.int32, device=dev)
         self.noise = (torch.zeros((B, vocab), dtype=torch.float32,
                                   device=dev) if sampled else None)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok.device
 
     def load(self, step_pos: int, noise: NoiseSource,
              tok: Optional[torch.Tensor] = None,
@@ -127,12 +149,71 @@ class StaticDecodeStep:
         return self()
 
 
-class DecodeGraph:
-    """A captured `StaticDecodeStep`: the graph, its outputs, the kernel
-    launches one replay makes, and the workspaces it addresses."""
+class StaticVerifyStep:
+    """One speculating batch's verify step over static buffers: the body a
+    verify graph captures.
 
-    def __init__(self, step: StaticDecodeStep, graph,
-                 outputs: Tuple[torch.Tensor, torch.Tensor],
+    ``toks`` (B, n + 1) int32 holds the last committed token and the n
+    drafts of each row, ``base_pos`` (B,) int32 each row's position of
+    ``toks[:, 0]``, and, when ``sampled``, ``u`` (B, n) and ``g`` (B,
+    vocab) f32 the step's uniform and Gumbel draws; `load` fills them, and
+    copies another batch's decode inputs into ``inputs`` when the step
+    serves more than one batch."""
+
+    def __init__(self, verify: VerifyFn, rows: int, n: int, vocab: int,
+                 device: torch.device, sampled: bool,
+                 inputs: Optional[Dict[str, torch.Tensor]] = None):
+        self.verify = verify
+        self.inputs = inputs if inputs is not None else {}
+        self.toks = torch.zeros((rows, n + 1), dtype=torch.int32,
+                                device=device)
+        self.base_pos = torch.zeros((rows,), dtype=torch.int32,
+                                    device=device)
+        self.u = self.g = None
+        if sampled:
+            self.u = torch.zeros((rows, n), dtype=torch.float32,
+                                 device=device)
+            self.g = torch.zeros((rows, vocab), dtype=torch.float32,
+                                 device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.toks.device
+
+    def load(self, toks: torch.Tensor, base_pos: torch.Tensor,
+             u: Optional[torch.Tensor] = None,
+             g: Optional[torch.Tensor] = None,
+             inputs: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """Fill the step's tokens, base positions and (sampled) draws, and
+        with ``inputs`` a batch's decode inputs, by name."""
+        self.toks.copy_(toks)
+        self.base_pos.copy_(base_pos)
+        if (self.u is None) != (u is None) or (self.g is None) != (g is None):
+            raise ValueError("the verify step's draws do not match its "
+                             "static buffers (sampled and greedy differ)")
+        if self.u is not None:
+            self.u.copy_(u)
+            self.g.copy_(g)
+        for name, value in (inputs or {}).items():
+            self.inputs[name].copy_(value)
+
+    def __call__(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return self.verify(self.toks, self.base_pos, self.u, self.g)
+
+    def run(self, *args, **batch
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """`load` (the same arguments), then the step, eagerly."""
+        self.load(*args, **batch)
+        return self()
+
+
+class DecodeGraph:
+    """A captured step (a `StaticDecodeStep` or a `StaticVerifyStep`): the
+    graph, its outputs, the kernel launches one replay makes, and the
+    workspaces it addresses."""
+
+    def __init__(self, step, graph,
+                 outputs: Tuple[torch.Tensor, ...],
                  launches: Dict[str, int], held: List[torch.Tensor],
                  pool_bytes: int = 0):
         self.step = step
@@ -143,7 +224,7 @@ class DecodeGraph:
         self.pool_bytes = pool_bytes
 
     @classmethod
-    def capture(cls, step: StaticDecodeStep) -> "DecodeGraph":
+    def capture(cls, step) -> "DecodeGraph":
         """Capture ``step`` on its CUDA device, in PyTorch's default
         (global) capture mode, on a side stream. Nothing runs on the card;
         a capture that fails raises.
@@ -155,7 +236,7 @@ class DecodeGraph:
         ``torch.cuda.graph`` instead collects garbage and empties the
         allocator's cache before every capture, which costs time once a
         batch; so the capture calls ``capture_begin`` / ``capture_end``."""
-        dev = step.tok.device
+        dev = step.device
         graph = torch.cuda.CUDAGraph()
         reserved = torch.cuda.memory_reserved(dev)
         before = kernels.launch_counts()
@@ -182,16 +263,17 @@ class DecodeGraph:
         return cls(step, graph, outputs, launches, list(held.values()),
                    torch.cuda.memory_reserved(dev) - reserved)
 
-    def replay(self, step_pos: int, noise: NoiseSource,
-               **batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The step at ``step_pos``: load the inputs (``batch``: the
-        ``tok`` and ``inputs`` of the batch replaying a shared graph),
-        replay, and count the captured launches. Returns the outputs, which
-        the next replay overwrites."""
-        self.step.load(step_pos, noise, **batch)
+    def replay(self, *args, **batch) -> Tuple[torch.Tensor, ...]:
+        """Load the step's inputs (``step.load(*args, **batch)``: for a
+        decode step its position and noise, and the ``tok`` and ``inputs``
+        of the batch replaying a shared graph), replay, and count the
+        captured launches. Returns the outputs, which the next replay
+        overwrites."""
+        self.step.load(*args, **batch)
         self.graph.replay()
         kernels.add_launches(self.launches)
         return self.outputs
 
 
-__all__ = ["DecodeGraph", "GraphStats", "StaticDecodeStep"]
+__all__ = ["DecodeGraph", "GraphStats", "StaticDecodeStep",
+           "StaticVerifyStep"]

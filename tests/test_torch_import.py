@@ -28,6 +28,8 @@ MODULES = [
     "repro_torch.serving.scheduler", "repro_torch.serving.chaos",
     "repro_torch.core.sampling", "repro_torch.qeil2",
     "repro_torch.qeil2.runtime", "repro_torch.qeil2.telemetry",
+    "repro_torch.spec", "repro_torch.spec.policy", "repro_torch.spec.verify",
+    "repro_torch.spec.routing",
 ]
 FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)"
@@ -47,7 +49,8 @@ def test_import_leaves_jax_and_the_reference_out():
 
 
 def test_no_source_of_the_port_imports_jax_or_the_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "scripts").glob("port_*.py"))
     assert len(files) > 30
     bad = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
            for f in files

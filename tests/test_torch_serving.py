@@ -188,9 +188,17 @@ def test_metrics_and_spans_count_the_work(pair):
 
 
 def test_unported_backend_options_say_so(pair):
+    """Multi-codebook serving is the backend option still unported; a draft
+    depth without a draft policy is accepted and ignored, as in the
+    reference (speculative decode is ported: tests/test_torch_spec.py)."""
+    import dataclasses
+    from repro_torch.models import Model
     _, _, tm, tp = pair
+    multi = Model(dataclasses.replace(tm.cfg, n_codebooks=2),
+                  dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        TBackend(tm, tp, spec_n=2)
+        TBackend(multi, tp)
+    assert TBackend(tm, tp, spec_n=2)._spec_slack() == 0
 
 
 @pytest.mark.parametrize("paged", [False, True])
