@@ -99,7 +99,9 @@ Phases, each of which fails the script on error:
    warm): the kernel path must equal the plain path (tokens, and
    log-probabilities within 1e-3), the per-batch paged serve (tokens) and
    the chunked serve (``prefill_chunk=64``: tokens, and log-probabilities
-   within 1e-3). Before
+   within 1e-3), each with one graph capture for both rounds (the
+   per-batch paged round 2 prefills into round 1's cache arena and replays
+   its graph from its first decode step). Before
    them, as information and not a gate, the same greedy comparison in
    bf16, where the new tensor-core kernels run: granite at its 2 MoE
    layers (dense) and chatglm3-6b at 2 layers in int4 and in int8 weights
@@ -129,7 +131,11 @@ Phases, each of which fails the script on error:
    hits the pool, the paged decode kernel launched and flash did not, and
    the allocator ends holding only the pool's resident blocks. The
    per-batch paged drain fails unless every request completes, flash and
-   the paged decode kernel launched, and no block stays in use. Each
+   the paged decode kernel launched, no block stays in use, and its graph
+   captures and replays equal the rehearsal's (4 and 207: one capture a
+   shape, each later batch of a shape taking a retired batch's cache
+   arena and graph; one capture a batch gave 7 for its 10 batches), and
+   prints its wall beside the walls of one capture a batch. Each
    prints its wall time, tok/s, batches (point, energy, latency, caps),
    preemptions, blocks released early, pool hits, prefill bytes saved,
    graph captures, their ms and replays, and the F8 count (how often a
@@ -151,10 +157,11 @@ Phases, each of which fails the script on error:
    ``--seed`` + 1) paged at 0.8. Each run fails unless every sample holds
    32 in-vocabulary tokens, no step decodes one token (no decode graph;
    neither decode kernel launched), flash launched 28 times a per-batch
-   prefill and never on the pool, each batch captured one verify graph at
-   its second verify and replayed it for every later one (on the pool one
-   graph for both rounds, and round 2 found 96 blocks cached), and only
-   the pool's resident blocks stay in use; the int4 run unless
+   prefill and never on the pool, one verify graph was captured a shape,
+   at the second verify of its first batch, and replayed for every later
+   verify (on the pool one graph for both rounds, and round 2 found 96
+   blocks cached), and only the pool's resident blocks stay in use; the
+   int4 run unless
    ``dequant_matmul_int4`` launched 196 times a forward (its prefill and
    every verify). Each prints its wall, tok/s, verify forwards, tokens
    committed a forward, accept rate, host ms a verify and a ``propose``
@@ -169,8 +176,36 @@ Phases, each of which fails the script on error:
    greedy decode's tokens and the plain path's speculative serve's, with
    log-probabilities within 1e-3, and the eager verify's
    (``cuda_graphs=False``) tokens, its largest log-probability difference
-   printed.
-7. Print the script's wall time (the build included), the ``kernels``
+   printed. Then MoE speculative decode: full-width, full-depth
+   granite-moe-3b-a800m in bf16, ngram at depth 4, per-batch paged (224
+   blocks), the serve's traffic at temperature 0.8 and greedy, each held
+   to the gates above (flash 32 times at the prefill) and to ``moe_gemm``
+   launching 96 times a forward (3 per MoE layer: the prefill and every
+   verify); then f32 at full width and 2 MoE layers, greedy, dense and
+   per-batch paged: the kernel path's speculative serve must equal the
+   plain path's (tokens, log-probabilities within 1e-3) and the eager
+   verify's (tokens); its agreement with plain greedy decode is printed,
+   not gated (an MoE layer's expert capacity depends on the forward's
+   token count, so a verify at S = 5 may drop other tokens than one-token
+   steps).
+7. The calibration loop on the card: `repro_torch.launch.profile` times
+   the reference profile's five jobs (f32: flash attention on the scalar
+   route, dense decode, the SSD chunk's scalar-FMA route, the tiled int8
+   and int4 dequant-matmul), 5 reps each after a warm call, into a
+   TraceStore JSONL; `repro_torch.launch.calibrate` fits it (``--trace``)
+   and `CalibrationProfile.load` reads the profile; then phase 5's
+   chatglm3-6b PGSAM anneal and router run without and with a
+   `CalibratedSignalProvider` over it. It fails unless every record ran on
+   the card in a positive time, the fit gives exactly the eta keys
+   ``flash_attention``, ``decode_attention``, ``ssd_scan``,
+   ``dequant_matmul:int8`` and ``dequant_matmul:int4``, and each of the
+   five kernels launched reps + 1 times and no other kernel launched. It
+   prints each key's mean and roofline us and fitted eta with its
+   interval, and the interactive, standard and economy tiers' routed
+   points without and with the profile (information: at these launch-bound
+   shapes eta sits near its floor of 1e-3, and 1/eta stretches every
+   measured stage).
+8. Print the script's wall time (the build included), the ``kernels``
    JSON line, the card again, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -251,11 +286,15 @@ POOL = dict(kv_blocks=512, kv_block_size=16, system_len=192, rounds=2)
 # probability 0.5
 STREAM = dict(requests=24, offered_load=1.6, samples=4, max_new=32,
               temperature=0.8, max_batch=4, inflight=2)
-# what the CPU rehearsal of phase 5's bf16 drains gave (2 layers, f32, the
-# capture stand-in of .claude/skills/verify/SKILL.md): per batch its
-# request ids, tier counts (interactive, standard, economy), point index,
-# pool hit blocks and preemption; the blocks released early; the
-# preemptions; the graph captures and replays, pooled and per-batch paged
+# what the CPU rehearsal of phase 5's bf16 drains gave (a small f32 model
+# of chatglm3-6b's vocabulary, the capture stand-in of
+# .claude/skills/verify/SKILL.md; tests/test_torch_graph_arena.py reruns
+# it): per batch of the pooled drain its request ids, tier counts
+# (interactive, standard, economy), point index, pool hit blocks and
+# preemption; its blocks released early, its preemptions and its graph
+# captures and replays; and the per-batch paged drain's graph captures and
+# replays, one capture a shape (its 10 batches made 7 before the cache
+# arenas)
 STREAM_REHEARSAL = dict(
     records=[[[0], [0, 0, 1], 0, 0, "tier"],
              [[1, 2, 3, 4], [0, 3, 1], 12, 48, None],
@@ -267,13 +306,14 @@ STREAM_REHEARSAL = dict(
              [[13, 14, 15, 16], [1, 2, 1], 12, 48, None],
              [[17, 18, 19, 20], [3, 1, 0], 12, 48, None],
              [[21, 22, 23], [0, 2, 1], 12, 36, None]],
-    released=144, preemptions={"tier": 3}, graphs=[3, 208])
+    released=144, preemptions={"tier": 3}, graphs=[3, 208],
+    paged_graphs=[4, 207])
 # phase 6, speculative decode: the draft depth of every speculating serve,
 # the depths the scheduled drain's planner prices, the layers of the draft
 # model of the draft run
 SPEC = dict(n=4, depths=(0, 2, 4), draft_layers=2)
-# what the CPU rehearsal of phase 6's scheduled drain gave (2 layers, f32,
-# the capture stand-in, as STREAM_REHEARSAL): per batch its request ids,
+# what the CPU rehearsal of phase 6's scheduled drain gave (as
+# STREAM_REHEARSAL): per batch its request ids,
 # tier counts, point index, pool hit blocks, preemption and draft depth;
 # the decode and the verify graphs' captures and replays; and, not gated
 # (a draft that a row of the card's bf16 model accepts changes them), the
@@ -294,6 +334,19 @@ SPEC_STREAM_REHEARSAL = dict(
              [[23], [0, 1, 0], 12, 12, None, 4],
              [[22], [0, 0, 1], 0, 64, None, 4]],
     graphs=[0, 0], verify_graphs=[4, 266], proposed=11744, accepted=0)
+# phase 6's MoE speculating serves: the arch, and the MoE layers of its f32
+# parity run
+SPEC_MOE = dict(arch="granite-moe-3b-a800m", parity_layers=2)
+# phase 7, the calibration loop: timed reps a profiled kernel (after one warm
+# call each), the bootstrap resamples of the fit, and the eta keys it must
+# fit
+CALIBRATION = dict(reps=5, bootstrap=200,
+                   eta_keys=("decode_attention", "dequant_matmul:int4",
+                             "dequant_matmul:int8", "flash_attention",
+                             "ssd_scan"),
+                   kernels=("flash_attention", "decode_attention",
+                            "ssd_scan", "dequant_matmul_int8",
+                            "dequant_matmul_int4"))
 # the f32 parity of the SSM archs: layers, and a prompt length that crosses
 # a 256-row chunk and pads a tail
 SSM_PARITY = {"mamba2-370m": 2, "jamba-v0.1-52b": 8}
@@ -1512,7 +1565,9 @@ def parity_pooled(cfg, mk, mp, params, seed: int) -> None:
     in two rounds (cold, then warm), greedy, 2 samples, 16 new tokens,
     through the kernel path and the plain path on a pool each, the
     per-batch paged serve and the chunked one (``prefill_chunk=64``), all
-    decoding through CUDA graphs. Raises unless the kernel path gives the
+    decoding through CUDA graphs, one capture for both rounds (the
+    per-batch paged round 2 takes round 1's cache arena and graph). Raises
+    unless the kernel path gives the
     plain path's tokens with log-probabilities within 1e-3, the paged
     serve's tokens and the chunked serve's tokens with log-probabilities
     within 1e-3."""
@@ -1525,7 +1580,7 @@ def parity_pooled(cfg, mk, mp, params, seed: int) -> None:
     for name, model, kw, graphs in (
             ("kernel", mk, pooled, (1, 2 * (new - 1) - 1)),
             ("plain", mp, pooled, (1, 2 * (new - 1) - 1)),
-            ("paged", mk, base, (2, 2 * (new - 2))),
+            ("paged", mk, base, (1, 2 * (new - 1) - 1)),
             ("chunked", mk, dict(pooled, prefill_chunk=64),
              (1, 2 * (new - 1) - 1))):
         info, backend = serve_rounds(model, params, rounds, seed, kw, k, new,
@@ -1734,12 +1789,19 @@ def check_stream(run: str, out: dict, cfg, pooled: bool) -> dict:
                          for r in sched.records])
 
 
-def check_stream_rehearsal(run: str, out: dict) -> None:
-    """Hold the pooled bf16 drain to the CPU rehearsal (STREAM_REHEARSAL):
-    its batch records, blocks released early, preemptions and graph
-    captures and replays; at least one tier preemption, whose requests
-    resumed and completed; every batch after the first hit the pool."""
+def check_stream_rehearsal(run: str, out: dict, pooled: bool) -> None:
+    """Hold a bf16 drain to the CPU rehearsal (STREAM_REHEARSAL): the
+    per-batch paged drain's graph captures and replays; the pooled drain's
+    batch records, blocks released early, preemptions and graph captures
+    and replays, at least one tier preemption, whose requests resumed and
+    completed, and every batch after the first a pool hit."""
     sched, gs = out["sched"], out["backend"].graph_stats
+    if not pooled:
+        got = [gs.captures, gs.replays]
+        if got != STREAM_REHEARSAL["paged_graphs"]:
+            raise AssertionError(f"{run}: graphs {got}, the CPU rehearsal "
+                                 f"gave {STREAM_REHEARSAL['paged_graphs']}")
+        return
     st = sched.stats()
     got = dict(records=stream_records(sched), released=out["released"],
                preemptions=st["preemptions"],
@@ -1828,9 +1890,12 @@ def serve_stream(seed: int) -> dict:
         out = run_stream(model, params, router, arrivals, seed, kw,
                          STREAM["temperature"])
         infos[run] = info = check_stream(run, out, cfg, is_pooled)
+        if not is_pooled:
+            # the walls this drain took on an H100 80GB HBM3 at 700 W when
+            # each batch captured its own graph, beside this run's
+            info["walls_before_arenas_s"] = [3.434, 3.675]
         emit("serve-stream", info)
-        if is_pooled:
-            check_stream_rehearsal(run, out)
+        check_stream_rehearsal(run, out, is_pooled)
         counts[run] = out["launches"]
         del out
     del params
@@ -1910,10 +1975,10 @@ def spec_serve(run: str, model, params, rounds, seed: int, backend_kw: dict,
     in-vocabulary tokens (`serve_rounds`); no S = 1 decode step (no decode
     graph, and with ``kernels`` neither decode kernel launched) and flash
     launched once a layer a per-batch prefill and never on the pool; one
-    verify graph captured a per-batch batch, or one for the pool's shape,
-    and every other verify a replay; no block left in use but the pool's
-    resident ones. Returns (the printed numbers, the per-round info, the
-    backend)."""
+    verify graph captured a shape (rows and prompt length; off the pool,
+    unique prompts too: they size a per-batch pool), and every other verify
+    a replay; no block left in use but the pool's resident ones. Returns
+    (the printed numbers, the per-round info, the backend)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     reset_launch_counts()
     info, backend = serve_rounds(
@@ -1929,9 +1994,11 @@ def spec_serve(run: str, model, params, rounds, seed: int, backend_kw: dict,
     pooled = backend.prefix_pool is not None
     st = backend.graph_stats
     graphed = backend.cuda_graphs
-    want = dict(verify_captures=(1 if pooled else len(handles)) * graphed,
-                verify_replays=(steps - (1 if pooled else len(handles)))
-                * graphed,
+    shapes = len({(h.n_sequences, h.plen) + (() if pooled else
+                                             (len(h.repeats),))
+                  for h in handles})
+    want = dict(verify_captures=shapes * graphed,
+                verify_replays=(steps - shapes) * graphed,
                 captures=0, replays=0)
     got = dict(verify_captures=st.verify_captures,
                verify_replays=st.verify_replays, captures=st.captures,
@@ -2169,28 +2236,206 @@ def spec_parity(seed: int) -> None:
                                         1e-3),
                                        ("eager verify", runs["eager"][1],
                                         None)):
-                for r, (a, b) in enumerate(zip(runs["kernel"][1], ref)):
-                    equal = int((a["tokens"] == b["tokens"]).all(
-                        axis=1).sum())
-                    n = a["tokens"].shape[0]
-                    lp_err = max(abs(x - y) for ra, rb in zip(
-                        a["results"], b["results"])
-                        for x, y in zip(ra.logprobs, rb.logprobs))
-                    emit("parity-f32", dict(
-                        arch=cfg.name, mode=f"spec {kind} {mode} vs {other}",
-                        round=r + 1, layers=cfg.n_layers, weights="f32",
-                        sequences=n, tokens_equal=equal,
-                        max_logprob_diff=lp_err, tol=lp_tol,
-                        verify_forwards=spec["verify_forwards"],
-                        accept_rate=spec["accept_rate"]))
-                    if equal != n or (lp_tol is not None
-                                      and lp_err > lp_tol):
-                        raise AssertionError(
-                            f"f32 spec parity ({kind} {mode}) against "
-                            f"{other}, round {r + 1}: {equal}/{n} sequences "
-                            f"equal, logprob diff {lp_err:.3e}")
+                spec_pair(cfg, f"spec {kind} {mode} vs {other}", spec,
+                          runs["kernel"][1], ref, lp_tol)
     del params
     torch.cuda.empty_cache()
+
+
+def spec_pair(cfg, label: str, spec: dict, runs_a, runs_b,
+              lp_tol: Optional[float], gate: bool = True) -> None:
+    """Print the agreement of two speculating serves' rounds (``spec``:
+    the first's printed numbers): equal sequences and the largest
+    log-probability difference. With ``gate``, raise unless every sequence
+    is equal and, with ``lp_tol``, every log-probability within it."""
+    for r, (a, b) in enumerate(zip(runs_a, runs_b)):
+        equal = int((a["tokens"] == b["tokens"]).all(axis=1).sum())
+        n = a["tokens"].shape[0]
+        lp_err = max(abs(x - y) for ra, rb in zip(a["results"],
+                                                   b["results"])
+                     for x, y in zip(ra.logprobs, rb.logprobs))
+        emit("parity-f32" if gate else "agreement-f32", dict(
+            arch=cfg.name, mode=label, round=r + 1, layers=cfg.n_layers,
+            weights="f32", sequences=n, tokens_equal=equal,
+            token_share=float((a["tokens"] == b["tokens"]).mean()),
+            max_logprob_diff=lp_err, tol=lp_tol if gate else None,
+            verify_forwards=spec["verify_forwards"],
+            accept_rate=spec["accept_rate"]))
+        if gate and (equal != n or (lp_tol is not None and lp_err > lp_tol)):
+            raise AssertionError(f"f32 spec parity ({label}), round "
+                                 f"{r + 1}: {equal}/{n} sequences equal, "
+                                 f"logprob diff {lp_err:.3e}")
+
+
+def spec_moe(seed: int) -> dict:
+    """Phase 6 on an MoE arch (SPEC_MOE): full-width, full-depth
+    granite-moe-3b-a800m in bf16, kernels and graphs on, the serve's
+    traffic, ngram drafting at depth 4, per-batch paged at temperature 0.8
+    and greedy (`spec_serve`'s gates, and the MoE kernel launched 3 times
+    per MoE layer a forward: its prefill and every verify). Then f32 at
+    full width and 2 MoE layers, greedy, dense and per-batch paged: the
+    kernel path's speculative serve must equal the plain path's and the
+    eager verify's (tokens, and log-probabilities within 1e-3 of the plain
+    path's); its agreement with plain greedy decode is printed, not gated
+    (an MoE layer's capacity depends on the forward's token count, so a
+    verify may drop other tokens than one-token steps). Returns the launch
+    counts of the bf16 runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.spec import NGramDraftPolicy
+    cfg = get_config(SPEC_MOE["arch"])
+    model = Model(cfg, dtype=torch.bfloat16, device="cuda", use_kernel=True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    prompts = make_prompts(cfg, seed)
+    paged = spec_paged_kw(model, params)
+    per_forward = 3 * sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    counts = {}
+    for run, temp in (("spec-granite-paged", SERVE["temperature"]),
+                      ("spec-granite-paged-greedy", 0.0)):
+        out = spec_serve(run, model, params, [prompts], seed, paged,
+                         NGramDraftPolicy(), temp)[0]
+        fwd = out["batches"] + out["verify_forwards"]
+        if out["launches"]["moe_gemm"] != per_forward * fwd:
+            raise AssertionError(
+                f"{run}: moe_gemm launched {out['launches']['moe_gemm']} "
+                f"times, want {per_forward} x {fwd} forwards")
+        emit("spec", dict({k: v for k, v in out.items() if k != "launches"},
+                          moe_gemm_per_forward=per_forward))
+        counts[run] = out["launches"]
+    del params, model
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(cfg, n_layers=SPEC_MOE["parity_layers"])
+    mk = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=True)
+    mp = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=False)
+    params = mk.init(torch.Generator(device="cuda").manual_seed(seed + 1))
+    k, new = 2, 16
+    prompts = make_prompts(cfg, seed + 1)
+    for mode, kw in (("dense", {}),
+                     ("paged", dict(kv_blocks=512,
+                                    kv_block_size=SERVE["kv_block_size"]))):
+        plain, _ = serve_rounds(mk, params, [prompts], seed, kw, k, new, 0.0)
+        runs = {name: spec_serve(f"spec-parity granite {mode} {name}", m,
+                                 params, [prompts], seed, dict(kw, **extra),
+                                 NGramDraftPolicy(), 0.0, k, new,
+                                 kernels=False)
+                for name, m, extra in (("kernel", mk, {}), ("plain", mp, {}),
+                                       ("eager", mk,
+                                        dict(cuda_graphs=False)))}
+        spec = runs["kernel"][0]
+        for other, lp_tol in (("plain path", 1e-3), ("eager verify", None)):
+            spec_pair(cfg, f"spec ngram {mode} vs {other}", spec,
+                      runs["kernel"][1], runs[other.split()[0]][1], lp_tol)
+        spec_pair(cfg, f"spec ngram {mode} vs plain decode", spec,
+                  runs["kernel"][1], plain, None, gate=False)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------- the calibration loop
+
+def route_points(router) -> dict:
+    """The point each tier of ``router`` routes to: its frontier index,
+    whether it meets the tier's caps, its energy and latency, and its
+    devices."""
+    out = {}
+    for tier in ("interactive", "standard", "economy"):
+        d = router.route(tier)
+        out[tier] = dict(point=d.point_index, meets_caps=d.meets_caps,
+                         energy_j=d.assignment.energy_j,
+                         latency_s=d.assignment.latency_s,
+                         devices=d.assignment.device_names())
+    return out
+
+
+def calibration_loop(seed: int) -> dict:
+    """Phase 7, the calibration loop on the card: `repro_torch.launch.profile`
+    over its five jobs (CALIBRATION's reps each, after a warm call) into a
+    TraceStore JSONL, fitted by `repro_torch.launch.calibrate` (``--trace``)
+    and loaded with `CalibrationProfile.load`; then phase 5's chatglm3-6b
+    router (PGSAM anneal, v2 energy, 1500 iterations) without and with a
+    `CalibratedSignalProvider` over the fitted profile. Raises unless every
+    record ran on the card in a positive time, the fit gives exactly the
+    five eta keys, and each of the five kernels launched reps + 1 times
+    (the hand-written kernels ran, not their plain versions) and no other
+    kernel launched. Prints each eta key's mean and roofline us and fitted
+    eta with its interval, and the routed points of the three tiers without
+    and with the profile (information, not a gate). Returns the launch
+    counts of the profile."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core import Workload
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import calibrate, profile
+    from repro_torch.qeil2.telemetry import (CalibratedSignalProvider,
+                                             CalibrationProfile, TraceStore)
+    from repro_torch.qeil2.telemetry.fit import _eta_key
+    from repro_torch.serving.stream import stream_router
+    reps = CALIBRATION["reps"]
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        res = profile.run(verbose=True, reps=reps, device="cuda")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        profile_s = time.perf_counter() - t0
+        TraceStore(path=str(d / "kernels.jsonl")).ingest_many(
+            res["records"])
+        t0 = time.perf_counter()
+        calibrate.main(["--trace", str(d / "kernels.jsonl"),
+                        "--seed", str(seed),
+                        "--bootstrap", str(CALIBRATION["bootstrap"]),
+                        "--out", str(d / "profile.json"),
+                        "--report", str(d / "report.json")])
+        fit_s = time.perf_counter() - t0
+        fitted = CalibrationProfile.load(str(d / "profile.json"))
+        report = json.loads((d / "report.json").read_text())
+    bad = [r for r in res["records"]
+           if r["backend"] != "cuda" or not r["measured_us"] > 0]
+    if bad:
+        raise AssertionError(f"calibration: records not timed on the card: "
+                             f"{bad[:2]}")
+    keys = tuple(sorted(k for k, _ in fitted.kernel_eta))
+    if keys != CALIBRATION["eta_keys"]:
+        raise AssertionError(f"calibration: fitted eta keys {keys}, want "
+                             f"{CALIBRATION['eta_keys']}")
+    want = {name: reps + 1 if name in CALIBRATION["kernels"] else 0
+            for name in counts}
+    if counts != want:
+        raise AssertionError(f"calibration: launches {counts}, want {want}")
+    by_key = {}
+    for r in res["records"]:
+        by_key.setdefault(_eta_key(r), []).append(r)
+    for key in keys:
+        recs = by_key[key]
+        row = report["kernel_eta"][key]
+        emit("calibration", dict(
+            key=key, reps=len(recs),
+            mean_us=float(np.mean([r["measured_us"] for r in recs])),
+            roofline_us=recs[0]["roofline_us"], eta=row["fitted"],
+            eta_ci=row["ci"], route="f32"))
+    cfg = get_config(SERVE["arch"])
+    workload = Workload(batch=1, prompt_tokens=SERVE["prompt_len"],
+                        decode_tokens=STREAM["max_new"],
+                        samples=STREAM["samples"])
+    routes = {}
+    for name, provider in (("analytic", None),
+                           ("calibrated",
+                            CalibratedSignalProvider(fitted))):
+        t0 = time.perf_counter()
+        router = stream_router(cfg, workload, provider=provider)
+        routes[name] = route_points(router)
+        emit("calibration-route", dict(
+            profile=name, anneal_s=time.perf_counter() - t0,
+            frontier=len(router.frontier), tiers=routes[name]))
+    emit("calibration", dict(profile_s=profile_s, fit_s=fit_s,
+                             records=res["n_records"],
+                             rmse_default=report["rmse_default"],
+                             rmse_fitted=report["rmse_fitted"],
+                             launches=counts))
+    return counts
 
 
 # -------------------------------------------------------------------- main
@@ -2237,7 +2482,11 @@ def main() -> int:
     t_phase = time.perf_counter()
     counts.update(spec_bf16(args.seed, phase5))
     spec_parity(args.seed)
+    counts.update(spec_moe(args.seed))
     emit("spec", dict(phase_s=time.perf_counter() - t_phase))
+    t_phase = time.perf_counter()
+    counts["calibration"] = calibration_loop(args.seed)
+    emit("calibration", dict(phase_s=time.perf_counter() - t_phase))
 
     kernels = []
     for name, r in main_cases.items():

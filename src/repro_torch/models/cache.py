@@ -177,6 +177,21 @@ def reset_cache_block_positions(cache: Dict, gids: torch.Tensor) -> Dict:
     return cache
 
 
+def reset_cache(cache: Dict) -> Dict:
+    """Reset every leaf of ``cache`` in place to what `make_cache` gives
+    (positions -1, everything else 0: KV, int8 scales, SSM state and conv
+    tail), so that a cache handed from one batch to the next gives exactly
+    what a fresh one gives while keeping its tensors (the decode graphs
+    address them). Returns ``cache``."""
+    for entry in list(cache["prefix"]) + list(cache["blocks"].values()):
+        for name, leaf in entry.items():
+            if name == "pos":
+                leaf.fill_(-1)
+            else:
+                leaf.zero_()
+    return cache
+
+
 def kv_bytes_per_token(cfg: ArchConfig, bytes_per_el: int = 2) -> int:
     """KV-cache bytes one token position occupies across the whole stack
     (k + v + int32 position, summed over attention layers)."""

@@ -16,7 +16,7 @@ Metrics and tracing are pure python; `profiling` wraps ``torch.profiler``.
 from repro_torch.obs.metrics import (Counter, DEFAULT_BUCKETS, Gauge,
                                      Histogram, MetricsRegistry, NullRegistry,
                                      PeriodicReporter)
-from repro_torch.obs.profiling import kernel_scope
+from repro_torch.obs.profiling import annotate, gpu_roofline_us, kernel_scope
 from repro_torch.obs.tracer import (LIFECYCLE, NullTracer, Span, Tracer,
                                     lifecycles_complete,
                                     reconstruct_lifecycles)
@@ -48,6 +48,7 @@ def make_observability(store=None) -> Observability:
 __all__ = [
     "Counter", "DEFAULT_BUCKETS", "Gauge", "Histogram", "LIFECYCLE",
     "MetricsRegistry", "NULL_OBS", "NullRegistry", "NullTracer",
-    "Observability", "PeriodicReporter", "Span", "Tracer", "kernel_scope", "lifecycles_complete", "make_observability",
-    "reconstruct_lifecycles",
+    "Observability", "PeriodicReporter", "Span", "Tracer", "annotate",
+    "gpu_roofline_us", "kernel_scope", "lifecycles_complete",
+    "make_observability", "reconstruct_lifecycles",
 ]

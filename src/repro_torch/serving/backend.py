@@ -41,14 +41,19 @@ callable ``(shape, device) -> tensor`` the caller injects (a test can feed
 plain argmax and draws nothing.
 
 The reference's ``jax.jit`` step functions are plain methods here, and the
-KV cache is updated in place. On the card, a batch's decode steps from the
-second on replay one CUDA graph of the step (`repro_torch.serving.graphs`;
-``cuda_graphs=False`` decodes eagerly); prefill runs eagerly, once a batch.
-A per-batch cache takes its graph with it; on the resident pool, one graph
-serves every batch of its shape (`_graph_key`), as the reference's jit
-compiles once per static shape, so a later batch of that shape replays
-from its first decode step. ``kv_format="int8"`` (paged mode only) keeps
-the KV pools in int8 with per-slot scales.
+KV cache is updated in place. On the card, decode steps replay CUDA graphs
+of the step (`repro_torch.serving.graphs`; ``cuda_graphs=False`` decodes
+eagerly); prefill runs eagerly, once a batch. One graph serves every batch
+of its shape (`_graph_key`: rows, table shape, cache length, greedy or
+sampled, KV format, extras), as the reference's jit compiles once per
+static shape: the first batch of a shape decodes its first step eagerly
+and captures its second, and every later batch of that shape replays from
+its first decode step. The temperature is a buffer the replay fills, not
+part of the shape. A graph addresses one cache: on the resident pool the
+backend's one cache, off it a `CacheArena` that a retired batch hands on to
+the next batch of its cache's shape, which prefills into the same tensors
+(reset first to what a fresh cache holds). ``kv_format="int8"`` (paged
+mode only) keeps the KV pools in int8 with per-slot scales.
 
 Speculative decode (``spec_policy=``, ``spec_n=``): with a
 `repro_torch.spec` draft policy attached, ``decode_step`` on a drafting
@@ -66,9 +71,9 @@ span again, so rejected drafts' KV entries are overwritten, with no
 allocator traffic. Rows progress raggedly (each commits 1 to n + 1 tokens a
 step), so a batch whose rows finish at different steps allocates a slack
 of ``spec_n + 1`` token slots a sequence for the tail writes of finished
-rows (`request_blocks` prices it). On the card a batch's verifies from the
-second on replay one CUDA graph of the verify step, keyed on the pool by
-the decode graph's key plus the draft depth.
+rows (`request_blocks` prices it). On the card verifies replay one CUDA
+graph a shape and draft depth, kept beside the decode graphs of the same
+cache; a batch's first verify runs eagerly until its shape has one.
 """
 from __future__ import annotations
 
@@ -136,12 +141,22 @@ def verify_draws(noise: NoiseSource, rows: int, n: int, vocab: int,
     return u, noise((rows, vocab), device)
 
 
-def sample_tokens(logits: torch.Tensor, temperature: float,
-                  noise: NoiseSource) -> Tuple[torch.Tensor, torch.Tensor]:
+def sample_tokens(logits: torch.Tensor,
+                  temperature: Union[float, torch.Tensor],
+                  noise: NoiseSource, sampled: Optional[bool] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample one token per row of f32 ``logits`` (B, V); returns the tokens
-    (int64) and their log-probabilities under the untempered softmax."""
+    (int64) and their log-probabilities under the untempered softmax.
+
+    ``temperature`` is a float, or a 0-dim f32 tensor (a decode graph's
+    buffer, which every batch of a shape fills with its own), and then
+    ``sampled`` says which branch runs; for a float it is ``temperature >
+    0``. The greedy branch is a plain argmax: it draws nothing and divides
+    by nothing."""
+    if sampled is None:
+        sampled = temperature > 0
     logp = torch.log_softmax(logits, dim=-1)
-    if temperature > 0:
+    if sampled:
         g = noise(tuple(logits.shape), logits.device)
         tok = torch.argmax(logits / temperature + g, dim=-1)
     else:
@@ -418,6 +433,20 @@ class PendingPrefill:
 
 
 @dataclass
+class CacheArena:
+    """A per-batch cache (dense, or a per-batch paged pool) and the decode
+    and verify graphs that address it. A retired batch's arena waits idle
+    for the next batch of its ``key`` (the cache's shape), which prefills
+    into the same tensors, so the graphs stay valid and replay from that
+    batch's first step. ``size`` is what it holds of the backend's KV
+    budget: rows (dense) or blocks (paged)."""
+    key: tuple
+    cache: Dict
+    size: int
+    graphs: Dict[tuple, DecodeGraph] = field(default_factory=dict)
+
+
+@dataclass
 class InFlightBatch:
     """One prefilled batch mid-decode."""
     prompts: List[np.ndarray]
@@ -427,7 +456,7 @@ class InFlightBatch:
     temperature: float
     noise: NoiseSource                 # Gumbel stream of this batch
     extras: Dict[str, torch.Tensor]    # already tiled to sequence count
-    cache: Optional[Dict]              # None on the resident pool
+    arena: Optional[CacheArena]        # None on the resident pool
     tok: Optional[torch.Tensor]        # last sampled token (B,); None while
     #                                    a chunked prefill drains
     step: int                          # tokens sampled so far
@@ -449,6 +478,12 @@ class InFlightBatch:
     @property
     def n_sequences(self) -> int:
         return sum(self.repeats)
+
+    @property
+    def cache(self) -> Optional[Dict]:
+        """The batch's own cache (None on the resident pool, and once
+        released)."""
+        return self.arena.cache if self.arena is not None else None
 
     @property
     def done(self) -> bool:
@@ -503,10 +538,15 @@ class ExecutionBackend:
     mode, at the maximum draft depth ``spec_n``; `note_spec` lowers it for
     the next batch.
 
-    ``cuda_graphs`` (on by default) decodes each batch on the card through
-    a CUDA graph of its decode step; ``False`` decodes eagerly, so that a
+    ``cuda_graphs`` (on by default) decodes on the card through CUDA graphs
+    of the decode step, one a shape; ``False`` decodes eagerly, so that a
     run can hold the graphs against the eager step. CPU tensors always
-    decode eagerly. ``graph_stats`` counts captures and replays."""
+    decode eagerly. ``graph_stats`` counts captures and replays. Off the
+    resident pool, retired batches' caches and graphs wait in idle arenas
+    for the next batch of their shape: at most the backend's KV budget of
+    them (``max_slots`` rows, or ``kv_blocks`` blocks; an unbounded dense
+    backend, the most rows it held at once), the least recently retired
+    dropped first."""
 
     def __init__(self, model: Model, params, eos_token: Optional[int] = None,
                  max_slots: Optional[int] = None,
@@ -552,9 +592,13 @@ class ExecutionBackend:
         self.allocator: Optional[BlockAllocator] = None
         self.prefix_pool: Optional[PrefixPool] = None
         self._pool_cache: Optional[Dict] = None   # resident physical cache
-        # decode graphs of the resident pool, one per shape (`_graph_key`),
-        # kept as long as the cache they address
+        # decode and verify graphs of the resident pool, one a shape
+        # (`_graph_key`), kept as long as the cache they address
         self._pool_graphs: Dict[tuple, DecodeGraph] = {}
+        # retired per-batch caches with their graphs, least recently
+        # retired first (`_take_arena`, `_retire_arena`)
+        self._idle_arenas: List[CacheArena] = []
+        self._slots_peak = 0
         if kv_blocks is not None:
             if not cache_mod.paged_supported(model.cfg):
                 raise ValueError(
@@ -856,6 +900,35 @@ class ExecutionBackend:
     def _cache(self, h: InFlightBatch) -> Dict:
         return self._pool_cache if h.pooled else h.cache
 
+    def _graphs(self, h: InFlightBatch) -> Dict[tuple, DecodeGraph]:
+        """The graphs over ``h``'s cache, by `_graph_key`."""
+        return self._pool_graphs if h.pooled else h.arena.graphs
+
+    def _take_arena(self, key: tuple, size: int,
+                    make: Callable[[], Dict]) -> CacheArena:
+        """The idle arena of ``key`` retired last, its cache reset in place
+        to what ``make`` gives (positions -1, all else 0); else a new arena
+        over ``make()``."""
+        for i in range(len(self._idle_arenas) - 1, -1, -1):
+            if self._idle_arenas[i].key == key:
+                arena = self._idle_arenas.pop(i)
+                cache_mod.reset_cache(arena.cache)
+                return arena
+        return CacheArena(key, make(), size)
+
+    def _retire_arena(self, arena: CacheArena) -> None:
+        """Keep a released batch's arena idle for the next batch of its
+        shape, then drop the least recently retired ones until the idle
+        arenas fit the KV budget."""
+        self._idle_arenas.append(arena)
+        if self.allocator is not None:
+            budget = self.allocator.n_blocks
+        else:
+            budget = (self.max_slots if self.max_slots is not None
+                      else self._slots_peak)
+        while sum(a.size for a in self._idle_arenas) > budget:
+            self._idle_arenas.pop(0)
+
     # ---------------------------------------------------------------- step API
     @torch.no_grad()
     def start_batch(self, prompts: Sequence[np.ndarray],
@@ -957,14 +1030,17 @@ class ExecutionBackend:
                 f"KV slot budget exceeded: {self.slots_in_use}+{B} > "
                 f"{self.max_slots} (scheduler must check slots_free)")
         tiled_extras = {k: self._tile(v, rep) for k, v in extras.items()}
-        cache = self.model.init_cache(B, plen + max_new + self._spec_slack())
-        last_logits, cache = self._prefill(self.params, self._tokens(tokens),
-                                           cache, tiled_extras)
+        length = plen + max_new + self._spec_slack()
+        arena = self._take_arena(("dense", B, length), B,
+                                 lambda: self.model.init_cache(B, length))
+        last_logits, _ = self._prefill(self.params, self._tokens(tokens),
+                                       arena.cache, tiled_extras)
         self.slots_in_use += B
+        self._slots_peak = max(self._slots_peak, self.slots_in_use)
         h = InFlightBatch(
             prompts=list(prompts), repeats=repeats, plen=plen,
             max_new=max_new, temperature=temperature, noise=noise,
-            extras=tiled_extras, cache=cache, tok=None, step=0)
+            extras=tiled_extras, arena=arena, tok=None, step=0)
         # the first token comes from the prefill logits of each (tiled) row
         return self._first_token(h, last_logits, 1)
 
@@ -995,22 +1071,28 @@ class ExecutionBackend:
         layout = build_paged_layout(self.allocator, plen,
                                     max_new + self._spec_slack(), repeats)
         try:
-            cache = self.model.init_paged_cache(
-                layout.n_pool_blocks, layout.block_size,
-                kv_dtype=torch.int8 if self.kv_format == "int8" else None)
+            n_pool = layout.n_pool_blocks
+            arena = self._take_arena(
+                ("paged", n_pool), n_pool,
+                lambda: self.model.init_paged_cache(
+                    n_pool, layout.block_size,
+                    kv_dtype=torch.int8 if self.kv_format == "int8"
+                    else None))
+            cache = arena.cache
             # prefill rows are the unique prompts (extras per prompt as is);
             # decode rows are the tiled sequences: both tiled exactly once
             decode_extras = {k: self._tile(v, rep) for k, v in extras.items()}
             h = InFlightBatch(
                 prompts=list(prompts), repeats=repeats, plen=plen,
                 max_new=max_new, temperature=temperature, noise=noise,
-                extras=decode_extras, cache=cache, tok=None, step=0,
+                extras=decode_extras, arena=arena, tok=None, step=0,
                 paged=layout, block_table=self._tokens(layout.decode_table),
                 prefill_bytes_saved=float((B - R) * plen
                                           * self.kv_token_bytes))
             if self.prefill_chunk is not None:
-                # chunked: the fresh cache masks every position, so slices
-                # can fill it one at a time; `decode_step` drains them
+                # chunked: the fresh (or reset) cache masks every position,
+                # so slices can fill it one at a time; `decode_step` drains
+                # them
                 h.pending_prefill = PendingPrefill(
                     jobs=self._slices({0: list(range(R))}, plen), base=base,
                     extras=extras, last_rows=[None] * R, rep=rep,
@@ -1102,7 +1184,7 @@ class ExecutionBackend:
                 prompts=list(prompts), repeats=repeats, plen=plen,
                 max_new=max_new, temperature=temperature, noise=noise,
                 extras={k: self._tile(v, rep) for k, v in extras.items()},
-                cache=None, tok=None, step=0, paged=layout,
+                arena=None, tok=None, step=0, paged=layout,
                 block_table=self._tokens(layout.decode_table),
                 prefill_bytes_saved=float((B * plen - tail_tokens)
                                           * self.kv_token_bytes),
@@ -1246,34 +1328,33 @@ class ExecutionBackend:
         tracer = self.obs.tracer
         t0 = time.perf_counter() if tracer.enabled else 0.0
         step_pos = h.plen + h.step - 1
-        shared = h.pooled
         if h.graph is None and self._graphs_on(h):
-            key = self._graph_key(h) if shared else None
-            h.graph = self._pool_graphs.get(key)
+            graphs = self._graphs(h)
+            key = self._graph_key(h) + ("decode", not h.temperature > 0)
+            h.graph = graphs.get(key)
             if h.graph is None and h.step >= 2:
                 # no fallback: a capture that fails raises
                 t_cap = time.perf_counter()
-                h.graph = DecodeGraph.capture(self._static_step(h, shared))
+                h.graph = DecodeGraph.capture(self._static_step(h))
                 self.graph_stats.captures += 1
                 self.graph_stats.capture_s += time.perf_counter() - t_cap
                 self.graph_stats.pool_bytes += h.graph.pool_bytes
-                if shared:
-                    self._pool_graphs[key] = h.graph
+                graphs[key] = h.graph
         if h.graph is not None:
-            # a shared graph serves every batch of its shape: load this
-            # batch's last tokens and decode inputs, and keep its sampled
-            # tokens apart from the graph's output, which the next batch's
+            # the graph serves every batch of its shape: load this batch's
+            # last tokens, decode inputs and temperature, and keep its
+            # sampled tokens apart from the graph's output, which the next
             # replay overwrites
-            batch = (dict(tok=h.tok, inputs=self._decode_inputs(h))
-                     if shared else {})
-            tok, lp = h.graph.replay(step_pos, h.noise, **batch)
-            h.tok = tok.clone() if shared else tok
+            tok, lp = h.graph.replay(step_pos, h.noise, tok=h.tok,
+                                     inputs=self._decode_inputs(h),
+                                     temperature=h.temperature)
+            h.tok = tok.clone()
             self.graph_stats.replays += 1
         else:
             pos = torch.full((h.n_sequences, 1), step_pos, dtype=torch.int32,
                              device=h.tok.device)
             h.tok, lp = self._decode_fn(h, self._decode_inputs(h))(
-                h.tok[:, None], pos, h.noise)
+                h.tok[:, None], pos, h.noise, self._temperature(h))
         toks, lps = _host(h.tok, lp)
         h.out_toks.append(toks)
         h.out_lps.append(lps)
@@ -1291,14 +1372,25 @@ class ExecutionBackend:
         return self.cuda_graphs and h.tok.is_cuda
 
     def _graph_key(self, h: InFlightBatch) -> tuple:
-        """The shape of a pooled batch's decode step: what its graph bakes
-        in besides the resident cache and the weights. Rows, table width,
-        logical cache length, the temperature's value (the step samples
-        with it) and the KV format, and the shapes of any extra inputs."""
-        return (h.n_sequences, tuple(h.block_table.shape), h.paged.kv_len,
-                float(h.temperature), self.kv_format,
+        """The shape of ``h``'s steps: what a graph bakes in besides its
+        cache (whose shape keys the arena that holds it) and the weights.
+        Rows, table shape, logical cache length and KV format, and the
+        shapes of any extra inputs. A decode graph's key adds whether it
+        samples, a verify graph's its draft depth too, as the reference
+        keys its jit programs by ``greedy``; the temperature is a buffer
+        each replay fills."""
+        return (h.n_sequences,
+                None if h.block_table is None else tuple(
+                    h.block_table.shape),
+                None if h.paged is None else h.paged.kv_len, self.kv_format,
                 tuple((k, tuple(v.shape), v.dtype)
                       for k, v in sorted(h.extras.items())))
+
+    def _temperature(self, h: InFlightBatch) -> torch.Tensor:
+        """``h``'s temperature as the 0-dim f32 tensor an eager step reads,
+        as a graph's step reads its buffer."""
+        return torch.full((), h.temperature, dtype=torch.float32,
+                          device=self.device)
 
     def _decode_inputs(self, h: InFlightBatch) -> Dict[str, torch.Tensor]:
         """A batch's decode inputs besides tokens and positions."""
@@ -1309,31 +1401,31 @@ class ExecutionBackend:
 
     def _decode_fn(self, h: InFlightBatch, inputs: Dict[str, torch.Tensor]):
         """The reference's ``_decode_step`` for ``h``: ``(tok (B, 1) token
-        ids, pos (B, 1) int32 positions, noise) -> (tokens, logprobs)``, one
-        decode step over the batch's cache, updated in place, reading the
-        decode ``inputs`` given. Closes over the batch's state, not the
-        handle, so a graph that holds it does not hold the batch."""
-        cache, temp = self._cache(h), h.temperature
+        ids, pos (B, 1) int32 positions, noise, temperature (0-dim f32)) ->
+        (tokens, logprobs)``, one decode step over the batch's cache,
+        updated in place, reading the decode ``inputs`` given. Closes over
+        the batch's cache and shape, not the handle or the backend, so a
+        graph that holds it holds neither."""
+        model, params, cache = self.model, self.params, self._cache(h)
+        sampled = h.temperature > 0
         kv_len = h.paged.kv_len if h.paged is not None else None
-        mrope = bool(self.model.cfg.mrope_sections)
+        mrope = bool(model.cfg.mrope_sections)
 
-        def decode(tok, pos, noise):
+        def decode(tok, pos, noise, temperature):
             if mrope:
                 pos = pos[..., None].expand(tok.shape[0], 1, 3)
-            logits, _, _ = self.model.forward(
-                self.params, {"tokens": tok, "positions": pos, **inputs},
+            logits, _, _ = model.forward(
+                params, {"tokens": tok, "positions": pos, **inputs},
                 cache, kv_len=kv_len)
-            return sample_tokens(logits[:, 0].float(), temp, noise)
+            return sample_tokens(logits[:, 0].float(), temperature, noise,
+                                 sampled)
         return decode
 
-    def _static_step(self, h: InFlightBatch,
-                     shared: bool) -> StaticDecodeStep:
-        """The body of ``h``'s decode graph, reading ``h``'s last token. A
-        graph shared by the batches of one shape reads static copies of the
-        decode inputs, which each replay refills from its batch's."""
-        inputs = self._decode_inputs(h)
-        if shared:
-            inputs = {k: v.clone() for k, v in inputs.items()}
+    def _static_step(self, h: InFlightBatch) -> StaticDecodeStep:
+        """The body of the decode graph of ``h``'s shape, over static copies
+        of ``h``'s last token and decode inputs, which each replay refills
+        from its batch's."""
+        inputs = {k: v.clone() for k, v in self._decode_inputs(h).items()}
         return StaticDecodeStep(self._decode_fn(h, inputs), h.tok,
                                 self.model.cfg.padded_vocab,
                                 sampled=h.temperature > 0, inputs=inputs)
@@ -1415,73 +1507,71 @@ class ExecutionBackend:
         """One verify forward of ``h`` over ``toks_in`` (B, n + 1) from
         ``base_pos`` (B,); returns (accept_len, out_tokens, out_lps) on the
         host. A sampled batch draws its uniforms and Gumbel row from its
-        noise stream first (outside any graph). On the card the first
-        verify of a batch runs eagerly and later ones replay its verify
-        graph; on the resident pool one graph serves every batch of the
-        decode graph's key and the draft depth, and a batch whose shape has
-        one replays it from its first verify."""
+        noise stream first (outside any graph). On the card the verify graph
+        of the batch's shape and draft depth serves it (on the pool and off
+        it, as `decode_step`'s graphs do); a batch whose shape has none yet
+        verifies eagerly first and captures at its second verify."""
         B, n_q = toks_in.shape
         greedy = h.temperature == 0.0
         toks, pos = self._tokens(toks_in), self._tokens(base_pos)
         draws = {} if greedy else dict(zip("ug", verify_draws(
             h.noise, B, n_q - 1, self.model.cfg.padded_vocab, self.device)))
-        shared = h.pooled
         if h.verify_graph is None and self._graphs_on(h):
-            key = (self._graph_key(h) + ("verify", n_q - 1, greedy)
-                   if shared else None)
-            h.verify_graph = self._pool_graphs.get(key)
+            graphs = self._graphs(h)
+            key = self._graph_key(h) + ("verify", n_q - 1, greedy)
+            h.verify_graph = graphs.get(key)
             if h.verify_graph is None and h.spec.steps >= 1:
                 # no fallback: a capture that fails raises
                 t_cap = time.perf_counter()
                 h.verify_graph = DecodeGraph.capture(
-                    self._static_verify(h, n_q - 1, shared))
+                    self._static_verify(h, n_q - 1))
                 self.graph_stats.verify_captures += 1
                 self.graph_stats.capture_s += time.perf_counter() - t_cap
                 self.graph_stats.pool_bytes += h.verify_graph.pool_bytes
-                if shared:
-                    self._pool_graphs[key] = h.verify_graph
+                graphs[key] = h.verify_graph
         if h.verify_graph is not None:
-            batch = dict(inputs=self._decode_inputs(h)) if shared else {}
-            out = h.verify_graph.replay(toks, pos, **draws, **batch)
+            out = h.verify_graph.replay(toks, pos, **draws,
+                                        inputs=self._decode_inputs(h),
+                                        temperature=h.temperature)
             self.graph_stats.verify_replays += 1
         else:
             out = self._verify_fn(h, self._decode_inputs(h))(
-                toks, pos, draws.get("u"), draws.get("g"))
+                toks, pos, draws.get("u"), draws.get("g"),
+                self._temperature(h))
         return _host(*out)
 
     def _verify_fn(self, h: InFlightBatch, inputs: Dict[str, torch.Tensor]):
         """The reference's ``_spec_verify`` for ``h``: ``(toks (B, n + 1),
-        base_pos (B,) int32, u, g) -> (accept_len, out_tokens, out_lps)``,
-        one forward at S = n + 1 with ``decode=True`` over the batch's
-        cache (updated in place: the S positions are written before they
-        are attended), then `verify_tokens`. Rows progress raggedly, so
-        each has its own base position. Closes over the batch's state, not
-        the handle."""
-        cache, temp = self._cache(h), h.temperature
+        base_pos (B,) int32, u, g, temperature (0-dim f32)) -> (accept_len,
+        out_tokens, out_lps)``, one forward at S = n + 1 with
+        ``decode=True`` over the batch's cache (updated in place: the S
+        positions are written before they are attended), then
+        `verify_tokens`. Rows progress raggedly, so each has its own base
+        position. Closes over the batch's cache and shape, not the handle
+        or the backend."""
+        model, params, cache = self.model, self.params, self._cache(h)
+        greedy = h.temperature == 0.0
         kv_len = h.paged.kv_len if h.paged is not None else None
-        mrope = bool(self.model.cfg.mrope_sections)
+        mrope = bool(model.cfg.mrope_sections)
 
-        def verify(toks, base_pos, u, g):
+        def verify(toks, base_pos, u, g, temperature):
             B, n_q = toks.shape
             pos = base_pos[:, None] + torch.arange(
                 n_q, dtype=torch.int32, device=toks.device)[None]
             if mrope:
                 pos = pos[..., None].expand(B, n_q, 3)
-            logits, _, _ = self.model.forward(
-                self.params, {"tokens": toks, "positions": pos, **inputs},
+            logits, _, _ = model.forward(
+                params, {"tokens": toks, "positions": pos, **inputs},
                 cache, kv_len=kv_len, decode=True)
-            return verify_tokens(logits, toks[:, 1:], temp, temp == 0.0,
+            return verify_tokens(logits, toks[:, 1:], temperature, greedy,
                                  u, g)
         return verify
 
-    def _static_verify(self, h: InFlightBatch, n: int,
-                       shared: bool) -> StaticVerifyStep:
-        """The body of ``h``'s verify graph at depth ``n``; a graph shared
-        by the batches of one shape reads static copies of the decode
-        inputs, which each replay refills from its batch's."""
-        inputs = self._decode_inputs(h)
-        if shared:
-            inputs = {k: v.clone() for k, v in inputs.items()}
+    def _static_verify(self, h: InFlightBatch, n: int) -> StaticVerifyStep:
+        """The body of the verify graph of ``h``'s shape at depth ``n``,
+        over static copies of the decode inputs, which each replay refills
+        from its batch's."""
+        inputs = {k: v.clone() for k, v in self._decode_inputs(h).items()}
         return StaticVerifyStep(self._verify_fn(h, inputs), h.n_sequences, n,
                                 self.model.cfg.padded_vocab, self.device,
                                 sampled=h.temperature > 0, inputs=inputs)
@@ -1501,8 +1591,11 @@ class ExecutionBackend:
         else:
             self.slots_in_use -= h.n_sequences - len(h.freed_seqs)
         h.freed_seqs = set(range(h.n_sequences))
-        h.cache = None                     # the KV memory goes with the batch
-        h.graph = None                     # and a per-batch graph with it
+        if h.arena is not None:
+            # its cache and graphs wait for the next batch of its shape
+            self._retire_arena(h.arena)
+        h.arena = None
+        h.graph = None
         h.verify_graph = None
         self._note_occupancy()
 

@@ -21,23 +21,25 @@ decode step is one ``torch.cuda.CUDAGraph``:
 * `DecodeGraph.capture` records a body once; `DecodeGraph.replay` fills
   its inputs, replays, and returns the static outputs.
 
-A batch over its own cache owns its graph
-(`repro_torch.serving.backend.InFlightBatch`): captured at the batch's
-second decode step and dropped with the batch, whose cache the graph
-addresses by pointer. On the backend's resident prefix pool, whose cache
-outlives every batch, the backend keeps one graph per decode shape and
-every later batch of that shape replays it from its first decode step: the
-step then reads static copies of its decode inputs (the block table among
-them), which `StaticDecodeStep.load` refills from the batch's, with its
-last tokens. Until a batch's shape has a graph, its first decode step runs
+Every graph serves every batch of its shape, as the reference's jit
+compiles each step once per static shape (``_decode_step`` and
+``_spec_verify``, keyed by the input shapes, ``kv_len`` and ``greedy``).
+The step reads static copies of its decode inputs (the block table among
+them) and of the batch's last tokens, which `StaticDecodeStep.load` refills
+from the batch that replays it, with the step position, the noise and the
+temperature: a 0-dim f32 buffer, so that one graph serves every temperature
+of a shape (the greedy branch, a plain argmax, is part of the shape). On
+the backend's resident prefix pool the graphs address the one cache that
+outlives every batch; off it, a retired batch hands its cache and its
+graphs on to the next batch of its cache's shape (the backend's cache
+arenas). Until a shape has a graph, a batch's first decode step runs
 eagerly and pays each kernel's first-use work (planners,
 ``cudaFuncSetAttribute``, TMA descriptors, workspace growth) outside the
 capture. A decode step is not idempotent (it writes a KV slot and advances
 the SSM state), so no extra run of the body warms the capture up: the
 capture executes nothing, and the replay that follows it is the step. A
 verify step is keyed and warmed the same way: a batch's first verify runs
-eagerly, and its later ones replay one graph (on the pool, one a shape and
-draft depth).
+eagerly, and its later ones replay one graph a shape and draft depth.
 
 A graph keeps alive what it addresses: the body (and through it the cache,
 weights and buffers), the split kernels' workspaces handed out during the
@@ -58,15 +60,17 @@ from repro_torch.kernels.common import holding_workspaces
 if TYPE_CHECKING:
     from repro_torch.serving.backend import NoiseSource
 
-#: ``(token ids (B, 1), positions (B, 1) int32, noise) -> (tokens (B,),
-#: logprobs (B,))``: one batch's decode step over its cache
-DecodeFn = Callable[[torch.Tensor, torch.Tensor, Callable],
+#: ``(token ids (B, 1), positions (B, 1) int32, noise, temperature (0-dim
+#: f32)) -> (tokens (B,), logprobs (B,))``: one batch's decode step over its
+#: cache
+DecodeFn = Callable[[torch.Tensor, torch.Tensor, Callable, torch.Tensor],
                     Tuple[torch.Tensor, torch.Tensor]]
 #: ``(token ids (B, n + 1), base positions (B,) int32, u (B, n) or None,
-#: g (B, vocab) or None) -> (accept_len (B,), tokens (B, n + 1), logprobs
-#: (B, n + 1))``: one speculating batch's verify step over its cache
+#: g (B, vocab) or None, temperature (0-dim f32)) -> (accept_len (B,),
+#: tokens (B, n + 1), logprobs (B, n + 1))``: one speculating batch's verify
+#: step over its cache
 VerifyFn = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
-                     Optional[torch.Tensor]],
+                     Optional[torch.Tensor], torch.Tensor],
                     Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
@@ -90,11 +94,11 @@ class StaticDecodeStep:
 
     ``tok`` (B, 1) holds the token ids the step reads; the step writes its
     sampled tokens back into it. ``pos`` (B, 1) int32 holds the step
-    position and ``noise`` (B, vocab) f32 the step's Gumbel draws (only
-    when ``sampled``, i.e. temperature > 0); `load` fills both. ``inputs``
-    are the decode inputs ``decode`` reads (the block table (B, W) int32,
-    extras): `load` copies another batch's into them when the step serves
-    more than one batch."""
+    position, ``temperature`` (0-dim f32) the batch's temperature, and
+    ``noise`` (B, vocab) f32 the step's Gumbel draws (only when
+    ``sampled``, i.e. temperature > 0); `load` fills them. ``inputs`` are
+    the decode inputs ``decode`` reads (the block table (B, W) int32,
+    extras): `load` copies the replaying batch's into them."""
 
     def __init__(self, decode: DecodeFn, tok: torch.Tensor, vocab: int,
                  sampled: bool,
@@ -104,6 +108,7 @@ class StaticDecodeStep:
         self.inputs = inputs if inputs is not None else {}
         B, dev = self.tok.shape[0], self.tok.device
         self.pos = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        self.temperature = torch.ones((), dtype=torch.float32, device=dev)
         self.noise = (torch.zeros((B, vocab), dtype=torch.float32,
                                   device=dev) if sampled else None)
 
@@ -113,16 +118,19 @@ class StaticDecodeStep:
 
     def load(self, step_pos: int, noise: NoiseSource,
              tok: Optional[torch.Tensor] = None,
-             inputs: Optional[Dict[str, torch.Tensor]] = None) -> None:
+             inputs: Optional[Dict[str, torch.Tensor]] = None,
+             temperature: Optional[float] = None) -> None:
         """Fill the inputs of the step at ``step_pos``: the position, and
         the step's draw from the batch's ``noise`` stream, in the shape and
-        order of the eager step's draw. With ``tok`` and ``inputs`` (a
-        batch's last tokens (B,) and decode inputs, by name), copy those
-        in too."""
+        order of the eager step's draw. With ``tok``, ``inputs`` and
+        ``temperature`` (a batch's last tokens (B,), decode inputs by name,
+        and temperature), copy those in too."""
         if tok is not None:
             self.tok.copy_(tok.reshape(-1, 1))
         for name, value in (inputs or {}).items():
             self.inputs[name].copy_(value)
+        if temperature is not None:
+            self.temperature.fill_(temperature)
         self.pos.fill_(step_pos)
         if self.noise is not None:
             self.noise.copy_(noise(tuple(self.noise.shape),
@@ -137,7 +145,8 @@ class StaticDecodeStep:
         return self.noise
 
     def __call__(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        tok, lp = self.decode(self.tok, self.pos, self._static_noise)
+        tok, lp = self.decode(self.tok, self.pos, self._static_noise,
+                              self.temperature)
         self.tok.copy_(tok[:, None])
         return tok, lp
 
@@ -155,10 +164,10 @@ class StaticVerifyStep:
 
     ``toks`` (B, n + 1) int32 holds the last committed token and the n
     drafts of each row, ``base_pos`` (B,) int32 each row's position of
-    ``toks[:, 0]``, and, when ``sampled``, ``u`` (B, n) and ``g`` (B,
-    vocab) f32 the step's uniform and Gumbel draws; `load` fills them, and
-    copies another batch's decode inputs into ``inputs`` when the step
-    serves more than one batch."""
+    ``toks[:, 0]``, ``temperature`` (0-dim f32) the batch's temperature,
+    and, when ``sampled``, ``u`` (B, n) and ``g`` (B, vocab) f32 the step's
+    uniform and Gumbel draws; `load` fills them, and copies the replaying
+    batch's decode inputs into ``inputs``."""
 
     def __init__(self, verify: VerifyFn, rows: int, n: int, vocab: int,
                  device: torch.device, sampled: bool,
@@ -169,6 +178,7 @@ class StaticVerifyStep:
                                 device=device)
         self.base_pos = torch.zeros((rows,), dtype=torch.int32,
                                     device=device)
+        self.temperature = torch.ones((), dtype=torch.float32, device=device)
         self.u = self.g = None
         if sampled:
             self.u = torch.zeros((rows, n), dtype=torch.float32,
@@ -183,9 +193,11 @@ class StaticVerifyStep:
     def load(self, toks: torch.Tensor, base_pos: torch.Tensor,
              u: Optional[torch.Tensor] = None,
              g: Optional[torch.Tensor] = None,
-             inputs: Optional[Dict[str, torch.Tensor]] = None) -> None:
+             inputs: Optional[Dict[str, torch.Tensor]] = None,
+             temperature: Optional[float] = None) -> None:
         """Fill the step's tokens, base positions and (sampled) draws, and
-        with ``inputs`` a batch's decode inputs, by name."""
+        with ``inputs`` and ``temperature`` a batch's decode inputs, by
+        name, and its temperature."""
         self.toks.copy_(toks)
         self.base_pos.copy_(base_pos)
         if (self.u is None) != (u is None) or (self.g is None) != (g is None):
@@ -196,9 +208,12 @@ class StaticVerifyStep:
             self.g.copy_(g)
         for name, value in (inputs or {}).items():
             self.inputs[name].copy_(value)
+        if temperature is not None:
+            self.temperature.fill_(temperature)
 
     def __call__(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        return self.verify(self.toks, self.base_pos, self.u, self.g)
+        return self.verify(self.toks, self.base_pos, self.u, self.g,
+                           self.temperature)
 
     def run(self, *args, **batch
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -265,8 +280,8 @@ class DecodeGraph:
 
     def replay(self, *args, **batch) -> Tuple[torch.Tensor, ...]:
         """Load the step's inputs (``step.load(*args, **batch)``: for a
-        decode step its position and noise, and the ``tok`` and ``inputs``
-        of the batch replaying a shared graph), replay, and count the
+        decode step its position and noise, and the replaying batch's
+        ``tok``, ``inputs`` and ``temperature``), replay, and count the
         captured launches. Returns the outputs, which the next replay
         overwrites."""
         self.step.load(*args, **batch)

@@ -37,19 +37,20 @@ TIER_MIX = (("interactive", 0.3), ("standard", 0.4), ("economy", 0.3))
 STOP_FROM_STEP, STOP_P = 2, 0.5
 
 
-def stream_router(cfg, workload: Workload):
+def stream_router(cfg, workload: Workload, provider=None):
     """The router of ``benchmarks/serving_schedule.py`` for ``cfg``: an
     incremental PGSAM anneal (v2 energy, seed 0, 1500 iterations) over the
     edge platform, and a `ParetoRouter` over ``workload`` with an
     interactive tier capped at 1.01x the frontier's fastest batch-of-4
     makespan, a standard tier at 1.05x its fastest batch-of-8 one, and an
-    uncapped economy tier."""
+    uncapped economy tier. ``provider`` (a `CalibratedSignalProvider`)
+    anneals and routes on a fitted calibration profile."""
     from repro_torch.qeil2 import (PGSAMConfig, PGSAMOrchestrator,
                                    ParetoRouter, SLATier)
     orch = PGSAMOrchestrator(
         EDGE_PLATFORM, Constraints(latency_budget_factor=None),
         config=PGSAMConfig(seed=0, iters_max=1500, incremental=True),
-        energy_model="v2")
+        energy_model="v2", provider=provider)
     router = ParetoRouter(orch, cfg, workload)
     c4 = min(router.recost(a, router.batch_workload(4)).makespan_s
              for a in router.frontier)

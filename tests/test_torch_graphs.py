@@ -172,7 +172,7 @@ def test_replays_add_the_captured_launches_once_each():
         draws.append(shape)
         return torch.full(shape, float(len(draws)))
 
-    step = StaticDecodeStep(lambda tok, pos, nz: (tok[:, 0], pos[:, 0]),
+    step = StaticDecodeStep(lambda tok, pos, nz, t: (tok[:, 0], pos[:, 0]),
                             torch.tensor([3, 4]), vocab=5, sampled=True)
     fake = FakeGraph()
     captured = {"moe_gemm": 3, "decode_attention": 2}
@@ -190,7 +190,7 @@ def test_replays_add_the_captured_launches_once_each():
 
 
 def test_static_noise_refuses_a_draw_of_another_shape():
-    step = StaticDecodeStep(lambda tok, pos, nz: (nz((2, 7), None), pos),
+    step = StaticDecodeStep(lambda tok, pos, nz, t: (nz((2, 7), None), pos),
                             torch.tensor([1, 2]), vocab=5, sampled=True)
     with pytest.raises(ValueError, match="static buffer"):
         step()
@@ -277,8 +277,9 @@ def _pooled_serve(tm, tp, kw, batches, interleave=False):
 @pytest.mark.parametrize("chunk", [None, 3])
 def test_pooled_batches_of_one_shape_share_one_graph(chunk, monkeypatch):
     """Two batches of one shape: one capture, at the first batch's second
-    decode step; the second replays from its first. A new temperature and
-    a new row count each capture their own. Every step bit-equal to
+    decode step; the second replays from its first. Greedy decoding (the
+    temperature itself is a buffer) and a new row count each capture
+    their own. Every step bit-equal to
     ``cuda_graphs=False``; the resident cache's tensors never move."""
     _, _, tm, tp = _pair("chatglm-paged")
     v = tm.cfg.vocab_size

@@ -128,6 +128,39 @@ def test_graphed_serve_equals_the_eager_serve(cuda, case):
     assert graphed[4].pool_bytes > 0
 
 
+@pytest.mark.parametrize("case", ["chatglm-dense", "chatglm-paged",
+                                  "int4-kv8-paged", "granite-paged",
+                                  "mamba2-dense"])
+def test_a_batch_on_a_retired_arena_equals_an_eager_one(cuda, case):
+    """A second batch of one shape, at another temperature, prefills into
+    the first's cache arena and replays its graph from its first decode
+    step (one capture for both); its tokens and logprobs equal a fresh
+    backend's eager serve of it, bit for bit."""
+    model, params, kw = _model(case)
+
+    def serve(be, seed, temperature):
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, model.cfg.vocab_size, (40,)).astype(
+            np.int32) for _ in range(3)]
+        noise = GumbelNoise(torch.Generator(device="cuda").manual_seed(seed))
+        h = be.start_batch(prompts, 4, NEW, temperature, noise)
+        while be.decode_step(h):
+            pass
+        out = np.stack(h.out_toks), np.stack(h.out_lps)
+        be.finalize(h)
+        return out
+
+    be = ExecutionBackend(model, params, **kw)
+    serve(be, 5, 0.8)
+    second = serve(be, 6, 1.3)
+    eager = serve(ExecutionBackend(model, params, cuda_graphs=False, **kw),
+                  6, 1.3)
+    np.testing.assert_array_equal(second[0], eager[0])
+    np.testing.assert_array_equal(second[1], eager[1])
+    st = be.graph_stats
+    assert (st.captures, st.replays) == (1, (NEW - 2) + (NEW - 1))
+
+
 def test_a_larger_eager_call_between_replays_does_not_corrupt_the_next(cuda):
     """After each replay, calls at larger shapes grow the decode-attention
     and dequant-matmul workspaces the graph captured, and fresh allocations

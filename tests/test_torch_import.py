@@ -19,7 +19,8 @@ MODULES = [
     "repro_torch", "repro_torch.configs", "repro_torch.convert",
     "repro_torch.core", "repro_torch.kernels", "repro_torch.kernels.build",
     "repro_torch.kernels.moe_gemm", "repro_torch.kernels.ssd_scan",
-    "repro_torch.launch.serve",
+    "repro_torch.launch.serve", "repro_torch.launch.profile",
+    "repro_torch.launch.calibrate",
     "repro_torch.launch.profile_serve", "repro_torch.models",
     "repro_torch.models.attention", "repro_torch.models.cache",
     "repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.obs",

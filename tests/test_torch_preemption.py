@@ -73,7 +73,7 @@ def test_preemption_changes_no_token_inside_the_port(pair, routers, mode,
         assert gs.captures == len(on.backend._pool_graphs)
         assert gs.captures < len(on.sched.records)
     else:
-        # a per-batch graph goes with its batch
+        # off the pool the graphs live in the backend's cache arenas
         assert gs.captures >= 1 and not on.backend._pool_graphs
 
 

@@ -13,6 +13,9 @@ reference's weights converted.
   plain path).
 * `spec_workload`, `expected_tokens_per_step` and `SpecPlanner` depth
   choices equal over each package's router.
+* Greedy speculative serving of granite-moe (reduced) at depths 2 and 4,
+  dense and per-batch paged: tokens equal to the reference's speculative
+  serve in the same mode (logprobs within 1e-4).
 * Greedy speculative serving for both policies, dense, per-batch paged,
   pooled (cold and warm), chunked and pooled chunked: tokens equal to the
   reference's speculative serve (logprobs within 1e-4) and to the port's
@@ -543,6 +546,33 @@ def test_spec_slack_is_priced_into_admission(pair, mode):
     assert spec.allocator.blocks_in_use == rb_spec
     assert h.paged.kv_len == PLEN + MAX_NEW + SPEC_N + 1
     spec.finalize(h)
+
+
+@pytest.fixture(scope="module")
+def granite():
+    return models("granite-moe-3b-a800m", seed=1)
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+@pytest.mark.parametrize("depth", [2, 4])
+def test_granite_moe_greedy_spec_matches_the_reference_spec(granite, depth,
+                                                            mode):
+    """An MoE layer's expert capacity depends on the forward's token count
+    (`repro.models.moe`), so a verify at S = n + 1 may drop other tokens
+    than n + 1 one-token steps: the port's MoE speculative serve is held to
+    the reference's speculative serve in the same mode, not to plain
+    decode."""
+    jm, jp, tm, tp = granite
+    prompts = _prompts(2, seed=4, plen=9, vocab=jm.cfg.vocab_size)
+    jb = _backend("ref", jm, jp, "ngram", mode, spec_n=depth)
+    tb = _backend("port", tm, tp, "ngram", mode, spec_n=depth)
+    jr, jh = _drain(jb, prompts, 0.0, jax.random.key(0), n_samples=2,
+                    max_new=8)
+    tr, th = _drain(tb, prompts, 0.0, None, n_samples=2, max_new=8)
+    _same(jr, tr, TOL)
+    assert (th.spec.steps, th.spec.proposed, th.spec.accepted) == \
+        (jh.spec.steps, jh.spec.proposed, jh.spec.accepted)
+    assert th.spec.n == depth and th.spec.steps >= 2
 
 
 def test_dense_cache_holds_the_slack(pair):

@@ -183,7 +183,7 @@ def test_pooled_batches_of_one_shape_share_one_verify_graph(interleave,
                                                             monkeypatch):
     """Batches of one shape and depth share one verify graph: one capture,
     at the first batch's second verify, and every later verify replays it
-    (the later batch from its first). A new depth and a new temperature
+    (the later batch from its first). A new depth and greedy verifying
     each capture their own. Bit-equal to ``cuda_graphs=False``."""
     _, _, tm, tp = _pair()
     v = tm.cfg.vocab_size
