@@ -35,7 +35,13 @@ Phases, each of which fails the script on error:
    reference's ragged kernel-test shapes) draw their inputs as a Mamba-2
    layer makes them and hold bf16 inputs to the f32 tolerance too (both
    outputs are f32); the dequant-matmul cases add ``bf16_matmul_ms``, the bf16 product over the
-   pre-dequantized weight that a quantized layer replaces.
+   pre-dequantized weight that a quantized layer replaces. Then the
+   attention kernels at phase 8's shapes, bf16 and f32: flash at
+   musicgen-medium's prefill (32 x 256, 24 heads of 64, one query head a
+   kv head) and qwen2-vl-7b's (28 heads over 4 of 128), the dense decode
+   kernel at group 1 and group 7, the paged one at group 7 (its
+   ``mma.sync`` tile pads the group to 16), and the windowed ring (64
+   slots, window 64, mid-decode: wrapped, position p in slot p mod 64).
 3. Serve full-width, full-depth chatglm3-6b (random bf16 weights from
    ``--seed``) through ``ServingEngine.generate`` with the kernels on: 8
    prompts x 4 samples, prompt length 256, 32 new tokens; with the
@@ -205,7 +211,26 @@ Phases, each of which fails the script on error:
    points without and with the profile (information: at these launch-bound
    shapes eta sits near its floor of 1e-3, and 1/eta stretches every
    measured stage).
-8. Print the script's wall time (the build included), the ``kernels``
+8. The remaining archs, every earlier model freed first: full-width,
+   full-depth musicgen-medium (48 layers, 4 EnCodec codebooks, about 1.84
+   B parameters) in bf16 with prompts (256, 4) and a conditioning memory
+   of 64 rows (random normal x 0.1 from ``--seed``, a request each),
+   dense, without and then with ``cross_kv_cache`` (their bf16 token
+   agreement printed), then full qwen2-vl-7b (28 layers, vocabulary
+   152064, about 7.6 B parameters) with random vision embeddings (4 a
+   request) dense, paged (192 blocks of 16) and on the resident prefix
+   pool (phase 3's two rounds, 512 blocks, gated as phase 3 gates
+   chatglm's). Each dense or paged serve fails unless it made one capture
+   and 30 replays and launched flash once a layer and its decode kernel
+   once a layer a decode step (musicgen 48 and 1488, qwen2-vl 28 and
+   868), the other decode kernel never; each prints its wall, tok/s, host
+   ms a decode step, capture ms and peak memory. Then f32 at full width
+   and 2 layers, greedy: the kernel path must give the plain path's tokens
+   and log-probabilities within 1e-3 for musicgen without and with the
+   cross K/V cache (whose tokens must also equal each other's), qwen2-vl
+   dense and paged, and chatglm3-6b with a sliding window of 64 (prompt
+   256, 32 new tokens: the ring of 64 slots wraps at every step), dense.
+9. Print the script's wall time (the build included), the ``kernels``
    JSON line, the card again, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -351,6 +376,15 @@ CALIBRATION = dict(reps=5, bootstrap=200,
 # a 256-row chunk and pads a tail
 SSM_PARITY = {"mamba2-370m": 2, "jamba-v0.1-52b": 8}
 SSM_PARITY_PROMPT = 300
+# phase 8, the remaining archs: the bf16 serves (run name -> arch, modes,
+# cross K/V cache), and the f32 parity's layers and the windowed
+# chatglm3-6b's ring of 64 slots (a 256-token prompt wraps it at every
+# decode step)
+ARCH_SERVES = {"musicgen-dense": ("musicgen-medium", "dense", False),
+               "musicgen-dense-xkv": ("musicgen-medium", "dense", True),
+               "qwen2-vl-dense": ("qwen2-vl-7b", "dense", False),
+               "qwen2-vl-paged": ("qwen2-vl-7b", "paged", False)}
+ARCH_PARITY = dict(layers=2, window=64)
 
 
 def emit(tag: str, obj) -> None:
@@ -471,18 +505,28 @@ def flash_case(g, B, S, H, Hkv, D, Dv, dtype, window=None):
         case["library"] = lambda q, k, v: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True)
+    elif D == Dv:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        case["library"] = lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
     return case
 
 
 def decode_case(g, B, W, H, Hkv, D, filled, dtype, empty_row=False,
                 window=None):
+    """Positions 0 .. ``filled - 1`` written as the dense cache writes
+    them, position p into slot p mod W (with ``filled > W`` the ring has
+    wrapped: slot i holds the latest such p); the query at ``filled - 1``."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import decode_attention_cache
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     q = randn(g, (B, 1, H, D), dtype)
     kc, vc = randn(g, (B, W, Hkv, D), dtype), randn(g, (B, W, Hkv, D), dtype)
-    pos = torch.full((B, W), -1, dtype=torch.int32, device="cuda")
-    pos[:, :filled] = torch.arange(filled, dtype=torch.int32, device="cuda")
+    slot = torch.arange(W, dtype=torch.int32, device="cuda")
+    latest = slot + (filled - 1 - slot).div(W, rounding_mode="floor") * W
+    pos = torch.where(slot < filled, latest, -1).expand(B, W).contiguous()
     if empty_row:
         pos[-1] = -1
     q_pos = torch.full((B,), filled - 1, dtype=torch.int32, device="cuda")
@@ -497,7 +541,7 @@ def decode_case(g, B, W, H, Hkv, D, filled, dtype, empty_row=False,
                 flops=2 * n_valid * (H // Hkv) * Hkv * 2 * D,
                 shape=dict(B=B, W=W, H=H, Hkv=Hkv, D=D, filled=filled,
                            empty_row=empty_row, window=window))
-    if not empty_row and window is None:
+    if not empty_row:
         mask = valid[:, None, None, :]
 
         def library(q, kc, vc, pos, q_pos):
@@ -961,8 +1005,39 @@ def check_kernels(seed: int) -> dict:
                       (2, 24, 3, 8, 16, 8)):
             run_case("ssd_scan", "ragged", ssd_case(g, *shape, dtype), dtype,
                      10)
+    check_arch_kernels(g)
     assert set(main) == set(KERNELS), (sorted(main), sorted(KERNELS))
     return main
+
+
+def check_arch_kernels(g) -> None:
+    """Phase 2 at the shapes phase 8's serves give the attention kernels
+    (32 rows, prompt 256, mid-decode): musicgen-medium's prefill and dense
+    decode (24 heads of 64, one query head a kv head) and qwen2-vl-7b's
+    prefill, dense and paged decode (28 heads over 4 of 128: group 7, which
+    the paged kernel's ``mma.sync`` tile pads to 16); and the windowed
+    chatglm3-6b's ring of 64 slots (window 64) mid-decode, wrapped as its
+    dense cache lays it out: position p in slot p mod 64."""
+    bf, f32 = torch.bfloat16, torch.float32
+    R, k, plen, new = (SERVE["requests"], SERVE["samples"],
+                       SERVE["prompt_len"], SERVE["max_new"])
+    B, W, bs = R * k, plen + new, SERVE["kv_block_size"]
+    step = new // 2
+    for dtype in (bf, f32):
+        for label, (H, Hkv, D) in (("musicgen", (24, 24, 64)),
+                                   ("qwen2-vl", (28, 4, 128))):
+            run_case("flash_attention", label,
+                     flash_case(g, B, plen, H, Hkv, D, D, dtype), dtype, 20)
+            run_case("decode_attention", f"{label}-g{H // Hkv}",
+                     decode_case(g, B, W, H, Hkv, D, plen + step, dtype),
+                     dtype, 50)
+        run_case("paged_decode_attention", "qwen2-vl-g7",
+                 paged_case(g, B, 28, 4, 128, bs, plen, new, k, step, dtype),
+                 dtype, 50)
+        run_case("decode_attention", "window-ring",
+                 decode_case(g, B, ARCH_PARITY["window"], 32, 2, 128,
+                             plen + step, dtype,
+                             window=ARCH_PARITY["window"]), dtype, 50)
 
 
 # ----------------------------------------------------------------- serving
@@ -975,10 +1050,12 @@ def make_prompts(cfg, seed: int, plen: int = SERVE["prompt_len"]):
 
 def check_results(results, cfg, n_samples: int, max_new: int) -> None:
     assert len(results) == SERVE["requests"]
+    # (max_new, K) with K codebooks
+    want = (max_new,) + ((cfg.n_codebooks,) if cfg.n_codebooks > 1 else ())
     for r in results:
         assert len(r.samples) == n_samples
         for s, lp in zip(r.samples, r.logprobs):
-            assert s.shape == (max_new,), s.shape
+            assert s.shape == want, s.shape
             assert s.min() >= 0 and s.max() < cfg.vocab_size, s
             assert math.isfinite(lp) and lp <= 0.0, lp
 
@@ -1004,20 +1081,27 @@ def check_graphs(run: str, stats, new: int) -> None:
 
 
 def serve_run(model, params, prompts, seed: int, paged: bool,
-              kv_format: str = "bf16"):
+              kv_format: str = "bf16", extras: Optional[dict] = None):
     """One timed serve run of the SERVE requests, after a warm-up request
-    (one decode step: eager, no capture). Returns the launch counts, the
-    sampled tokens, the model forwards on the card and the run's
-    numbers."""
+    (one decode step: eager, no capture). ``extras`` are the requests'
+    frontend inputs, a row a prompt. Returns the launch counts, the sampled
+    tokens, the model forwards on the card and the run's numbers, the
+    host's mean ms a decode step (the tracer's ``decode`` spans) among
+    them."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import make_observability
     from repro_torch.serving import (ExecutionBackend, GumbelNoise,
                                      ServingEngine)
     R, k, new = SERVE["requests"], SERVE["samples"], SERVE["max_new"]
+    extras = extras or {}
     kw = paged_kw(model, params, kv_format) if paged else {}
     backend = ExecutionBackend(model, params, **kw)
     engine = ServingEngine(model, params, max_new_tokens=new,
                            temperature=SERVE["temperature"], backend=backend)
-    engine.generate(prompts[:1], n_samples=1, max_new_tokens=2)  # warm-up
+    engine.generate(prompts[:1], n_samples=1, max_new_tokens=2,  # warm-up
+                    extras={name: v[:1] for name, v in extras.items()})
+    obs = make_observability()
+    backend.set_obs(obs)
     noise = GumbelNoise(torch.Generator(device="cuda").manual_seed(seed))
     forwards = [0]
     forward = model.forward
@@ -1032,12 +1116,14 @@ def serve_run(model, params, prompts, seed: int, paged: bool,
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.perf_counter()
-        results = engine.generate(prompts, n_samples=k, noise=noise)
+        results = engine.generate(prompts, n_samples=k, noise=noise,
+                                  extras=extras)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = launch_counts()
     finally:
         del model.forward
+        backend.set_obs(None)
     check_results(results, model.cfg, k, new)
     stats = backend.graph_stats
     # a capture calls model.forward and runs nothing; a replay is a forward
@@ -1052,6 +1138,9 @@ def serve_run(model, params, prompts, seed: int, paged: bool,
                 graph_capture_s=stats.capture_s, graph_replays=stats.replays,
                 graph_pool_gb=stats.pool_bytes / 1e9,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                decode_step_ms=1e3 * np.mean([
+                    sp.t1_s - sp.t0_s for sp in obs.tracer.spans
+                    if sp.name == "decode"]),
                 launches=counts)
     check_graphs(f"{model.cfg.name} {'paged' if paged else 'dense'} "
                  f"{kv_format} KV", stats, new)
@@ -1071,10 +1160,12 @@ def pooled_rounds(cfg, seed: int) -> list:
 
 
 def serve_rounds(model, params, rounds, seed: int, backend_kw: dict, k: int,
-                 new: int, temperature: float):
+                 new: int, temperature: float,
+                 extras: Optional[dict] = None):
     """Serve each round of prompts through one ``ServingEngine.generate``,
     all rounds over one backend built with ``backend_kw`` (round r on
-    Gumbel noise seeded ``seed + r``). Returns the backend and, per round,
+    Gumbel noise seeded ``seed + r``; ``extras`` are each round's frontend
+    inputs, a row a prompt). Returns the backend and, per round,
     the results, the sampled tokens, the batch handles the round started,
     its wall seconds and tok/s, the host's mean ms a decode step (the
     tracer's ``decode`` spans), its prefill spans' ms (``start_batch``,
@@ -1121,7 +1212,8 @@ def serve_rounds(model, params, rounds, seed: int, backend_kw: dict, k: int,
             seed + r))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        results = engine.generate(prompts, n_samples=k, noise=noise)
+        results = engine.generate(prompts, n_samples=k, noise=noise,
+                                  extras=extras)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         backend.set_obs(None)
@@ -1152,87 +1244,111 @@ def serve_rounds(model, params, rounds, seed: int, backend_kw: dict, k: int,
     return out, backend
 
 
-def serve_pooled(model, params, seed: int) -> dict:
-    """Phase 3, the resident prefix pool: full chatglm3-6b in bf16, two
-    rounds one-shot and two chunked (``prefill_chunk=64``), each pair on a
-    pool of its own; then the per-batch paged serve of the same rounds, for
-    the token agreement. Returns the launch counts of each pooled run."""
+def pooled_run(model, params, rounds, seed: int, run: str,
+               chunk: Optional[int], extras: Optional[dict] = None):
+    """Phase 3's two rounds on a resident prefix pool of their own (one-shot,
+    or chunked with ``prefill_chunk=chunk``), gated: round 1 finds no cached
+    block and round 2 the shared system prompt's blocks of every prompt,
+    round 2 saves the prefill bytes of all but its tail tokens, the pool
+    keeps the rounds' chains resident and nothing else, one graph capture
+    and a replay for every other decode step, the paged decode kernel at
+    every decode step and no flash launch. Returns the launch counts and
+    each round's tokens."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serving import ExecutionBackend, ServingEngine
     cfg = model.cfg
     k, new, R = SERVE["samples"], SERVE["max_new"], SERVE["requests"]
     plen, bs = SERVE["prompt_len"], POOL["kv_block_size"]
-    rounds = pooled_rounds(cfg, seed)
-    base = dict(kv_blocks=POOL["kv_blocks"], kv_block_size=bs)
-    pooled = dict(base, kv_pool=True, pool_evict="lru")
-    # kernels and cuBLAS warm before the timed rounds: a prompt shorter
-    # than a block caches nothing in the trie
-    warm = ExecutionBackend(model, params, **pooled)
-    ServingEngine(model, params, backend=warm).generate(
-        [rounds[0][0][:bs - 1]], n_samples=1, max_new_tokens=2)
-    if warm.prefix_pool.blocks_resident:
-        raise AssertionError("the warm-up cached a block")
-    del warm
+    pooled = dict(kv_blocks=POOL["kv_blocks"], kv_block_size=bs,
+                  kv_pool=True, pool_evict="lru", prefill_chunk=chunk)
     system_blocks = POOL["system_len"] // bs
     suffix = plen - POOL["system_len"]
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    info, backend = serve_rounds(model, params, rounds, seed, pooled, k, new,
+                                 SERVE["temperature"], extras)
+    c = launch_counts()
+    ktb = backend.kv_token_bytes
+    for r, i in enumerate(info):
+        hits = sum(h.pool_hit_blocks for h in i["handles"])
+        saved = sum(h.prefill_bytes_saved for h in i["handles"])
+        emit("serve-pooled", dict(
+            run=run, arch=cfg.name, round=r + 1, prefill_chunk=chunk,
+            batches=len(i["handles"]), pool_hit_blocks=hits,
+            prefill_bytes_saved=saved,
+            **{key: i[key] for key in (
+                "seconds", "tokens_per_s", "decode_step_ms",
+                "prefill_span_ms", "tail_prefill_host_ms",
+                "graph_captures", "graph_capture_ms",
+                "graph_replays")}))
+        want = 0 if r == 0 else R * system_blocks
+        if hits != want:
+            raise AssertionError(f"{run} round {r + 1}: {hits} blocks "
+                                 f"found in the pool, want {want}")
+        if r == 1 and saved != (R * k * plen - R * suffix) * ktb:
+            raise AssertionError(f"{run} round 2 saved {saved} prefill "
+                                 "bytes, want the bytes of all but its "
+                                 f"{R} x {suffix} tail tokens")
+    resident = backend.prefix_pool.blocks_resident
+    # round 1: one system chain + every suffix chain; round 2: its own
+    # suffix chains
+    want_resident = system_blocks + 2 * R * (plen // bs - system_blocks)
+    stats = backend.graph_stats
+    emit("serve-pooled", dict(
+        run=run, arch=cfg.name, kv_blocks=POOL["kv_blocks"],
+        kv_token_bytes=ktb, pool_gb=POOL["kv_blocks"] * bs * ktb / 1e9,
+        blocks_in_use=backend.blocks_in_use, blocks_resident=resident,
+        graph_captures=stats.captures, graph_replays=stats.replays,
+        graph_pool_gb=stats.pool_bytes / 1e9,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=c))
+    if backend.blocks_in_use != resident or resident != want_resident:
+        raise AssertionError(f"{run}: {backend.blocks_in_use} blocks in "
+                             f"use and {resident} resident, want "
+                             f"{want_resident} each")
+    if (stats.captures, stats.replays) != (1, 2 * (new - 1) - 1):
+        raise AssertionError(f"{run}: {stats.captures} graph captures "
+                             f"and {stats.replays} replays, want 1 and "
+                             f"{2 * (new - 1) - 1}")
+    want = {"paged_decode_attention": cfg.n_layers * 2 * (new - 1),
+            "flash_attention": 0}
+    for name, n in want.items():
+        if c[name] != n:
+            raise AssertionError(f"{run}: {name} launched {c[name]} "
+                                 f"times, want {n}")
+    return c, [i["tokens"] for i in info]
+
+
+def warm_pool(model, params, rounds, extras: Optional[dict] = None) -> None:
+    """Kernels and cuBLAS warm before the timed rounds: a prompt shorter
+    than a block caches nothing in the trie."""
+    from repro_torch.serving import ExecutionBackend, ServingEngine
+    bs = POOL["kv_block_size"]
+    warm = ExecutionBackend(model, params, kv_blocks=POOL["kv_blocks"],
+                            kv_block_size=bs, kv_pool=True)
+    ServingEngine(model, params, backend=warm).generate(
+        [rounds[0][0][:bs - 1]], n_samples=1, max_new_tokens=2,
+        extras={name: v[:1] for name, v in (extras or {}).items()})
+    if warm.prefix_pool.blocks_resident:
+        raise AssertionError("the warm-up cached a block")
+
+
+def serve_pooled(model, params, seed: int) -> dict:
+    """Phase 3, the resident prefix pool: full chatglm3-6b in bf16, two
+    rounds one-shot and two chunked (``prefill_chunk=64``), each pair on a
+    pool of its own (`pooled_run`); then the per-batch paged serve of the
+    same rounds, for the token agreement. Returns the launch counts of each
+    pooled run."""
+    k, new = SERVE["samples"], SERVE["max_new"]
+    rounds = pooled_rounds(model.cfg, seed)
+    warm_pool(model, params, rounds)
     counts, tokens = {}, {}
     for run, chunk in (("chatglm-pooled", None),
                        ("chatglm-pooled-chunked", 64)):
-        reset_launch_counts()
-        info, backend = serve_rounds(model, params, rounds, seed,
-                                     dict(pooled, prefill_chunk=chunk), k,
-                                     new, SERVE["temperature"])
-        counts[run] = c = launch_counts()
-        tokens[run] = [i["tokens"] for i in info]
-        ktb = backend.kv_token_bytes
-        for r, i in enumerate(info):
-            hits = sum(h.pool_hit_blocks for h in i["handles"])
-            saved = sum(h.prefill_bytes_saved for h in i["handles"])
-            emit("serve-pooled", dict(
-                run=run, round=r + 1, prefill_chunk=chunk,
-                batches=len(i["handles"]), pool_hit_blocks=hits,
-                prefill_bytes_saved=saved,
-                **{key: i[key] for key in (
-                    "seconds", "tokens_per_s", "decode_step_ms",
-                    "prefill_span_ms", "tail_prefill_host_ms",
-                    "graph_captures", "graph_capture_ms",
-                    "graph_replays")}))
-            want = 0 if r == 0 else R * system_blocks
-            if hits != want:
-                raise AssertionError(f"{run} round {r + 1}: {hits} blocks "
-                                     f"found in the pool, want {want}")
-            if r == 1 and saved != (R * k * plen - R * suffix) * ktb:
-                raise AssertionError(f"{run} round 2 saved {saved} prefill "
-                                     "bytes, want the bytes of all but its "
-                                     f"{R} x {suffix} tail tokens")
-        resident = backend.prefix_pool.blocks_resident
-        # round 1: one system chain + every suffix chain; round 2: its own
-        # suffix chains
-        want_resident = system_blocks + 2 * R * (plen // bs - system_blocks)
-        stats = backend.graph_stats
-        emit("serve-pooled", dict(
-            run=run, kv_blocks=POOL["kv_blocks"], kv_token_bytes=ktb,
-            pool_gb=POOL["kv_blocks"] * bs * ktb / 1e9,
-            blocks_in_use=backend.blocks_in_use, blocks_resident=resident,
-            graph_captures=stats.captures, graph_replays=stats.replays,
-            graph_pool_gb=stats.pool_bytes / 1e9, launches=c))
-        if backend.blocks_in_use != resident or resident != want_resident:
-            raise AssertionError(f"{run}: {backend.blocks_in_use} blocks in "
-                                 f"use and {resident} resident, want "
-                                 f"{want_resident} each")
-        if (stats.captures, stats.replays) != (1, 2 * (new - 1) - 1):
-            raise AssertionError(f"{run}: {stats.captures} graph captures "
-                                 f"and {stats.replays} replays, want 1 and "
-                                 f"{2 * (new - 1) - 1}")
-        want = {"paged_decode_attention": cfg.n_layers * 2 * (new - 1),
-                "flash_attention": 0}
-        for name, n in want.items():
-            if c[name] != n:
-                raise AssertionError(f"{run}: {name} launched {c[name]} "
-                                     f"times, want {n}")
-        del backend
-    paged, _ = serve_rounds(model, params, rounds, seed, base, k, new,
-                            SERVE["temperature"])
+        counts[run], tokens[run] = pooled_run(model, params, rounds, seed,
+                                              run, chunk)
+    paged, _ = serve_rounds(model, params, rounds, seed,
+                            dict(kv_blocks=POOL["kv_blocks"],
+                                 kv_block_size=POOL["kv_block_size"]),
+                            k, new, SERVE["temperature"])
     # information, not a gate: bf16 sums the pooled tail prefill, the
     # chunked slices and the per-batch flash prefill in other orders
     emit("serve-agreement", dict(
@@ -1412,14 +1528,17 @@ def serve_ssm(seed: int) -> dict:
 
 
 def serve_both(cfg, mk, mp, kparams, pparams, prompts, mode: str,
-               kv_format: str = "bf16") -> tuple:
-    """Greedy serve through the kernel path (``mk``) and the plain path
-    (``mp``). Returns (sequences with equal tokens, sequences, the largest
-    log-probability difference, the share of equal tokens). For an MoE
-    (SSM) arch the kernel path must have run the MoE (SSD) kernel."""
+               kv_format: str = "bf16", extras: Optional[dict] = None,
+               new: int = 16) -> tuple:
+    """Greedy serve (2 samples of ``new`` tokens) through the kernel path
+    (``mk``) and the plain path (``mp``), with the frontend inputs
+    ``extras``. Returns (sequences with equal tokens, sequences, the
+    largest log-probability difference, the share of equal tokens, the
+    kernel path's results). For an MoE (SSM) arch the kernel path must have
+    run the MoE (SSD) kernel."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import ExecutionBackend, ServingEngine
-    k, new = 2, 16
+    k = 2
     out = {}
     for tag, m, prm in (("kernel", mk, kparams), ("plain", mp, pparams)):
         kw = (dict(kv_blocks=512, kv_block_size=SERVE["kv_block_size"],
@@ -1428,7 +1547,7 @@ def serve_both(cfg, mk, mp, kparams, pparams, prompts, mode: str,
         eng = ServingEngine(m, prm, max_new_tokens=new, temperature=0.0,
                             backend=backend)
         reset_launch_counts()
-        out[tag] = eng.generate(prompts, n_samples=k)
+        out[tag] = eng.generate(prompts, n_samples=k, extras=extras)
         check_graphs(f"{cfg.name} {mode} {tag} path", backend.graph_stats,
                      new)
         for name, used in (("moe_gemm", cfg.moe is not None),
@@ -1441,25 +1560,30 @@ def serve_both(cfg, mk, mp, kparams, pparams, prompts, mode: str,
              for a, b in zip(ra.samples, rb.samples)]
     lp_err = max(abs(a - b) for ra, rb in zip(out["kernel"], out["plain"])
                  for a, b in zip(ra.logprobs, rb.logprobs))
-    same = np.stack([a == b for a, b in pairs])
-    return int(same.all(axis=1).sum()), len(pairs), lp_err, float(same.mean())
+    same = np.stack([(a == b).reshape(-1) for a, b in pairs])
+    return (int(same.all(axis=1).sum()), len(pairs), lp_err,
+            float(same.mean()), out["kernel"])
 
 
 def compare_paths(cfg, mk, mp, kparams, pparams, prompts, mode: str,
-                  weights: str, kv_format: str = "bf16") -> None:
+                  weights: str, kv_format: str = "bf16",
+                  extras: Optional[dict] = None, new: int = 16) -> list:
     """`serve_both` in f32: the same tokens and log-probabilities within
-    1e-3, or raise."""
-    equal, n, lp_err, _ = serve_both(cfg, mk, mp, kparams, pparams, prompts,
-                                     mode, kv_format)
+    1e-3, or raise. Returns the kernel path's results."""
+    equal, n, lp_err, _, results = serve_both(
+        cfg, mk, mp, kparams, pparams, prompts, mode, kv_format, extras, new)
     emit("parity-f32", dict(arch=cfg.name, mode=mode, weights=weights,
                             kv_format=kv_format, layers=cfg.n_layers,
-                            prompt_len=len(prompts[0]),
+                            prompt_len=len(prompts[0]), max_new=new,
+                            window=cfg.attn_window,
+                            cross_kv_cache=cfg.cross_kv_cache,
                             sequences=n, tokens_equal=equal,
                             max_logprob_diff=lp_err, tol=1e-3))
     if equal != n or lp_err > 1e-3:
         raise AssertionError(f"f32 parity ({cfg.name} {mode}, {weights} "
                              f"weights, {kv_format} KV): {equal}/{n} "
                              f"sequences equal, logprob diff {lp_err:.3e}")
+    return results
 
 
 # graphs against eager decoding, bf16, full width: (arch, mode, weights)
@@ -1549,8 +1673,8 @@ def agreement_bf16(seed: int) -> None:
             kparams = quantize_model(params, wfmt, 32)
             pparams = dequantize_model(kparams, torch.bfloat16)
         prompts = make_prompts(cfg, seed + 2)
-        equal, n, lp_err, agree = serve_both(cfg, mk, mp, kparams, pparams,
-                                             prompts, mode)
+        equal, n, lp_err, agree, _ = serve_both(cfg, mk, mp, kparams,
+                                                pparams, prompts, mode)
         emit("agreement-bf16", dict(arch=cfg.name, mode=mode, weights=wfmt,
                                     layers=cfg.n_layers, sequences=n,
                                     sequences_equal=equal,
@@ -2333,6 +2457,155 @@ def spec_moe(seed: int) -> dict:
     return counts
 
 
+# ------------------------------------------------------- the remaining archs
+
+def arch_prompts(cfg, seed: int, plen: int = SERVE["prompt_len"]):
+    """SERVE's prompts for ``cfg`` from ``seed``: (plen, K) with K
+    codebooks, each codebook's stream drawn on its own."""
+    rng = np.random.default_rng(seed)
+    tail = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    return [rng.integers(0, cfg.vocab_size, (plen,) + tail).astype(np.int32)
+            for _ in range(SERVE["requests"])]
+
+
+def arch_extras(cfg, seed: int) -> dict:
+    """The frontends' stub inputs of SERVE's requests, a row a prompt,
+    random normal x 0.1 from ``seed`` (the reference's launcher gives
+    zeros, which would not test the cross-attention): 4 vision embeddings,
+    or ``n_cond_tokens`` rows of conditioning memory."""
+    rng = np.random.default_rng(seed)
+    R, d = SERVE["requests"], cfg.d_model
+    out = {}
+    if cfg.frontend == "vision":
+        out["vision_embeds"] = (rng.standard_normal((R, 4, d))
+                                * 0.1).astype(np.float32)
+    if cfg.cross_attention:
+        out["cond_memory"] = (rng.standard_normal((R, cfg.n_cond_tokens, d))
+                              * 0.1).astype(np.float32)
+    return out
+
+
+def serve_archs(seed: int) -> dict:
+    """Phase 8, bf16: full musicgen-medium dense, with and without the
+    cross K/V cache, then full qwen2-vl-7b dense, paged and on the resident
+    prefix pool (`pooled_run`), every earlier model freed first. Returns
+    the launch counts of each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.quant.quantize import param_bytes
+    new = SERVE["max_new"]
+    counts, tokens = {}, {}
+    arch = None
+    for run, (name, mode, cross_kv) in ARCH_SERVES.items():
+        if name != arch:
+            arch, model, params = name, None, None
+            torch.cuda.empty_cache()
+            cfg = get_config(arch)
+            model = Model(cfg, dtype=torch.bfloat16, device="cuda",
+                          use_kernel=True)
+            t0 = time.perf_counter()
+            params = model.init(torch.Generator(device="cuda").manual_seed(
+                seed))
+            torch.cuda.synchronize()
+            emit("model", dict(arch=cfg.name, layers=cfg.n_layers,
+                               d_model=cfg.d_model,
+                               params=model.param_count(), dtype="bfloat16",
+                               init_s=time.perf_counter() - t0,
+                               weight_gb=param_bytes(params) / 1e9,
+                               codebooks=cfg.n_codebooks))
+            prompts, extras = arch_prompts(cfg, seed), arch_extras(cfg, seed)
+        m = model
+        if cross_kv:
+            m = Model(dataclasses.replace(cfg, cross_kv_cache=True),
+                      dtype=torch.bfloat16, device="cuda", use_kernel=True)
+        c, tokens[run], fwd, info = serve_run(
+            m, params, prompts, seed, paged=mode == "paged", extras=extras)
+        counts[run] = c
+        emit("serve", dict(arch=cfg.name, mode=mode, weights="bf16",
+                           cross_kv_cache=cross_kv,
+                           extras=sorted(extras), **info))
+        decode = ATTN_KERNELS[mode][1]
+        other = ATTN_KERNELS["paged" if mode == "dense" else "dense"][1]
+        want = {"flash_attention": cfg.n_layers,
+                decode: cfg.n_layers * (new - 1), other: 0}
+        for name, n in want.items():
+            if c[name] != n:
+                raise AssertionError(f"{run}: {name} launched {c[name]} "
+                                     f"times, want {n}")
+    # information, not a gate: the cached K/V and the per-step projection of
+    # the memory round alike in f32 (phase 8's parity), not in bf16
+    emit("serve-agreement", dict(
+        arch="musicgen-medium", cross_kv_vs_recompute_token_match=float(
+            (tokens["musicgen-dense-xkv"]
+             == tokens["musicgen-dense"]).mean())))
+    rounds = pooled_rounds(cfg, seed)
+    warm_pool(model, params, rounds, extras)
+    counts["qwen2-vl-pooled"], _ = pooled_run(
+        model, params, rounds, seed, "qwen2-vl-pooled", None, extras)
+    del params, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def parity_archs(seed: int) -> None:
+    """Phase 8, f32 at full width and 2 layers, greedy: the kernel path
+    against the plain path (`compare_paths`: the same tokens,
+    log-probabilities within 1e-3) for musicgen-medium without and with
+    the cross K/V cache (which must give the same tokens as each other),
+    qwen2-vl-7b dense and paged, and chatglm3-6b with a sliding window of
+    64 over prompts of 256 and 32 new tokens, dense: its ring of 64 slots
+    wraps at every decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    layers = ARCH_PARITY["layers"]
+
+    def pair(cfg):
+        return (Model(cfg, dtype=torch.float32, device="cuda",
+                      use_kernel=True),
+                Model(cfg, dtype=torch.float32, device="cuda",
+                      use_kernel=False))
+
+    cfg = dataclasses.replace(get_config("musicgen-medium"), n_layers=layers)
+    params = pair(cfg)[0].init(torch.Generator(device="cuda").manual_seed(
+        seed + 1))
+    prompts, extras = arch_prompts(cfg, seed + 1), arch_extras(cfg, seed + 1)
+    outs = {}
+    for cross_kv in (False, True):
+        c = dataclasses.replace(cfg, cross_kv_cache=cross_kv)
+        outs[cross_kv] = compare_paths(c, *pair(c), params, params, prompts,
+                                       "dense", "f32", extras=extras)
+    toks = [np.stack([s for r in outs[x] for s in r.samples])
+            for x in (False, True)]
+    lp_err = max(abs(a - b) for ra, rb in zip(outs[False], outs[True])
+                 for a, b in zip(ra.logprobs, rb.logprobs))
+    equal = int((toks[0] == toks[1]).reshape(len(toks[0]), -1).all(1).sum())
+    emit("parity-f32", dict(arch=cfg.name, mode="cross-kv vs recompute",
+                            weights="f32", layers=layers,
+                            sequences=len(toks[0]), tokens_equal=equal,
+                            max_logprob_diff=lp_err))
+    if equal != len(toks[0]):
+        raise AssertionError(f"{cfg.name}: the cross K/V cache changed the "
+                             f"tokens of {len(toks[0]) - equal} sequences")
+    del params
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b"), n_layers=layers)
+    mk, mp = pair(cfg)
+    params = mk.init(torch.Generator(device="cuda").manual_seed(seed + 1))
+    prompts, extras = arch_prompts(cfg, seed + 1), arch_extras(cfg, seed + 1)
+    for mode in ("dense", "paged"):
+        compare_paths(cfg, mk, mp, params, params, prompts, mode, "f32",
+                      extras=extras)
+    del params
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=layers,
+                              attn_window=ARCH_PARITY["window"])
+    mk, mp = pair(cfg)
+    params = mk.init(torch.Generator(device="cuda").manual_seed(seed + 1))
+    compare_paths(cfg, mk, mp, params, params, make_prompts(cfg, seed + 1),
+                  "dense", "f32", new=SERVE["max_new"])
+    del params
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------- the calibration loop
 
 def route_points(router) -> dict:
@@ -2487,6 +2760,10 @@ def main() -> int:
     t_phase = time.perf_counter()
     counts["calibration"] = calibration_loop(args.seed)
     emit("calibration", dict(phase_s=time.perf_counter() - t_phase))
+    t_phase = time.perf_counter()
+    counts.update(serve_archs(args.seed))
+    parity_archs(args.seed)
+    emit("archs", dict(phase_s=time.perf_counter() - t_phase))
 
     kernels = []
     for name, r in main_cases.items():

@@ -21,13 +21,17 @@ the paged decode kernel does not read: decode attention then takes the plain
 gather path, as in the reference. MoE archs run their expert products
 through the grouped-GEMM kernel, and Mamba-2 layers (``--arch mamba2-370m``,
 ``--arch jamba-v0.1-52b``) their prefill through the SSD chunk kernel; archs
-without a paged layout (MLA, SSM) serve dense only and refuse
-``--kv-blocks``. ``--kv-pool`` serves the paged cache as one resident
-prefix pool that outlives batches (a prompt whose leading blocks are cached
-prefills only its tail), and ``--prefill-chunk N`` prefills in slices of at
-most N tokens; both need ``--kv-blocks``. The launcher serves the full
-depth of the arch, and all 32 layers of jamba-v0.1-52b (103 GB of bf16
-weights) do not fit one 80 GB card. ``--device cpu`` runs the plain
+without a paged layout (MLA, SSM, cross-attention) serve dense only and
+refuse ``--kv-blocks``. ``--arch musicgen-medium`` serves prompts of its 4
+codebooks (one token stream repeated) against a zero conditioning memory,
+and ``--arch qwen2-vl-7b`` with zero vision embeddings over its first 4
+positions, as the reference's launcher builds them. ``--kv-pool`` serves
+the paged cache as one resident prefix pool that outlives batches (a
+prompt whose leading blocks are cached prefills only its tail), and
+``--prefill-chunk N`` prefills in slices of at most N tokens; both need
+``--kv-blocks``. The launcher serves the full depth of the arch, and all
+32 layers of jamba-v0.1-52b (103 GB of bf16 weights) do not fit one 80 GB
+card. ``--device cpu`` runs the plain
 PyTorch path; ``--smoke`` serves the arch's reduced config in f32.
 ``repro_torch.launch.profile_serve`` takes the same flags and says where the
 device time goes.
@@ -258,7 +262,10 @@ def setup(args: argparse.Namespace
     for _ in range(args.requests):
         p = rng.integers(0, cfg.vocab_size,
                          size=(args.prompt_len,)).astype(np.int32)
-        check = safety.validator.validate(p, now_s=time.time() % 1e6)
+        if cfg.n_codebooks > 1:
+            p = np.stack([p] * cfg.n_codebooks, -1)
+        check = safety.validator.validate(p if p.ndim == 1 else p[:, 0],
+                                          now_s=time.time() % 1e6)
         if not check.ok:
             print("[safety] rejected request:", check.reason)
             continue
@@ -268,6 +275,9 @@ def setup(args: argparse.Namespace
     if cfg.frontend == "vision":
         extras["vision_embeds"] = np.zeros((len(prompts), 4, cfg.d_model),
                                            np.float32)
+    if cfg.cross_attention:
+        extras["cond_memory"] = np.zeros(
+            (len(prompts), cfg.n_cond_tokens, cfg.d_model), np.float32)
 
     if args.kv_blocks is None:
         backend = ExecutionBackend(model, params, obs=obs, **spec_kwargs)
@@ -300,7 +310,7 @@ def setup(args: argparse.Namespace
         # they could hit
         warm = prompts[0].copy()
         warm[0] = min(set(range(cfg.vocab_size))
-                      - {int(p[0]) for p in prompts})
+                      - {int(np.ravel(p)[0]) for p in prompts})
         engine.generate([warm], n_samples=1, max_new_tokens=2,
                         extras={k: v[:1] for k, v in extras.items()})
         torch.cuda.synchronize()

@@ -1,6 +1,7 @@
 """GQA attention (llama/qwen/yi/chatglm) and MLA (DeepSeek-V2): train,
-prefill and decode, over a dense ring cache or (GQA) a paged block pool.
-Ported from ``repro.models.attention``.
+prefill and decode, over a dense ring cache or (GQA) a paged block pool;
+and cross-attention to a static conditioning memory (musicgen). Ported
+from ``repro.models.attention``.
 
 The plain PyTorch path here is the semantics the kernels are held to; with
 ``use_kernel`` the hand-written Hopper kernels in `repro_torch.kernels` take
@@ -20,8 +21,10 @@ its prefill decompresses them and runs the flash kernel with
 is plain PyTorch, absorbed (W_uk folded into q) or not, as in the reference,
 which has no decode kernel for it.
 
-Cross-attention (musicgen) arrives with a later slice; its parameter shapes
-are here so that parameter counts cover every arch.
+Cross-attention (`cross_forward`) is plain PyTorch, as the reference's is
+jnp outside any Pallas kernel: queries from ``x``, keys and values projected
+from the memory, or taken from the cross K/V cache entries ``xk`` / ``xv``
+when ``cfg.cross_kv_cache`` keeps them (`repro_torch.models.blocks`).
 """
 from __future__ import annotations
 
@@ -71,6 +74,18 @@ def cross_attn_shapes(cfg: ArchConfig) -> Dict[str, Shapes]:
         "wv": dense_shapes(cfg.d_model, cfg.n_heads * hd),
         "wo": dense_shapes(cfg.n_heads * hd, cfg.d_model),
     }
+
+
+def cross_attn_init(gen: torch.Generator, cfg: ArchConfig, dtype, device,
+                    stack: Tuple[int, ...] = ()) -> Params:
+    """`cross_attn_shapes`: four bias-free projections, keys and values at
+    every query head."""
+    kw = dict(dtype=dtype, device=device, stack=stack)
+    d, hd = cfg.d_model, cfg.n_heads * cfg.hd
+    return {"wq": dense_init(gen, d, hd, **kw),
+            "wk": dense_init(gen, d, hd, **kw),
+            "wv": dense_init(gen, d, hd, **kw),
+            "wo": dense_init(gen, hd, d, **kw)}
 
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype, device,
@@ -443,3 +458,30 @@ def mla_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         cpos[bidx, slot] = pos_w.to(torch.int32)
     y = dense(p["wo"], out.reshape(B, S, H * vd))
     return y, cache
+
+
+# =============================================================================
+# Cross-attention (musicgen conditioning): static memory
+# =============================================================================
+
+def cross_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                  memory: Optional[torch.Tensor],
+                  cached_kv: Optional[Tuple[torch.Tensor,
+                                            torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Cross-attention of ``x`` (B, S, d) over the conditioning memory
+    (B, Tm, d): no mask, scale ``1 / sqrt(hd)``. With ``cached_kv`` (decode
+    with ``cfg.cross_kv_cache``) the memory projections are skipped and the
+    cached keys and values (B, Tm, H, hd) are read instead. Returns the
+    output and the (k, v) attended to."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    if cached_kv is not None:
+        k, v = cached_kv
+    else:
+        Tm = memory.shape[1]
+        k = dense(p["wk"], memory).reshape(B, Tm, cfg.n_heads, hd)
+        v = dense(p["wv"], memory).reshape(B, Tm, cfg.n_heads, hd)
+    out = sdpa(q, k, v, None, 1.0 / np.sqrt(hd))
+    return dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd)), (k, v)

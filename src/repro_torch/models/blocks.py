@@ -6,9 +6,11 @@ and loops over them. Ported from ``repro.models.blocks``.
 
 Each layer mixes with attention (GQA or MLA, mixer ``"a"``) or a Mamba-2
 block (mixer ``"m"``), then runs a dense MLP, a MoE FFN (`cfg.is_moe_layer`)
-or, for pure-Mamba stacks (``d_ff == 0``), no FFN. Cross-attention raises
-`NotImplementedError` naming the slice it arrives with; its parameter shapes
-are here so that parameter counts cover every arch.
+or, for pure-Mamba stacks (``d_ff == 0``), no FFN. With
+``cfg.cross_attention`` (musicgen) a cross-attention sublayer over the
+conditioning memory follows the mixer; with ``cfg.cross_kv_cache`` its keys
+and values ride in the attention sub-cache as ``xk`` / ``xv``: a prefill
+writes them in place, a decode step reads them and needs no memory.
 """
 from __future__ import annotations
 
@@ -70,25 +72,18 @@ def super_block_shapes(cfg: ArchConfig, n_prefix: int) -> Dict:
 
 # --------------------------------------------------------------------------- init
 
-def _unported(cfg: ArchConfig) -> Optional[str]:
-    if cfg.cross_attention:
-        return ("cross-attention arrives with the remaining-arch-features "
-                "slice of the port")
-    return None
-
-
 def sublayer_init(gen: torch.Generator, cfg: ArchConfig, mixer: str,
                   ffn: str, dtype, device,
                   stack: Tuple[int, ...] = ()) -> Params:
-    why = _unported(cfg)
-    if why:
-        raise NotImplementedError(why)
     d = cfg.d_model
     p: Params = {"ln1": rmsnorm_init(d, dtype, device, stack)}
     if mixer == "a":
         p["attn"] = attn.attn_init(gen, cfg, dtype, device, stack)
     else:
         p["ssm"] = ssm_mod.ssm_init(gen, cfg, dtype, device, stack)
+    if cfg.cross_attention:
+        p["ln_x"] = rmsnorm_init(d, dtype, device, stack)
+        p["cross"] = attn.cross_attn_init(gen, cfg, dtype, device, stack)
     if ffn == "moe":
         p["ln2"] = rmsnorm_init(d, dtype, device, stack)
         p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device, stack)
@@ -109,18 +104,24 @@ def super_block_init(gen: torch.Generator, cfg: ArchConfig, n_prefix: int,
 
 def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                      positions: torch.Tensor, mixer: str,
-                     cache: Optional[Dict], use_kernel: bool,
+                     cache: Optional[Dict], memory: Optional[torch.Tensor],
+                     use_kernel: bool,
                      block_table: Optional[torch.Tensor] = None,
                      kv_len: Optional[int] = None,
                      decode: bool = False
                      ) -> Tuple[torch.Tensor, Optional[Dict],
                                 Union[torch.Tensor, float]]:
     """Returns (x, cache, aux loss): the MoE FFN's aux loss (a 0-d f32
-    tensor), else 0.0, which launches nothing."""
-    why = _unported(cfg)
-    if why:
-        raise NotImplementedError(why)
+    tensor), else 0.0, which launches nothing. ``memory`` (B, Tm, d) is
+    the conditioning memory of a cross-attention arch, or None."""
     aux = 0.0
+    # the cross-attention K/V cache entries: read at a decode step (S == 1,
+    # or ``decode``), as the reference reads them before its self-attention
+    # rebuilds the sub-cache dict
+    cross_kv = None
+    if cfg.cross_attention and cfg.cross_kv_cache and cache is not None \
+            and (x.shape[1] == 1 or decode):
+        cross_kv = (cache["xk"], cache["xv"])
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if mixer != "a":
         y, new_cache = ssm_mod.ssm_forward(p["ssm"], cfg, h, cache,
@@ -135,6 +136,15 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                                         block_table=block_table,
                                         kv_len=kv_len, decode=decode)
     x = x + y
+    if cfg.cross_attention and (memory is not None or cross_kv is not None):
+        y, (k, v) = attn.cross_forward(p["cross"], cfg,
+                                       rmsnorm(p["ln_x"], x, cfg.norm_eps),
+                                       memory, cached_kv=cross_kv)
+        x = x + y
+        if cfg.cross_kv_cache and new_cache is not None and cross_kv is None:
+            # in place: a decode graph addresses these tensors
+            new_cache["xk"].copy_(k)
+            new_cache["xv"].copy_(v)
     if "moe" in p:
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
         y, aux = moe_mod.moe_forward(p["moe"], cfg, h, use_kernel=use_kernel)
@@ -147,7 +157,7 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
 def super_block_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                         positions: torch.Tensor, cache: Optional[Dict],
-                        use_kernel: bool,
+                        memory: Optional[torch.Tensor], use_kernel: bool,
                         block_table: Optional[torch.Tensor] = None,
                         kv_len: Optional[int] = None,
                         decode: bool = False
@@ -161,7 +171,7 @@ def super_block_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         key = f"l{i}"
         sub_cache = cache.get(key) if cache is not None else None
         x, nc, aux = sublayer_forward(p[key], cfg, x, positions, mixer,
-                                      sub_cache, use_kernel,
+                                      sub_cache, memory, use_kernel,
                                       block_table=block_table, kv_len=kv_len,
                                       decode=decode)
         if new_cache is not None:

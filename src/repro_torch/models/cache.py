@@ -27,8 +27,14 @@ MLA entries (dense only, as in the reference): the latent ``c_kv``
 
 Mamba-2 (SSM) entries (dense only, as in the reference): the state ``ssm``
 ``(B, H, P, N)`` in f32 and the conv tail ``conv`` ``(B, d_conv - 1, Ch)``
-in the model dtype, both starting at zero. Cross-attention K/V arrive with a
-later slice of the port and raise here.
+in the model dtype, both starting at zero.
+
+Cross-attention K/V (``cfg.cross_kv_cache``, dense only): every attention
+entry also holds ``xk`` / ``xv`` ``(B, Tm, n_heads, hd)`` in the model
+dtype, the conditioning memory's projected keys and values: Tm rows,
+``cond_len`` as the caller sizes them to its memory, else
+``cfg.n_cond_tokens``. A prefill writes them in place (a decode graph
+addresses them), where the reference's prefill replaces them.
 """
 from __future__ import annotations
 
@@ -77,7 +83,8 @@ def n_scanned_super_blocks(cfg: ArchConfig) -> int:
 
 
 def _entry_shapes(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
-                  dtype, paged: Optional[PagedLayout], kv_dtype):
+                  dtype, paged: Optional[PagedLayout], kv_dtype,
+                  cond_len: Optional[int] = None):
     """{name: (shape, dtype)} of one layer's cache entry."""
     if mixer != "a":
         s = cfg.ssm
@@ -85,9 +92,6 @@ def _entry_shapes(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
         return {"ssm": ((batch, cfg.ssm_heads, s.headdim, s.d_state),
                         torch.float32),
                 "conv": ((batch, s.d_conv - 1, conv_ch), dtype)}
-    if cfg.cross_attention and cfg.cross_kv_cache:
-        raise NotImplementedError("cross-attention K/V caches arrive with "
-                                  "the cross-attention slice of the port")
     if paged is not None:
         lead = (paged.n_blocks, paged.block_size)
         el_dtype = dtype if kv_dtype is None else kv_dtype
@@ -98,14 +102,19 @@ def _entry_shapes(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
         W = min(cache_len, cfg.attn_window) if cfg.attn_window else cache_len
         lead = (batch, W)
         el_dtype = dtype
-        if cfg.mla is not None:
-            m = cfg.mla
-            return {"c_kv": (lead + (m.kv_lora_rank,), dtype),
-                    "k_rope": (lead + (m.qk_rope_head_dim,), dtype),
-                    "pos": (lead, torch.int32)}
-    shapes = {"k": (lead + (cfg.n_kv_heads, cfg.hd), el_dtype),
-              "v": (lead + (cfg.n_kv_heads, cfg.hd), el_dtype),
-              "pos": (lead, torch.int32)}
+    if paged is None and cfg.mla is not None:
+        m = cfg.mla
+        shapes = {"c_kv": (lead + (m.kv_lora_rank,), dtype),
+                  "k_rope": (lead + (m.qk_rope_head_dim,), dtype),
+                  "pos": (lead, torch.int32)}
+    else:
+        shapes = {"k": (lead + (cfg.n_kv_heads, cfg.hd), el_dtype),
+                  "v": (lead + (cfg.n_kv_heads, cfg.hd), el_dtype),
+                  "pos": (lead, torch.int32)}
+    if paged is None and cfg.cross_attention and cfg.cross_kv_cache:
+        xkv = (batch, cond_len or cfg.n_cond_tokens, cfg.n_heads, cfg.hd)
+        shapes["xk"] = (xkv, dtype)
+        shapes["xv"] = (xkv, dtype)
     if el_dtype == torch.int8:
         # int8 KV: per-(block, slot, kv-head) dequant scales
         shapes["k_scale"] = (lead + (cfg.n_kv_heads,), torch.float32)
@@ -115,9 +124,12 @@ def _entry_shapes(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
 
 def make_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device: DeviceLike = "cuda",
-               paged: Optional[PagedLayout] = None, kv_dtype=None) -> Dict:
+               paged: Optional[PagedLayout] = None, kv_dtype=None,
+               cond_len: Optional[int] = None) -> Dict:
     """Full-model cache: {"prefix": [...], "blocks": stacked entries}, on
     ``device`` (the card unless the caller asks for ``"cpu"``).
+    ``cond_len`` is the conditioning memory's length that cross K/V entries
+    hold (default ``cfg.n_cond_tokens``).
 
     With ``paged`` the attention entries become block pools (see module
     docstring); ``batch``/``cache_len`` are then ignored: capacity lives in
@@ -131,7 +143,7 @@ def make_cache(cfg: ArchConfig, batch: int, cache_len: int,
 
     def entry(mixer: str, stack=()):
         shapes = _entry_shapes(cfg, mixer, batch, cache_len, dtype, paged,
-                               kv_dtype)
+                               kv_dtype, cond_len)
         return {k: (torch.full(stack + s, -1, dtype=d, device=device)
                     if k == "pos" else
                     torch.zeros(stack + s, dtype=d, device=device))

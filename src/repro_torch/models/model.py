@@ -130,9 +130,13 @@ class Model:
         return params
 
     # ------------------------------------------------------------------ cache
-    def init_cache(self, batch: int, cache_len: int) -> Dict:
+    def init_cache(self, batch: int, cache_len: int,
+                   cond_len: Optional[int] = None) -> Dict:
+        """Dense cache; ``cond_len`` sizes cross K/V entries to the
+        conditioning memory (default ``cfg.n_cond_tokens``)."""
         return cache_mod.make_cache(self.cfg, batch, cache_len, self.dtype,
-                                    device=resolve_device(self.device))
+                                    device=resolve_device(self.device),
+                                    cond_len=cond_len)
 
     def init_paged_cache(self, n_blocks: int, block_size: int,
                          kv_dtype=None) -> Dict:
@@ -178,10 +182,12 @@ class Model:
         h = embed(params["embed"], tokens)
 
         if cfg.rope_variant == "sinusoidal":  # musicgen-style additive positions
+            # made on the device: a decode graph's capture copies nothing
+            # from the host
             half = cfg.d_model // 2
-            freq = torch.exp(-torch.log(torch.tensor(10000.0)) *
-                             torch.arange(half, dtype=torch.float32) / half
-                             ).to(dev)
+            freq = torch.exp(
+                -torch.log(torch.full((), 10000.0, device=dev))
+                * torch.arange(half, dtype=torch.float32, device=dev) / half)
             ang = positions[..., None].float() * freq
             h = h + torch.cat([torch.sin(ang), torch.cos(ang)],
                               dim=-1).to(h.dtype)
@@ -192,10 +198,9 @@ class Model:
             h = h.clone()
             h[:, :nv] = vision[:, :nv].to(h.dtype)
 
-        if cfg.cross_attention:
-            raise NotImplementedError("cross-attention arrives with the "
-                                      "remaining-arch-features slice of the "
-                                      "port")
+        memory = batch.get("cond_memory") if cfg.cross_attention else None
+        if memory is not None:
+            memory = memory.to(h.dtype)
 
         kw = dict(use_kernel=self.use_kernel, block_table=block_table,
                   kv_len=kv_len, decode=decode)
@@ -204,7 +209,8 @@ class Model:
         for i, (mixer, _ffn) in enumerate(self._prefix_kinds()):
             sub_cache = cache["prefix"][i] if cache is not None else None
             h, _, aux = blk.sublayer_forward(params["prefix"][i], cfg, h,
-                                             positions, mixer, sub_cache, **kw)
+                                             positions, mixer, sub_cache,
+                                             memory, **kw)
             aux_total = aux_total + aux
 
         # ---- stacked super-blocks: a loop in place of the reference's scan
@@ -213,7 +219,7 @@ class Model:
                          else None)
             h, _, aux = blk.super_block_forward(
                 _index(params["blocks"], i), cfg, h, positions, sub_cache,
-                **kw)
+                memory, **kw)
             aux_total = aux_total + aux
 
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)

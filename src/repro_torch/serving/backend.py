@@ -55,6 +55,15 @@ the next batch of its cache's shape, which prefills into the same tensors
 (reset first to what a fresh cache holds). ``kv_format="int8"`` (paged
 mode only) keeps the KV pools in int8 with per-slot scales.
 
+Multi-codebook archs (musicgen: K codebooks) take prompts (L, K): a step
+samples K tokens a sequence from (B, K, vocab) noise and records the mean
+of their logprobs, and EOS truncation is off, as in the reference. The
+``extras`` of a batch (``vision_embeds``, ``cond_memory``) are tiled to its
+sequences once and ride into every forward; a decode graph reads static
+copies of them, as it reads the block table. A dense cache with
+``cross_kv_cache`` holds the memory's keys and values, sized to its length
+(part of the arena's key).
+
 Speculative decode (``spec_policy=``, ``spec_n=``): with a
 `repro_torch.spec` draft policy attached, ``decode_step`` on a drafting
 batch runs draft -> verify -> commit instead of one-token sampling. The
@@ -145,8 +154,9 @@ def sample_tokens(logits: torch.Tensor,
                   temperature: Union[float, torch.Tensor],
                   noise: NoiseSource, sampled: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sample one token per row of f32 ``logits`` (B, V); returns the tokens
-    (int64) and their log-probabilities under the untempered softmax.
+    """Sample one token per row of f32 ``logits`` (B, V), or per row and
+    codebook of (B, K, V); returns the tokens (int64) and their
+    log-probabilities under the untempered softmax, (B,) or (B, K).
 
     ``temperature`` is a float, or a 0-dim f32 tensor (a decode graph's
     buffer, which every batch of a shape fills with its own), and then
@@ -161,7 +171,7 @@ def sample_tokens(logits: torch.Tensor,
         tok = torch.argmax(logits / temperature + g, dim=-1)
     else:
         tok = torch.argmax(logits, dim=-1)
-    lp = torch.gather(logp, -1, tok[:, None])[:, 0]
+    lp = torch.gather(logp, -1, tok[..., None])[..., 0]
     return tok, lp
 
 
@@ -519,11 +529,6 @@ def bucket_key(prompt: np.ndarray, max_new: int,
     return (len(prompt), max_new, float(temperature))
 
 
-def _not_yet(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported (arrives with the "
-                               f"{slice_name} slice of the port)")
-
-
 class ExecutionBackend:
     """Owns model execution state: the KV budget and placement history.
 
@@ -577,8 +582,6 @@ class ExecutionBackend:
         if kv_format == "int8" and kv_blocks is None:
             raise ValueError("kv_format='int8' requires the paged cache "
                              "(set kv_blocks)")
-        if model.cfg.n_codebooks > 1:
-            raise _not_yet("multi-codebook serving", "remaining-arch-features")
         self.model = model
         self.params = params
         self.eos_token = eos_token
@@ -1015,7 +1018,7 @@ class ExecutionBackend:
         tok, lp = sample_tokens(lf, h.temperature, h.noise)
         h.tok = tok
         h.step = 1
-        toks, lps = _host(tok, lp)
+        toks, lps = _host(tok, self._step_lp(lp))
         h.out_toks = [toks]
         h.out_lps = [lps]
         return h
@@ -1031,8 +1034,14 @@ class ExecutionBackend:
                 f"{self.max_slots} (scheduler must check slots_free)")
         tiled_extras = {k: self._tile(v, rep) for k, v in extras.items()}
         length = plen + max_new + self._spec_slack()
-        arena = self._take_arena(("dense", B, length), B,
-                                 lambda: self.model.init_cache(B, length))
+        key = ("dense", B, length)
+        cond_len = None
+        if self.model.cfg.cross_kv_cache and "cond_memory" in extras:
+            # the cache's cross K/V entries hold the memory's rows
+            cond_len = int(extras["cond_memory"].shape[1])
+            key += (cond_len,)
+        arena = self._take_arena(
+            key, B, lambda: self.model.init_cache(B, length, cond_len))
         last_logits, _ = self._prefill(self.params, self._tokens(tokens),
                                        arena.cache, tiled_extras)
         self.slots_in_use += B
@@ -1355,7 +1364,7 @@ class ExecutionBackend:
                              device=h.tok.device)
             h.tok, lp = self._decode_fn(h, self._decode_inputs(h))(
                 h.tok[:, None], pos, h.noise, self._temperature(h))
-        toks, lps = _host(h.tok, lp)
+        toks, lps = _host(h.tok, self._step_lp(lp))
         h.out_toks.append(toks)
         h.out_lps.append(lps)
         h.step += 1
@@ -1365,6 +1374,15 @@ class ExecutionBackend:
         if self._m is not None:
             self._m["tokens_out"].inc(h.n_sequences - len(h.freed_seqs))
         return not h.done
+
+    def _step_lp(self, lp: torch.Tensor) -> torch.Tensor:
+        """A step's logprob a sequence: with K codebooks the mean of the K
+        sampled tokens' logprobs (B, K), as the reference records it."""
+        return lp.mean(-1) if self._multi_codebook else lp
+
+    @property
+    def _multi_codebook(self) -> bool:
+        return self.model.cfg.n_codebooks > 1
 
     def _graphs_on(self, h: InFlightBatch) -> bool:
         """Whether ``h`` decodes through a CUDA graph: on the card, unless
@@ -1642,7 +1660,7 @@ class ExecutionBackend:
             lps = np.asarray([row[:h.max_new] for row in h.spec.lps],
                              np.float32)
         else:
-            toks = np.stack(h.out_toks, axis=1)         # (B, T)
+            toks = np.stack(h.out_toks, axis=1)         # (B, T[, K])
             lps = np.stack(h.out_lps, axis=1)           # (B, T)
         results = []
         offset = 0
@@ -1650,7 +1668,7 @@ class ExecutionBackend:
             sl = slice(offset, offset + ns)
             offset += ns
             samples = [toks[i] for i in range(sl.start, sl.stop)]
-            if self.eos_token is not None:
+            if self.eos_token is not None and not self._multi_codebook:
                 samples = [self._truncate(s) for s in samples]
             results.append(GenerationResult(
                 prompt=prompt,

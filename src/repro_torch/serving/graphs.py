@@ -62,7 +62,8 @@ if TYPE_CHECKING:
 
 #: ``(token ids (B, 1), positions (B, 1) int32, noise, temperature (0-dim
 #: f32)) -> (tokens (B,), logprobs (B,))``: one batch's decode step over its
-#: cache
+#: cache; with K codebooks the ids are (B, 1, K) and the tokens and
+#: logprobs (B, K)
 DecodeFn = Callable[[torch.Tensor, torch.Tensor, Callable, torch.Tensor],
                     Tuple[torch.Tensor, torch.Tensor]]
 #: ``(token ids (B, n + 1), base positions (B,) int32, u (B, n) or None,
@@ -92,25 +93,28 @@ class StaticDecodeStep:
     """One batch's decode step over static buffers: the body a graph
     captures.
 
-    ``tok`` (B, 1) holds the token ids the step reads; the step writes its
+    ``tok`` (B, 1) holds the token ids the step reads, (B, 1, K) with K
+    codebooks (``tok`` given as (B,) or (B, K)); the step writes its
     sampled tokens back into it. ``pos`` (B, 1) int32 holds the step
     position, ``temperature`` (0-dim f32) the batch's temperature, and
-    ``noise`` (B, vocab) f32 the step's Gumbel draws (only when
-    ``sampled``, i.e. temperature > 0); `load` fills them. ``inputs`` are
-    the decode inputs ``decode`` reads (the block table (B, W) int32,
-    extras): `load` copies the replaying batch's into them."""
+    ``noise`` (B, vocab) f32, or (B, K, vocab), the step's Gumbel draws
+    (only when ``sampled``, i.e. temperature > 0); `load` fills them.
+    ``inputs`` are the decode inputs ``decode`` reads (the block table
+    (B, W) int32, extras): `load` copies the replaying batch's into
+    them."""
 
     def __init__(self, decode: DecodeFn, tok: torch.Tensor, vocab: int,
                  sampled: bool,
                  inputs: Optional[Dict[str, torch.Tensor]] = None):
         self.decode = decode
-        self.tok = tok.reshape(-1, 1).clone()
+        self.tok = tok[:, None].clone()
         self.inputs = inputs if inputs is not None else {}
         B, dev = self.tok.shape[0], self.tok.device
         self.pos = torch.zeros((B, 1), dtype=torch.int32, device=dev)
         self.temperature = torch.ones((), dtype=torch.float32, device=dev)
-        self.noise = (torch.zeros((B, vocab), dtype=torch.float32,
-                                  device=dev) if sampled else None)
+        self.noise = (torch.zeros((B,) + tuple(tok.shape[1:]) + (vocab,),
+                                  dtype=torch.float32, device=dev)
+                      if sampled else None)
 
     @property
     def device(self) -> torch.device:
@@ -123,10 +127,10 @@ class StaticDecodeStep:
         """Fill the inputs of the step at ``step_pos``: the position, and
         the step's draw from the batch's ``noise`` stream, in the shape and
         order of the eager step's draw. With ``tok``, ``inputs`` and
-        ``temperature`` (a batch's last tokens (B,), decode inputs by name,
-        and temperature), copy those in too."""
+        ``temperature`` (a batch's last tokens (B,) or (B, K), decode
+        inputs by name, and temperature), copy those in too."""
         if tok is not None:
-            self.tok.copy_(tok.reshape(-1, 1))
+            self.tok.copy_(tok[:, None])
         for name, value in (inputs or {}).items():
             self.inputs[name].copy_(value)
         if temperature is not None:

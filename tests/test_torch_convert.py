@@ -19,7 +19,7 @@ def _leaves_with_paths(tree):
 
 @pytest.mark.parametrize("name", ["fixture"] + DENSE_GQA +
                          ["granite-moe-3b-a800m", "mamba2-370m",
-                          "jamba-v0.1-52b"])
+                          "jamba-v0.1-52b", "qwen2-vl-7b", "musicgen-medium"])
 def test_every_leaf_round_trips(name):
     jc, tc = configs(name)
     jp = to_numpy(JModel(jc, dtype=jnp.float32).init(jax.random.key(3)))
@@ -46,6 +46,16 @@ def test_every_leaf_round_trips(name):
     if tc.qkv_bias:
         assert tp["blocks"]["l0"]["attn"]["wq"]["b"].shape == \
             (n_super, tc.n_heads * tc.hd)
+    if tc.cross_attention:        # musicgen: the cross-attention sublayer
+        assert tp["blocks"]["l0"]["cross"]["wk"]["w"].shape == \
+            (n_super, tc.d_model, tc.n_heads * tc.hd)
+        assert tp["blocks"]["l0"]["ln_x"]["scale"].shape == \
+            (n_super, tc.d_model)
+    if tc.n_codebooks > 1:        # one embedding table and head a codebook
+        assert tp["embed"]["table"].shape == \
+            (tc.n_codebooks, tc.padded_vocab, tc.d_model)
+        assert tp["lm_head"]["w"].shape == \
+            (tc.n_codebooks, tc.d_model, tc.padded_vocab)
 
 
 def test_bf16_leaves_convert_exactly():

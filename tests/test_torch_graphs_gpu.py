@@ -45,7 +45,16 @@ CASES = {
     "deepseek-dense": ("deepseek-v2-lite-16b", None, {}, None),
     "mamba2-dense": ("mamba2-370m", None, {}, None),
     "jamba-dense": ("jamba-v0.1-52b", 8, {}, None),
+    "musicgen-dense": ("musicgen-medium", None, {}, None),
+    "musicgen-xkv-dense": ("musicgen-medium", None, {}, None),
+    "qwen2-vl-dense": ("qwen2-vl-7b", None, {}, None),
+    "qwen2-vl-paged": ("qwen2-vl-7b", None, PAGED, None),
+    "window-dense": ("chatglm3-6b", None, {}, None),
 }
+#: case -> config fields it replaces: the cross K/V cache; a window of 16
+#: slots, which the 40-token prompts wrap
+OVERRIDES = {"musicgen-xkv-dense": dict(cross_kv_cache=True),
+             "window-dense": dict(attn_window=16)}
 
 
 @pytest.fixture
@@ -59,7 +68,8 @@ def cuda():
 
 def _model(case):
     arch, layers, kw, fmt = CASES[case]
-    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              **OVERRIDES.get(case, {}))
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     model = Model(cfg, dtype=torch.bfloat16, device="cuda", use_kernel=True)
@@ -70,9 +80,24 @@ def _model(case):
 
 
 def _prompts(cfg, n=3, plen=40):
+    """``n`` prompts, (plen, K) with K codebooks."""
     rng = np.random.default_rng(1)
-    return [rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
+    tail = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    return [rng.integers(0, cfg.vocab_size, (plen,) + tail).astype(np.int32)
             for _ in range(n)]
+
+
+def _extras(cfg, n=3):
+    """The frontends' stub inputs, random: 4 vision embeddings, or 8 rows
+    of conditioning memory, a prompt."""
+    rng = np.random.default_rng(2)
+    if cfg.frontend == "vision":
+        return {"vision_embeds": (rng.standard_normal((n, 4, cfg.d_model))
+                                  * 0.1).astype(np.float32)}
+    if cfg.cross_attention:
+        return {"cond_memory": (rng.standard_normal((n, 8, cfg.d_model))
+                                * 0.1).astype(np.float32)}
+    return {}
 
 
 def _serve(model, params, kw, graphs, between=None):
@@ -83,7 +108,8 @@ def _serve(model, params, kw, graphs, between=None):
     be = ExecutionBackend(model, params, cuda_graphs=graphs, **kw)
     noise = GumbelNoise(torch.Generator(device="cuda").manual_seed(3))
     kernels.reset_launch_counts()
-    h = be.start_batch(_prompts(model.cfg), 4, NEW, 0.8, noise)
+    h = be.start_batch(_prompts(model.cfg), 4, NEW, 0.8, noise,
+                       _extras(model.cfg))
     while be.decode_step(h):
         if between is not None:
             between(h.step)

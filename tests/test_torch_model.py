@@ -158,17 +158,6 @@ def test_model_variants_train_and_decode(overrides):
     close(tl, jl, TOL)
 
 
-def test_unported_archs_say_which_slice_brings_them():
-    from repro_torch.configs import get_config
-    from repro_torch.models import Model
-    cross = ("cross-attention arrives with the remaining-arch-features "
-             "slice of the port")
-    cfg = get_config("musicgen-medium").reduced()
-    with pytest.raises(NotImplementedError, match=cross):
-        Model(cfg, dtype=torch.float32, device="cpu").init(
-            torch.Generator().manual_seed(0))
-
-
 def test_port_init_serves_its_own_weights():
     """`Model.init` draws the port's own weights from a generator: same seed,
     same weights; the forward pass runs on them."""

@@ -187,17 +187,10 @@ def test_metrics_and_spans_count_the_work(pair):
     assert names.count("prefill") == 1 and names.count("decode") == 3
 
 
-def test_unported_backend_options_say_so(pair):
-    """Multi-codebook serving is the backend option still unported; a draft
-    depth without a draft policy is accepted and ignored, as in the
-    reference (speculative decode is ported: tests/test_torch_spec.py)."""
-    import dataclasses
-    from repro_torch.models import Model
+def test_a_draft_depth_without_a_draft_policy_is_ignored(pair):
+    """As in the reference (speculative decode is ported:
+    tests/test_torch_spec.py)."""
     _, _, tm, tp = pair
-    multi = Model(dataclasses.replace(tm.cfg, n_codebooks=2),
-                  dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TBackend(multi, tp)
     assert TBackend(tm, tp, spec_n=2)._spec_slack() == 0
 
 
