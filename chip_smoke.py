@@ -230,9 +230,40 @@ Phases, each of which fails the script on error:
    cross K/V cache (whose tokens must also equal each other's), qwen2-vl
    dense and paged, and chatglm3-6b with a sliding window of 64 (prompt
    256, 32 new tokens: the ring of 64 slots wraps at every step), dense.
-9. Print the script's wall time (the build included), the ``kernels``
-   JSON line, the card again, and as the last line
-   ``{"ok": true, "device": {...}}``.
+9. Training (`repro_torch.training`), every earlier model freed first:
+   the launcher's traffic (``launch/train.py``'s defaults: the markov
+   corpus, batches of 8 x 64 tokens, AdamW at lr 1e-3 with 5 warmup steps
+   and a cosine over the run), 8 steps from random bf16 weights drawn from
+   ``--seed``, on the plain path (the hand-written kernels have no
+   backward, nor have the reference's): full-width chatglm3-6b cut to 14
+   of its 28 layers (3.39 B parameters: bf16 params and gradients and f32
+   moments, 12 bytes a parameter, of all 28 layers would fill 75 of the
+   card's 80 GB), then full granite-moe-3b-a800m, mamba2-370m and
+   musicgen-medium (4 codebooks, a zero conditioning memory of 64 rows, as
+   the launcher feeds it), each freed before the next. A run fails unless
+   every loss and grad norm is finite, every leaf with a nonzero gradient
+   moved at step 1 (a bf16 leaf whose update is below half its spacing,
+   the norm scales at 1.0, is reported as held), params, gradients and
+   moments are all on the card, the run's 8 batches, scored without a
+   gradient, have a lower mean loss after the run than before it, and no
+   port kernel launched. Each prints its step ms (the median of steps 2-8,
+   synchronised) and the update's share, tok/s, peak memory, and its first
+   and last loss. Then f32 at full width and 2 layers (granite: 2 MoE
+   layers), one markov batch of 2 x 32 through the port on the card and on
+   the CPU with the same weights: the loss within 1e-4 relative, each
+   gradient leaf within 1e-3 x max|g_cpu| + 1e-6, and an AdamW update fed
+   the CPU's gradients within 1e-6 of the CPU's. Then f32 chatglm3-6b at
+   full width and 2 layers: ``microbatches=4`` equals 1 (loss within 1e-5
+   relative, params within 2e-4), ``remat=True`` equals False (loss within
+   1e-6, gradients within 1e-5), 4 steps, a checkpoint and its restore and
+   4 more equal 8 uninterrupted steps (params within 1e-5), and a bf16
+   checkpoint restores bit-equal; no port kernel may launch there either.
+   Last, ``python -m repro_torch.launch.train --arch mamba2-370m --steps
+   3`` runs as a subprocess on the card: it must exit 0, print its step
+   lines and write a checkpoint that `restore_checkpoint` reads.
+10. Print the script's wall time (the build included), the ``kernels``
+   JSON line (its ``launches_by_run`` holds phase 9's runs, all 0), the
+   card again, and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside a
 checkout of the repository.
@@ -385,6 +416,17 @@ ARCH_SERVES = {"musicgen-dense": ("musicgen-medium", "dense", False),
                "qwen2-vl-dense": ("qwen2-vl-7b", "dense", False),
                "qwen2-vl-paged": ("qwen2-vl-7b", "paged", False)}
 ARCH_PARITY = dict(layers=2, window=64)
+# phase 9, training: the launcher's defaults (markov corpus, batch 8 x 64
+# tokens, lr 1e-3, 5 warmup steps, a cosine over the run's 8 steps); the
+# bf16 runs (run name -> arch, layers: chatglm3-6b cut to 14 of its 28, as
+# bf16 params and gradients and f32 moments, 12 bytes a parameter, of all
+# 28 layers fill 75 of the card's 80 GB); the f32 checks' layers and batch
+TRAIN = dict(batch=8, seq=64, lr=1e-3, warmup=5, steps=8)
+TRAIN_RUNS = {"train-chatglm3-6b-14": ("chatglm3-6b", 14),
+              "train-granite": ("granite-moe-3b-a800m", None),
+              "train-mamba2": ("mamba2-370m", None),
+              "train-musicgen": ("musicgen-medium", None)}
+TRAIN_F32 = dict(layers=2, parity_batch=2, parity_seq=32)
 
 
 def emit(tag: str, obj) -> None:
@@ -2711,6 +2753,413 @@ def calibration_loop(seed: int) -> dict:
     return counts
 
 
+# ------------------------------------------------------- phase 9: training
+
+def train_setup(cfg, dtype, seed: int, remat: bool = False):
+    """A plain-path model (training refuses the kernels: they have no
+    backward), its random params from ``seed`` on the card, a fresh AdamW
+    state, and the launcher's optimizer config."""
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, init_opt_state
+    model = Model(cfg, dtype=dtype, device="cuda", use_kernel=False,
+                  remat=remat)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    opt_cfg = AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                          total_steps=TRAIN["steps"])
+    return model, params, init_opt_state(params), opt_cfg
+
+
+def train_batches(cfg, dtype, batch: int, seq: int, start: int = 0,
+                  device="cuda"):
+    """The launcher's markov batches, with its zero frontend inputs."""
+    from repro_torch.data import DataConfig, data_iterator
+    it = data_iterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  batch_size=batch, kind="markov",
+                                  n_codebooks=cfg.n_codebooks),
+                       start_step=start, device=device)
+    for b in it:
+        if cfg.frontend == "vision":
+            b["vision_embeds"] = torch.zeros((batch, 4, cfg.d_model),
+                                             dtype=dtype, device=device)
+        if cfg.cross_attention:
+            b["cond_memory"] = torch.zeros(
+                (batch, cfg.n_cond_tokens, cfg.d_model), dtype=dtype,
+                device=device)
+        yield b
+
+
+def leaves_of(tree) -> list:
+    from repro_torch.training.tree import flatten
+    return flatten(tree)
+
+
+class UpdateProbe:
+    """Wraps the train step's `adamw_update`. Every call is timed between
+    two synchronisations (``update_ms``: the update's share of a step). The
+    first call also records which leaves got a nonzero gradient, the
+    gradients' devices, and which leaves the update moved. A bf16 leaf
+    whose step-1 update (at most lr x (1 + weight decay x max|p|): Adam's
+    first step is +-1 an element) is below half the bf16 spacing at its
+    smallest |p| cannot move (the norm scales at 1.0); it counts as held,
+    not as a fault."""
+
+    def __init__(self):
+        from repro_torch.training import loop
+        self.loop, self.real = loop, loop.adamw_update
+        self.report = None
+        self.update_ms = []
+        loop.adamw_update = self
+
+    def __call__(self, cfg, params, grads, state):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if self.report is not None:
+            out = self.real(cfg, params, grads, state)
+            torch.cuda.synchronize()
+            self.update_ms.append(1e3 * (time.perf_counter() - t))
+            return out
+        before = [p.clone() for _, p in leaves_of(params)]
+        out = self.real(cfg, params, grads, state)
+        lr = float(out[2]["lr"])
+        rows = []
+        for (path, p), p0, (_, g) in zip(leaves_of(params), before,
+                                         leaves_of(grads)):
+            moved, held = bool((p != p0).any()), False
+            if not moved and p.dtype == torch.bfloat16:
+                a = p0.abs()
+                smallest = float(torch.where(a > 0, a, a.max()).min())
+                bound = lr * (1 + cfg.weight_decay * float(a.max()))
+                held = smallest > 0 and bound < 0.5 * 2.0 ** (
+                    math.floor(math.log2(smallest)) - 7)
+            rows.append(dict(path=path, nonzero=bool((g != 0).any()),
+                             moved=moved, held=held, device=g.device.type))
+        del before
+        self.report = rows
+        return out
+
+    def close(self) -> None:
+        self.loop.adamw_update = self.real
+
+
+def train_run(run: str, arch: str, layers: Optional[int], seed: int) -> dict:
+    """One bf16 training run of ``TRAIN["steps"]`` steps through
+    `make_train_step`; fails unless every loss and grad norm is finite,
+    every leaf with a nonzero gradient moved at step 1 (or its update was
+    below bf16's spacing), params, gradients and moments are on the card,
+    the run's 8 batches, scored without a gradient before and after it,
+    have a lower mean loss after, and no port kernel launched. (Each step
+    trains on a new batch, and over 8 steps at lr <= 1e-3 one step's loss
+    moves less than batches differ: musicgen-medium's went from 8.171 at
+    step 1 to 8.208 at step 8 on an H100 while the mean over its batches
+    fell from 8.139 to 7.747.) Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training import make_train_step
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, params, opt_state, opt_cfg = train_setup(cfg, torch.bfloat16,
+                                                    seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = make_train_step(model, opt_cfg)
+    data = train_batches(cfg, torch.bfloat16, TRAIN["batch"], TRAIN["seq"])
+    batches = [next(data) for _ in range(TRAIN["steps"])]
+    probe = UpdateProbe()
+    losses, norms, step_ms = [], [], []
+    try:
+        reset_launch_counts()
+        with torch.no_grad():
+            scored_before = [float(model.loss(params, b)) for b in batches]
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            if i == 1:         # steps 2-8: the step-1 check copies every leaf
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        with torch.no_grad():
+            scored_after = [float(model.loss(params, b)) for b in batches]
+        counts = launch_counts()
+    finally:
+        probe.close()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rows = probe.report
+    bad = []
+    if not all(math.isfinite(x) for x in losses + norms):
+        bad.append(f"losses {losses}, grad norms {norms}")
+    stuck = [r["path"] for r in rows
+             if r["nonzero"] and not r["moved"] and not r["held"]]
+    if stuck:
+        bad.append(f"leaves with a gradient that did not move: {stuck}")
+    places = {r["device"] for r in rows} | {
+        t.device.type for tree in (params, opt_state)
+        for _, t in leaves_of(tree)}
+    if places != {"cuda"}:
+        bad.append(f"tensors on {sorted(places)}")
+    mean_before = float(np.mean(scored_before))
+    mean_after = float(np.mean(scored_after))
+    if not mean_after < mean_before:
+        bad.append(f"the run's batches score {mean_after} after it, not "
+                   f"below {mean_before} before it")
+    if any(counts.values()):
+        bad.append(f"port kernels launched in training: {counts}")
+    med = float(np.median(step_ms[1:]))
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    emit("train", dict(
+        run=run, arch=cfg.name, layers=cfg.n_layers, dtype="bfloat16",
+        params=model.param_count(), init_s=init_s, steps=TRAIN["steps"],
+        batch=TRAIN["batch"], seq=TRAIN["seq"], step_ms=step_ms,
+        step_ms_median_2_8=med, tokens_per_s=tokens / (med / 1e3),
+        update_ms=probe.update_ms,
+        update_ms_median_2_8=float(np.median(probe.update_ms)),
+        peak_gb_steps_2_8=peak, first_loss=losses[0], last_loss=losses[-1],
+        losses=losses, grad_norms=norms, scored_before=scored_before,
+        scored_after=scored_after, mean_scored_before=mean_before,
+        mean_scored_after=mean_after,
+        leaves=len(rows), leaves_with_grad=sum(r["nonzero"] for r in rows),
+        leaves_moved=sum(r["moved"] for r in rows),
+        leaves_held_by_bf16=[r["path"] for r in rows
+                             if r["nonzero"] and not r["moved"]],
+        launches=counts))
+    if bad:
+        raise AssertionError(f"{run}: " + "; ".join(bad))
+    del params, opt_state, model, step_fn, probe
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_bf16(seed: int) -> dict:
+    """Phase 9's bf16 runs (`TRAIN_RUNS`), each freed before the next."""
+    return {run: train_run(run, arch, layers, seed)
+            for run, (arch, layers) in TRAIN_RUNS.items()}
+
+
+def f32_cfg(arch: str):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=TRAIN_F32["layers"])
+
+
+def grads_of(model, params, batch) -> tuple:
+    """The loss and every leaf's gradient, by path."""
+    from repro_torch.training.loop import value_and_grad
+    loss, grads = value_and_grad(model.loss, params, batch)
+    return float(loss), dict(leaves_of(grads))
+
+
+def train_parity(seed: int) -> None:
+    """Phase 9, f32 at full width and 2 layers (granite: 2 MoE layers): one
+    markov batch of 2 x 32 through the port on the card and on the CPU with
+    the same weights. The loss must agree within 1e-4 relative, each
+    gradient leaf within 1e-3 x max|g_cpu| + 1e-6, and an AdamW update fed
+    the CPU's gradients within 1e-6 of the CPU's."""
+    from repro_torch.models import Model
+    from repro_torch.training import adamw_update, init_opt_state
+    from repro_torch.training.tree import unflatten
+    for arch in ("chatglm3-6b", "granite-moe-3b-a800m"):
+        cfg = f32_cfg(arch)
+        model, params, _, opt_cfg = train_setup(cfg, torch.float32, seed + 2)
+        cpu_model = Model(cfg, dtype=torch.float32, device="cpu")
+        cpu_params = unflatten(params, [t.cpu() for _, t in
+                                        leaves_of(params)])
+        batch = next(train_batches(cfg, torch.float32,
+                                   TRAIN_F32["parity_batch"],
+                                   TRAIN_F32["parity_seq"]))
+        t0 = time.perf_counter()
+        l_gpu, g_gpu = grads_of(model, params, batch)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        l_cpu, g_cpu = grads_of(cpu_model, cpu_params,
+                                {k: v.cpu() for k, v in batch.items()})
+        cpu_s = time.perf_counter() - t0
+        worst, worst_path = 0.0, None
+        for path, gc in g_cpu.items():
+            tol = 1e-3 * float(gc.abs().max()) + 1e-6
+            err = float((g_gpu[path].cpu() - gc).abs().max())
+            if err / tol > worst:
+                worst, worst_path = err / tol, path
+        # the update: both sides fed the CPU's gradients
+        grads_cpu = unflatten(cpu_params, [g_cpu[p] for p, _ in
+                                           leaves_of(cpu_params)])
+        grads_gpu = unflatten(params, [g_cpu[p].cuda() for p, _ in
+                                       leaves_of(params)])
+        adamw_update(opt_cfg, params, grads_gpu, init_opt_state(params))
+        adamw_update(opt_cfg, cpu_params, grads_cpu,
+                     init_opt_state(cpu_params))
+        upd_err = max(float((p.cpu() - q).abs().max()) for (_, p), (_, q) in
+                      zip(leaves_of(params), leaves_of(cpu_params)))
+        loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        emit("train-parity-f32", dict(
+            arch=cfg.name, layers=cfg.n_layers, batch=TRAIN_F32[
+                "parity_batch"], seq=TRAIN_F32["parity_seq"],
+            loss_card=l_gpu, loss_cpu=l_cpu, loss_rel_diff=loss_rel,
+            worst_grad_err_over_tol=worst, worst_grad_leaf=worst_path,
+            update_max_abs_diff=upd_err, card_grad_s=gpu_s,
+            cpu_grad_s=cpu_s))
+        if loss_rel > 1e-4 or worst > 1 or upd_err > 1e-6:
+            raise AssertionError(
+                f"{cfg.name} f32 card vs CPU: loss {l_gpu} vs {l_cpu}, "
+                f"gradient {worst_path} at {worst} x its tolerance, update "
+                f"{upd_err}")
+        del params, cpu_params, g_gpu, g_cpu, grads_cpu, grads_gpu, model
+        torch.cuda.empty_cache()
+
+
+def max_diff(a, b) -> float:
+    return max(float((x - y).abs().max()) for (_, x), (_, y) in
+               zip(leaves_of(a), leaves_of(b)))
+
+
+def train_invariants(seed: int) -> None:
+    """Phase 9, f32 chatglm3-6b at full width and 2 layers, the launcher's
+    batches: microbatches=4 equals 1 (loss within 1e-5 relative, params
+    within 2e-4 after a step), remat equals no remat (loss within 1e-6,
+    gradients within 1e-5), 4 steps, a checkpoint and a restore, then 4
+    more, equal 8 uninterrupted steps (params within 1e-5), and a bf16
+    save and restore is bit-equal."""
+    import tempfile
+    from repro_torch.models import Model
+    from repro_torch.training import (make_train_step, opt_state_shapes,
+                                      restore_checkpoint, save_checkpoint)
+    cfg = f32_cfg("chatglm3-6b")
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    out = {}
+    # microbatches
+    batch = next(train_batches(cfg, torch.float32, B, S))
+    runs = {}
+    for mb in (1, 4):
+        model, params, opt, opt_cfg = train_setup(cfg, torch.float32, seed)
+        params, _, m = make_train_step(model, opt_cfg, microbatches=mb)(
+            params, opt, batch)
+        runs[mb] = (float(m["loss"]), params)
+        del opt
+    out["microbatch_loss_rel"] = abs(runs[4][0] - runs[1][0]) / abs(
+        runs[1][0])
+    out["microbatch_param_diff"] = max_diff(runs[4][1], runs[1][1])
+    del runs
+    torch.cuda.empty_cache()
+    # remat
+    model, params, _, _ = train_setup(cfg, torch.float32, seed)
+    remat_model = Model(cfg, dtype=torch.float32, device="cuda", remat=True)
+    l0, g0 = grads_of(model, params, batch)
+    l1, g1 = grads_of(remat_model, params, batch)
+    out["remat_loss_diff"] = abs(l1 - l0)
+    out["remat_grad_diff"] = max(float((g1[p] - g).abs().max())
+                                 for p, g in g0.items())
+    del g0, g1, params
+    torch.cuda.empty_cache()
+    # checkpoint resume
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        model, p8, o8, opt_cfg = train_setup(cfg, torch.float32, seed)
+        step_fn = make_train_step(model, opt_cfg)
+        data = train_batches(cfg, torch.float32, B, S)
+        for i in range(TRAIN["steps"]):
+            p8, o8, _ = step_fn(p8, o8, next(data))
+            if i == 3:
+                t1 = time.perf_counter()
+                path = save_checkpoint(d, 4, p8, o8)
+                out["save_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        shapes = model.param_shapes()
+        step, p4, o4 = restore_checkpoint(path, shapes,
+                                          opt_state_shapes(shapes),
+                                          device="cuda")
+        out["restore_s"] = time.perf_counter() - t1
+        data = train_batches(cfg, torch.float32, B, S, start=step)
+        for _ in range(TRAIN["steps"] - step):
+            p4, o4, _ = step_fn(p4, o4, next(data))
+        out["resume_param_diff"] = max_diff(p4, p8)
+        out["resume_steps"] = [int(o4["step"]), int(o8["step"])]
+        del p4, o4, p8, o8
+        torch.cuda.empty_cache()
+        # bf16 save and restore
+        bmodel = Model(cfg, dtype=torch.bfloat16, device="cuda")
+        bp = bmodel.init(torch.Generator(device="cuda").manual_seed(seed))
+        path = save_checkpoint(d, 1, bp)
+        _, rp, _ = restore_checkpoint(path, bmodel.param_shapes(),
+                                      device="cuda")
+        out["bf16_bit_equal"] = all(
+            x.dtype == torch.bfloat16 and torch.equal(
+                x.view(torch.int16), y.view(torch.int16))
+            for (_, x), (_, y) in zip(leaves_of(rp), leaves_of(bp)))
+        out["wall_s"] = time.perf_counter() - t0
+        del bp, rp
+    torch.cuda.empty_cache()
+    emit("train-invariants-f32", dict(arch=cfg.name, layers=cfg.n_layers,
+                                      batch=B, seq=S, **out))
+    bad = [k for k, lim in (("microbatch_loss_rel", 1e-5),
+                            ("microbatch_param_diff", 2e-4),
+                            ("remat_loss_diff", 1e-6),
+                            ("remat_grad_diff", 1e-5),
+                            ("resume_param_diff", 1e-5)) if out[k] > lim]
+    if out["resume_steps"] != [TRAIN["steps"]] * 2:
+        bad.append("resume_steps")
+    if not out["bf16_bit_equal"]:
+        bad.append("bf16_bit_equal")
+    if bad:
+        raise AssertionError(f"phase 9 f32 invariants failed: {bad}")
+
+
+def train_launcher() -> None:
+    """Phase 9: ``python -m repro_torch.launch.train --arch mamba2-370m
+    --steps 3`` on the card as a subprocess; it must exit 0, print its step
+    lines and write a checkpoint that `restore_checkpoint` reads."""
+    import os
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.training import restore_checkpoint
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "mamba2-370m", "--steps", "3", "--checkpoint-dir", d],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        lines = res.stdout.splitlines()
+        steps = [line for line in lines if line.startswith("step ")]
+        emit("train-launcher", dict(rc=res.returncode, wall_s=wall,
+                                    lines=lines[-6:],
+                                    stderr=res.stderr[-2000:]))
+        if res.returncode != 0 or [s.split()[1] for s in steps] != ["0",
+                                                                     "2"]:
+            raise AssertionError(f"launch.train exited {res.returncode}: "
+                                 f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+        path = lines[-1].split("checkpoint: ")[1]
+        shapes = Model(get_config("mamba2-370m"), device="cuda").param_shapes()
+        step, params, _ = restore_checkpoint(path, shapes, device="cuda")
+        if step != 3 or not all(bool(torch.isfinite(t.float()).all())
+                                for _, t in leaves_of(params)):
+            raise AssertionError(f"launch.train's checkpoint {path}: step "
+                                 f"{step} or non-finite params")
+        del params
+    torch.cuda.empty_cache()
+
+
+def training(seed: int) -> dict:
+    """Phase 9. Returns the launch counts of the bf16 runs and of the f32
+    checks (each must be all zeros)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    counts = train_bf16(seed)
+    reset_launch_counts()
+    train_parity(seed)
+    train_invariants(seed)
+    c = launch_counts()
+    if any(c.values()):
+        raise AssertionError(f"phase 9 f32 checks launched kernels: {c}")
+    counts["train-f32-checks"] = c
+    train_launcher()
+    return counts
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2764,6 +3213,9 @@ def main() -> int:
     counts.update(serve_archs(args.seed))
     parity_archs(args.seed)
     emit("archs", dict(phase_s=time.perf_counter() - t_phase))
+    t_phase = time.perf_counter()
+    counts.update(training(args.seed))
+    emit("training", dict(phase_s=time.perf_counter() - t_phase))
 
     kernels = []
     for name, r in main_cases.items():

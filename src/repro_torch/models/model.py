@@ -6,7 +6,10 @@ super-block axis, and `forward` loops over it in Python where the reference
 runs ``jax.lax.scan``. Caches are updated in place.
 
 Modes:
-  * train:   ``forward(params, batch)`` — full causal sequence, no cache.
+  * train:   ``forward(params, batch)`` — full causal sequence, no cache;
+    `Model.loss` is the training objective, and ``remat=True`` recomputes
+    each super-block's activations in the backward pass
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
   * prefill: ``forward(params, batch, cache=fresh_cache)`` — fills the cache.
   * decode:  ``forward(params, batch, cache=cache)`` with S==1.
 """
@@ -15,6 +18,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as blk
@@ -26,7 +30,9 @@ from repro_torch.models.layers import (embed, embed_init, embed_shapes,
 
 
 def _index(tree, i: int):
-    """Layer ``i`` of a stacked tree: views, so cache writes land in place."""
+    """Layer ``i`` of a stacked tree: views, so cache writes land in place.
+    A leaf may also be a list of per-layer tensors (the train step's
+    gradient leaves, `repro_torch.training.loop`)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
@@ -45,13 +51,15 @@ def _leaf_shapes(tree):
 
 class Model:
     def __init__(self, cfg: ArchConfig, dtype=torch.bfloat16,
-                 device: DeviceLike = "cuda", use_kernel: bool = False):
+                 device: DeviceLike = "cuda", use_kernel: bool = False,
+                 remat: bool = False):
         self.cfg = cfg
         self.dtype = dtype
         # resolved (and refused without a card) when something is allocated,
         # so analytic uses such as param_count need no device
         self.device = torch.device(device)
         self.use_kernel = use_kernel
+        self.remat = remat
 
     # ------------------------------------------------------------------ params
     def _prefix_kinds(self):
@@ -214,12 +222,21 @@ class Model:
             aux_total = aux_total + aux
 
         # ---- stacked super-blocks: a loop in place of the reference's scan
+        def one(bp, x):                 # a super-block recomputed (remat)
+            x2, _, a = blk.super_block_forward(bp, cfg, x, positions, None,
+                                               memory, **kw)
+            return x2, a
+
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i in range(cache_mod.n_scanned_super_blocks(cfg)):
-            sub_cache = (_index(cache["blocks"], i) if cache is not None
-                         else None)
-            h, _, aux = blk.super_block_forward(
-                _index(params["blocks"], i), cfg, h, positions, sub_cache,
-                memory, **kw)
+            bp = _index(params["blocks"], i)
+            if remat:
+                h, aux = checkpoint(one, bp, h, use_reentrant=False)
+            else:
+                sub_cache = (_index(cache["blocks"], i) if cache is not None
+                             else None)
+                h, _, aux = blk.super_block_forward(
+                    bp, cfg, h, positions, sub_cache, memory, **kw)
             aux_total = aux_total + aux
 
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
@@ -239,3 +256,13 @@ class Model:
         if not isinstance(aux_total, torch.Tensor):      # no MoE layer
             aux_total = torch.zeros((), dtype=torch.float32, device=dev)
         return logits, cache, aux_total
+
+    # ------------------------------------------------------------------ losses
+    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """Mean next-token NLL of ``batch["labels"]`` ((B, S), or (B, S, K)
+        with K codebooks) under f32 log-softmax, plus the MoE aux loss."""
+        logits, _, aux = self.forward(params, batch)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        labels = batch["labels"].long()
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        return nll.mean() + aux

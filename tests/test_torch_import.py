@@ -17,7 +17,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 MODULES = [
     "repro_torch", "repro_torch.configs", "repro_torch.convert",
-    "repro_torch.core", "repro_torch.kernels", "repro_torch.kernels.build",
+    "repro_torch.core", "repro_torch.data", "repro_torch.kernels",
+    "repro_torch.kernels.build",
     "repro_torch.kernels.moe_gemm", "repro_torch.kernels.ssd_scan",
     "repro_torch.launch.serve", "repro_torch.launch.profile",
     "repro_torch.launch.calibrate",
@@ -30,7 +31,8 @@ MODULES = [
     "repro_torch.core.sampling", "repro_torch.qeil2",
     "repro_torch.qeil2.runtime", "repro_torch.qeil2.telemetry",
     "repro_torch.spec", "repro_torch.spec.policy", "repro_torch.spec.verify",
-    "repro_torch.spec.routing",
+    "repro_torch.spec.routing", "repro_torch.training",
+    "repro_torch.training.checkpoint", "repro_torch.launch.train",
 ]
 FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)"
