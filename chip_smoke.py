@@ -261,9 +261,34 @@ Phases, each of which fails the script on error:
    Last, ``python -m repro_torch.launch.train --arch mamba2-370m --steps
    3`` runs as a subprocess on the card: it must exit 0, print its step
    lines and write a checkpoint that `restore_checkpoint` reads.
-10. Print the script's wall time (the build included), the ``kernels``
-   JSON line (its ``launches_by_run`` holds phase 9's runs, all 0), the
-   card again, and as the last line ``{"ok": true, "device": {...}}``.
+10. The distributed slice (`repro_torch.distributed`, `launch/mesh.py`,
+   `launch/specs.py`, `launch/dryrun.py`), every earlier model freed
+   first. The card is one, so no multi-rank exchange runs here: the sharded
+   path runs at full width over a world-1 NCCL group (127.0.0.1, a free
+   port) on ``make_debug_mesh(1, 1)``, every leaf a DTensor in the
+   `ShardingPolicy`'s placements. f32 parity: full-width
+   granite-moe-3b-a800m at 2 MoE layers, three sharded steps
+   (`make_sharded_train_step`) against three unsharded ones
+   (`make_train_step`) on the same weights and phase 9's markov batches:
+   each loss within 1e-5 relative, the params within 1e-5 after the three
+   steps, and every param and moment a DTensor on the card in the policy's
+   placements (the step counter replicated). Then phase 9's granite run
+   (full depth, bf16, 8 steps of 8 x 64 tokens) sharded, held to phase 9's
+   gates (finite, every leaf with a gradient moved or held by bf16 spacing,
+   a lower mean loss over the run's batches, no port kernel launched); it
+   prints its step ms and peak GB beside phase 9's unsharded granite. Then
+   ``python -m repro_torch.launch.train --arch mamba2-370m --smoke --steps
+   3 --mesh debug`` as a subprocess: it must exit non-zero naming 4 ranks
+   and 1 card. Last, the dry-run on the host only (meta tensors under the
+   fake process group, no card): ``python -m repro_torch.launch.dryrun``
+   for each arch and mesh kind (20 subprocesses, 8 at a time: the 80
+   pairs take about 645 s of one CPU core, so one process would
+   pass 180 s) into a temporary folder; it fails unless there are 80
+   artifacts, none with ``error``, each with ``flops > 0`` and ``n_chips``
+   256 (single) or 512 (multi). It prints the phase's wall.
+11. Print the script's wall time (the build included), the ``kernels``
+   JSON line (its ``launches_by_run`` holds phases 9 and 10's runs, all 0),
+   the card again, and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside a
 checkout of the repository.
@@ -427,6 +452,11 @@ TRAIN_RUNS = {"train-chatglm3-6b-14": ("chatglm3-6b", 14),
               "train-mamba2": ("mamba2-370m", None),
               "train-musicgen": ("musicgen-medium", None)}
 TRAIN_F32 = dict(layers=2, parity_batch=2, parity_seq=32)
+# phase 10, the distributed slice: the arch of the sharded runs (its f32
+# parity at TRAIN_F32's 2 layers, then phase 9's bf16 run), the parity's
+# steps, and the dry-run's concurrent subprocesses (one per arch and mesh
+# kind)
+DIST = dict(arch="granite-moe-3b-a800m", parity_steps=3, dryrun_jobs=8)
 
 
 def emit(tag: str, obj) -> None:
@@ -2803,23 +2833,26 @@ class UpdateProbe:
     smallest |p| cannot move (the norm scales at 1.0); it counts as held,
     not as a fault."""
 
-    def __init__(self):
-        from repro_torch.training import loop
-        self.loop, self.real = loop, loop.adamw_update
+    def __init__(self, module=None):
+        """``module``: the step's module whose ``adamw_update`` to wrap
+        (default `repro_torch.training.loop`)."""
+        if module is None:
+            from repro_torch.training import loop as module
+        self.loop, self.real = module, module.adamw_update
         self.report = None
         self.update_ms = []
-        loop.adamw_update = self
+        module.adamw_update = self
 
-    def __call__(self, cfg, params, grads, state):
+    def __call__(self, cfg, params, grads, state, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
         if self.report is not None:
-            out = self.real(cfg, params, grads, state)
+            out = self.real(cfg, params, grads, state, **kw)
             torch.cuda.synchronize()
             self.update_ms.append(1e3 * (time.perf_counter() - t))
             return out
         before = [p.clone() for _, p in leaves_of(params)]
-        out = self.real(cfg, params, grads, state)
+        out = self.real(cfg, params, grads, state, **kw)
         lr = float(out[2]["lr"])
         rows = []
         for (path, p), p0, (_, g) in zip(leaves_of(params), before,
@@ -2841,7 +2874,8 @@ class UpdateProbe:
         self.loop.adamw_update = self.real
 
 
-def train_run(run: str, arch: str, layers: Optional[int], seed: int) -> dict:
+def train_run(run: str, arch: str, layers: Optional[int], seed: int,
+              policy=None) -> tuple:
     """One bf16 training run of ``TRAIN["steps"]`` steps through
     `make_train_step`; fails unless every loss and grad norm is finite,
     every leaf with a nonzero gradient moved at step 1 (or its update was
@@ -2851,7 +2885,10 @@ def train_run(run: str, arch: str, layers: Optional[int], seed: int) -> dict:
     trains on a new batch, and over 8 steps at lr <= 1e-3 one step's loss
     moves less than batches differ: musicgen-medium's went from 8.171 at
     step 1 to 8.208 at step 8 on an H100 while the mean over its batches
-    fell from 8.139 to 7.747.) Returns the launch counts."""
+    fell from 8.139 to 7.747.) With ``policy`` (phase 10) the params and
+    moments are DTensors in its placements and each step is
+    `make_sharded_train_step`'s on batches in its placements. Returns the
+    launch counts and the printed record."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.training import make_train_step
@@ -2862,18 +2899,31 @@ def train_run(run: str, arch: str, layers: Optional[int], seed: int) -> dict:
     t0 = time.perf_counter()
     model, params, opt_state, opt_cfg = train_setup(cfg, torch.bfloat16,
                                                     seed)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    step_fn = make_train_step(model, opt_cfg)
     data = train_batches(cfg, torch.bfloat16, TRAIN["batch"], TRAIN["seq"])
     batches = [next(data) for _ in range(TRAIN["steps"])]
-    probe = UpdateProbe()
+    if policy is None:
+        step_fn = make_train_step(model, opt_cfg)
+        inputs, probe_of = batches, None
+
+        def whole(tree):
+            return tree
+    else:
+        from repro_torch.distributed import step as dstep
+        params = dstep.shard_params(params, policy)
+        opt_state = dstep.init_sharded_opt_state(params)
+        step_fn = dstep.make_sharded_train_step(model, opt_cfg, policy)
+        inputs = [dstep.shard_batch(b, policy) for b in batches]
+        probe_of, whole = dstep, dstep.full_tree
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    probe = UpdateProbe(probe_of)
     losses, norms, step_ms = [], [], []
     try:
         reset_launch_counts()
         with torch.no_grad():
-            scored_before = [float(model.loss(params, b)) for b in batches]
-        for i, batch in enumerate(batches):
+            scored_before = [float(model.loss(whole(params), b))
+                             for b in batches]
+        for i, batch in enumerate(inputs):
             torch.cuda.synchronize()
             if i == 1:         # steps 2-8: the step-1 check copies every leaf
                 torch.cuda.reset_peak_memory_stats()
@@ -2883,12 +2933,13 @@ def train_run(run: str, arch: str, layers: Optional[int], seed: int) -> dict:
             step_ms.append(1e3 * (time.perf_counter() - t))
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated() / 1e9
         with torch.no_grad():
-            scored_after = [float(model.loss(params, b)) for b in batches]
+            scored_after = [float(model.loss(whole(params), b))
+                            for b in batches]
         counts = launch_counts()
     finally:
         probe.close()
-    peak = torch.cuda.max_memory_allocated() / 1e9
     rows = probe.report
     bad = []
     if not all(math.isfinite(x) for x in losses + norms):
@@ -2911,7 +2962,7 @@ def train_run(run: str, arch: str, layers: Optional[int], seed: int) -> dict:
         bad.append(f"port kernels launched in training: {counts}")
     med = float(np.median(step_ms[1:]))
     tokens = TRAIN["batch"] * TRAIN["seq"]
-    emit("train", dict(
+    record = dict(
         run=run, arch=cfg.name, layers=cfg.n_layers, dtype="bfloat16",
         params=model.param_count(), init_s=init_s, steps=TRAIN["steps"],
         batch=TRAIN["batch"], seq=TRAIN["seq"], step_ms=step_ms,
@@ -2926,18 +2977,22 @@ def train_run(run: str, arch: str, layers: Optional[int], seed: int) -> dict:
         leaves_moved=sum(r["moved"] for r in rows),
         leaves_held_by_bf16=[r["path"] for r in rows
                              if r["nonzero"] and not r["moved"]],
-        launches=counts))
+        launches=counts)
+    emit("train", record)
     if bad:
         raise AssertionError(f"{run}: " + "; ".join(bad))
-    del params, opt_state, model, step_fn, probe
+    del params, opt_state, model, step_fn, probe, inputs
     torch.cuda.empty_cache()
-    return counts
+    return counts, record
 
 
-def train_bf16(seed: int) -> dict:
-    """Phase 9's bf16 runs (`TRAIN_RUNS`), each freed before the next."""
-    return {run: train_run(run, arch, layers, seed)
+def train_bf16(seed: int) -> tuple:
+    """Phase 9's bf16 runs (`TRAIN_RUNS`), each freed before the next.
+    Returns their launch counts and records, by run."""
+    runs = {run: train_run(run, arch, layers, seed)
             for run, (arch, layers) in TRAIN_RUNS.items()}
+    return ({run: c for run, (c, _) in runs.items()},
+            {run: r for run, (_, r) in runs.items()})
 
 
 def f32_cfg(arch: str):
@@ -3144,11 +3199,11 @@ def train_launcher() -> None:
     torch.cuda.empty_cache()
 
 
-def training(seed: int) -> dict:
+def training(seed: int) -> tuple:
     """Phase 9. Returns the launch counts of the bf16 runs and of the f32
-    checks (each must be all zeros)."""
+    checks (each must be all zeros), and the bf16 runs' records."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    counts = train_bf16(seed)
+    counts, records = train_bf16(seed)
     reset_launch_counts()
     train_parity(seed)
     train_invariants(seed)
@@ -3157,6 +3212,186 @@ def training(seed: int) -> dict:
         raise AssertionError(f"phase 9 f32 checks launched kernels: {c}")
     counts["train-f32-checks"] = c
     train_launcher()
+    return counts, records
+
+
+# -------------------------------------------------- phase 10: distributed
+
+def dist_world():
+    """Joins a world-1 NCCL process group (127.0.0.1, a free port) and
+    returns its (1, 1) debug mesh over ("data", "model")."""
+    import socket
+    from repro_torch.launch.mesh import init_world, make_debug_mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_world(0, 1, f"tcp://127.0.0.1:{port}", "cuda")
+    return make_debug_mesh(1, 1, device="cuda")
+
+
+def placed(tree, want) -> bool:
+    """Every leaf a DTensor on the card in ``want``'s placements."""
+    from torch.distributed.tensor import DTensor
+    got = leaves_of(tree)
+    return len(got) == len(leaves_of(want)) and all(
+        isinstance(t, DTensor) and t.device.type == "cuda"
+        and tuple(t.placements) == pl
+        for (_, t), (_, pl) in zip(got, leaves_of(want)))
+
+
+def dist_parity(seed: int, policy) -> dict:
+    """Phase 10, f32 at full width and 2 MoE layers: three sharded steps
+    against three unsharded steps on the same weights and batches; losses
+    within 1e-5 relative, params within 1e-5, params and moments DTensors in
+    the policy's placements. Returns the launch counts (all must be 0)."""
+    from repro_torch.distributed.step import (full_tree,
+                                              init_sharded_opt_state,
+                                              make_sharded_train_step,
+                                              shard_batch, shard_params)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training import make_train_step
+    cfg = f32_cfg(DIST["arch"])
+    model, params, opt, opt_cfg = train_setup(cfg, torch.float32, seed)
+    data = train_batches(cfg, torch.float32, TRAIN["batch"], TRAIN["seq"])
+    batches = [next(data) for _ in range(DIST["parity_steps"])]
+    reset_launch_counts()
+    sp = shard_params(params, policy)
+    so = init_sharded_opt_state(sp)
+    step = make_sharded_train_step(model, opt_cfg, policy)
+    t0 = time.perf_counter()
+    s_loss = []
+    for b in batches:
+        sp, so, m = step(sp, so, shard_batch(b, policy))
+        s_loss.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    u_step = make_train_step(model, opt_cfg)
+    up = params                  # shard_params copied what it kept
+    u_loss = []
+    for b in batches:
+        up, opt, m = u_step(up, opt, b)
+        u_loss.append(float(m["loss"]))
+    counts = launch_counts()
+    want = policy.param_shardings(up)
+    placements_ok = (placed(sp, want) and placed(so["m"], want)
+                     and placed(so["v"], want)
+                     and tuple(so["step"].placements) == policy.scalar())
+    diff = max_diff(full_tree(sp), up)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(s_loss, u_loss))
+    emit("dist-parity-f32", dict(
+        arch=cfg.name, layers=cfg.n_layers, steps=DIST["parity_steps"],
+        batch=TRAIN["batch"], seq=TRAIN["seq"], sharded_losses=s_loss,
+        unsharded_losses=u_loss, loss_rel_diff=rel, param_max_diff=diff,
+        placements_ok=placements_ok, sharded_s=sharded_s, launches=counts))
+    if rel > 1e-5 or diff > 1e-5 or not placements_ok or any(
+            counts.values()):
+        raise AssertionError(
+            f"phase 10 f32 parity: loss rel {rel}, params {diff}, "
+            f"placements {placements_ok}, launches {counts}")
+    del sp, so, up, opt, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dist_launcher() -> None:
+    """Phase 10: ``launch.train --mesh debug`` needs 4 ranks, one a card;
+    on this one card it must exit non-zero and say so."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "mamba2-370m", "--smoke", "--steps", "3", "--mesh", "debug"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    said = (res.stdout + res.stderr).strip().splitlines()
+    emit("dist-launcher", dict(rc=res.returncode, said=said[-3:]))
+    text = " ".join(said[-3:])
+    if res.returncode == 0 or "4 ranks" not in text or "1 card" not in text:
+        raise AssertionError(f"--mesh debug on one card: rc "
+                             f"{res.returncode}, {text}")
+
+
+def dist_dryrun() -> dict:
+    """Phase 10: ``launch.dryrun`` for every arch and mesh kind, one
+    subprocess each, `DIST["dryrun_jobs"]` at a time, on the host only
+    (meta tensors, the fake process group). Fails unless the 80 artifacts
+    are there, none with ``error``, each with ``flops > 0`` and its mesh's
+    ``n_chips``."""
+    import os
+    import tempfile
+    from repro_torch.configs import ASSIGNED_ARCHS
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    with tempfile.TemporaryDirectory() as d:
+        # the deepest archs first: they take longest
+        from repro_torch.configs import get_config
+        archs = sorted(ASSIGNED_ARCHS, key=lambda a: -get_config(a).n_layers)
+        todo = [(a, m) for a in archs for m in ("single", "multi")]
+        running, failed, job_s = [], [], {}
+        t0 = time.perf_counter()
+        while todo or running:
+            while todo and len(running) < DIST["dryrun_jobs"]:
+                arch, mesh = todo.pop(0)
+                log = open(os.path.join(d, f"{arch}__{mesh}.log"), "w")
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--mesh", mesh, "--out", d],
+                    cwd=ROOT, env=env, stdout=log, stderr=log)
+                running.append((arch, mesh, proc, log, time.perf_counter()))
+            time.sleep(0.5)
+            for job in list(running):
+                arch, mesh, proc, log, t = job
+                if proc.poll() is None:
+                    if time.perf_counter() - t > 600:
+                        proc.kill()
+                    continue
+                running.remove(job)
+                log.close()
+                job_s[f"{arch}/{mesh}"] = time.perf_counter() - t
+                if proc.returncode != 0:
+                    failed.append((arch, mesh, proc.returncode, Path(
+                        log.name).read_text()[-1000:]))
+        wall = time.perf_counter() - t0
+        arts = [json.loads(p.read_text()) for p in Path(d).glob("*.json")]
+    bad = [(a.get("arch"), a.get("shape"), a.get("mesh")) for a in arts
+           if "error" in a or not a["cost_analysis"].get("flops", 0) > 0
+           or a["n_chips"] != (512 if a["mesh"] == "multi" else 256)]
+    out = dict(host_only=True, artifacts=len(arts), bad=bad, failed=failed,
+               wall_s=wall, jobs=DIST["dryrun_jobs"], job_s=job_s,
+               trace_s=sum(a.get("lower_s", 0) for a in arts if
+                           "error" not in a))
+    emit("dist-dryrun", out)
+    if len(arts) != 80 or bad or failed:
+        raise AssertionError(f"phase 10 dry-run: {len(arts)} artifacts, "
+                             f"bad {bad}, failed {failed}")
+    return out
+
+
+def distributed(seed: int, train_records: dict) -> dict:
+    """Phase 10. Returns the launch counts of the sharded runs (all 0)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import ShardingPolicy
+    mesh = dist_world()
+    try:
+        policy = ShardingPolicy(mesh)
+        counts = {"dist-f32": dist_parity(seed + 3, policy)}
+        c, rec = train_run("dist-train-granite", DIST["arch"], None, seed,
+                           policy=policy)
+        counts["dist-train-granite"] = c
+        base = train_records["train-granite"]
+        emit("dist-vs-phase9", dict(
+            arch=DIST["arch"], mesh=dict(zip(mesh.mesh_dim_names,
+                                             mesh.shape)),
+            sharded_step_ms_median_2_8=rec["step_ms_median_2_8"],
+            unsharded_step_ms_median_2_8=base["step_ms_median_2_8"],
+            sharded_peak_gb=rec["peak_gb_steps_2_8"],
+            unsharded_peak_gb=base["peak_gb_steps_2_8"],
+            sharded_update_ms=rec["update_ms_median_2_8"],
+            unsharded_update_ms=base["update_ms_median_2_8"]))
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    dist_launcher()
+    dist_dryrun()
     return counts
 
 
@@ -3214,8 +3449,12 @@ def main() -> int:
     parity_archs(args.seed)
     emit("archs", dict(phase_s=time.perf_counter() - t_phase))
     t_phase = time.perf_counter()
-    counts.update(training(args.seed))
+    train_counts, train_records = training(args.seed)
+    counts.update(train_counts)
     emit("training", dict(phase_s=time.perf_counter() - t_phase))
+    t_phase = time.perf_counter()
+    counts.update(distributed(args.seed, train_records))
+    emit("distributed", dict(phase_s=time.perf_counter() - t_phase))
 
     kernels = []
     for name, r in main_cases.items():

@@ -108,12 +108,13 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                      use_kernel: bool,
                      block_table: Optional[torch.Tensor] = None,
                      kv_len: Optional[int] = None,
-                     decode: bool = False
+                     decode: bool = False, dp=None
                      ) -> Tuple[torch.Tensor, Optional[Dict],
                                 Union[torch.Tensor, float]]:
     """Returns (x, cache, aux loss): the MoE FFN's aux loss (a 0-d f32
     tensor), else 0.0, which launches nothing. ``memory`` (B, Tm, d) is
-    the conditioning memory of a cross-attention arch, or None."""
+    the conditioning memory of a cross-attention arch, or None. ``dp``:
+    the MoE FFN's data-parallel group (`repro_torch.models.moe`)."""
     aux = 0.0
     # the cross-attention K/V cache entries: read at a decode step (S == 1,
     # or ``decode``), as the reference reads them before its self-attention
@@ -147,7 +148,8 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
             new_cache["xv"].copy_(v)
     if "moe" in p:
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        y, aux = moe_mod.moe_forward(p["moe"], cfg, h, use_kernel=use_kernel)
+        y, aux = moe_mod.moe_forward(p["moe"], cfg, h, use_kernel=use_kernel,
+                                     dp=dp)
         x = x + y
     elif "mlp" in p:
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
@@ -160,7 +162,7 @@ def super_block_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                         memory: Optional[torch.Tensor], use_kernel: bool,
                         block_table: Optional[torch.Tensor] = None,
                         kv_len: Optional[int] = None,
-                        decode: bool = False
+                        decode: bool = False, dp=None
                         ) -> Tuple[torch.Tensor, Optional[Dict],
                                    Union[torch.Tensor, float]]:
     """One period of the layer pattern. cache is {"l{i}": sub-cache} or None;
@@ -173,7 +175,7 @@ def super_block_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         x, nc, aux = sublayer_forward(p[key], cfg, x, positions, mixer,
                                       sub_cache, memory, use_kernel,
                                       block_table=block_table, kv_len=kv_len,
-                                      decode=decode)
+                                      decode=decode, dp=dp)
         if new_cache is not None:
             new_cache[key] = nc
         aux_total = aux_total + aux

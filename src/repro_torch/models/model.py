@@ -159,7 +159,8 @@ class Model:
     def forward(self, params: Dict, batch: Dict,
                 cache: Optional[Dict] = None,
                 kv_len: Optional[int] = None,
-                decode: bool = False, logits_at: Optional[int] = None
+                decode: bool = False, logits_at: Optional[int] = None,
+                dp=None
                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
         """Returns (logits, cache, aux_loss); ``cache`` is the one passed in,
         updated in place (None in train mode).
@@ -171,7 +172,9 @@ class Model:
         cache-attending branches even when S > 1. ``logits_at`` projects
         only that sequence position to the vocabulary (logits (B, 1, V)):
         a caller that reads one position skips the head's product over the
-        others.
+        others. ``dp``: the process group whose ranks hold the batch's other
+        rows, for the MoE FFN's global capacity, slots and aux loss
+        (`repro_torch.models.moe`; the sharded train step passes it).
         """
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -211,7 +214,7 @@ class Model:
             memory = memory.to(h.dtype)
 
         kw = dict(use_kernel=self.use_kernel, block_table=block_table,
-                  kv_len=kv_len, decode=decode)
+                  kv_len=kv_len, decode=decode, dp=dp)
         aux_total = 0.0            # a tensor once an MoE layer adds to it
         # ---- prefix layers (unrolled; deepseek's leading dense layer)
         for i, (mixer, _ffn) in enumerate(self._prefix_kinds()):
@@ -258,10 +261,11 @@ class Model:
         return logits, cache, aux_total
 
     # ------------------------------------------------------------------ losses
-    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+    def loss(self, params: Dict, batch: Dict, dp=None) -> torch.Tensor:
         """Mean next-token NLL of ``batch["labels"]`` ((B, S), or (B, S, K)
-        with K codebooks) under f32 log-softmax, plus the MoE aux loss."""
-        logits, _, aux = self.forward(params, batch)
+        with K codebooks) under f32 log-softmax, plus the MoE aux loss
+        (``dp`` as in `forward`)."""
+        logits, _, aux = self.forward(params, batch, dp=dp)
         logp = torch.log_softmax(logits.float(), dim=-1)
         labels = batch["labels"].long()
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]

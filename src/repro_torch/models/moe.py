@@ -24,6 +24,19 @@ Where the port departs from a line-by-line copy, and why:
   in an order that changes from run to run. The port inverts the sort, lays
   the contributions out as (T, k, d) and sums over k in a fixed order. The
   sums differ from the reference's by f32 rounding, not more.
+
+**Data-parallel rows.** Under the sharded train step
+(`repro_torch.distributed.step`) each rank runs its own rows of the batch,
+where the reference's GSPMD keeps the whole batch's meaning. ``dp``, the
+process group of the ranks that split the batch (rows in rank order),
+keeps the three values that depend on the batch global: the capacity comes
+from the global token count; a token's slot in its expert counts the
+tokens of the same expert on lower ranks before its own, so the same
+tokens drop as in one global dispatch; and the aux loss takes the global
+per-expert means (all-reduced sums). The aux loss's gradient on each rank
+is ``dp``'s size times its own rows' share, so that gradients summed over
+the group and divided by its size (the token mean's scaling) give the
+global aux loss's gradient. Without ``dp`` nothing is exchanged.
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
@@ -70,28 +84,59 @@ def capacity(cfg: ArchConfig, n_tokens: int) -> int:
     return max(int(math.ceil(TK / m.n_experts * m.capacity_factor)), m.top_k)
 
 
+def _expert_counts(cfg: ArchConfig, expert_idx: torch.Tensor
+                   ) -> torch.Tensor:
+    """How many of the T*k assignments each expert received (f32)."""
+    ce = torch.zeros(cfg.moe.n_experts, dtype=torch.float32,
+                     device=expert_idx.device)
+    return ce.scatter_add_(0, expert_idx.reshape(-1),
+                           torch.ones(expert_idx.numel(), dtype=torch.float32,
+                                      device=expert_idx.device))
+
+
 def _aux_loss(cfg: ArchConfig, probs: torch.Tensor,
               expert_idx: torch.Tensor) -> torch.Tensor:
     """Switch aux loss ``E * sum_e f_e * p_e``: mean router probability
     times the share of the T*k assignments each expert received."""
     m = cfg.moe
-    T, K = expert_idx.shape
     me = probs.mean(dim=0)
-    ce = torch.zeros(m.n_experts, dtype=torch.float32, device=probs.device)
-    ce.scatter_add_(0, expert_idx.reshape(-1),
-                    torch.ones(T * K, dtype=torch.float32,
-                               device=probs.device))
-    ce = ce / (T * K)
+    ce = _expert_counts(cfg, expert_idx) / expert_idx.numel()
+    return m.n_experts * torch.sum(me * ce) * m.router_aux_weight
+
+
+def _all_reduced(x: torch.Tensor, dp) -> torch.Tensor:
+    """The sum of ``x`` over the group (no gradient)."""
+    total = x.detach().clone()
+    dist.all_reduce(total, group=dp)
+    return total
+
+
+def _aux_loss_dp(cfg: ArchConfig, probs: torch.Tensor,
+                 expert_idx: torch.Tensor, dp) -> torch.Tensor:
+    """`_aux_loss` of the whole batch, whose rows the ranks of ``dp``
+    split: the value is the global one, and the gradient through this
+    rank's probabilities ``dp``'s size times its share (module
+    docstring)."""
+    m = cfg.moe
+    n = dist.get_world_size(dp)
+    T = probs.shape[0] * n
+    local = probs.sum(dim=0) * n
+    me = (local + (_all_reduced(probs.sum(dim=0), dp) - local).detach()) / T
+    ce = _all_reduced(_expert_counts(cfg, expert_idx), dp) / (
+        expert_idx.numel() * n)
     return m.n_experts * torch.sum(me * ce) * m.router_aux_weight
 
 
 def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                use_kernel: bool = False
+                use_kernel: bool = False, dp=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (y (B, S, d), aux loss f32 scalar)."""
+    """x (B, S, d) -> (y (B, S, d), aux loss f32 scalar). ``dp``: the
+    process group whose ranks hold the other rows of the batch (module
+    docstring), or None."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
+    n_dp = 1 if dp is None else dist.get_world_size(dp)
     E, K = m.n_experts, m.top_k
     dev = x.device
     xf = x.reshape(T, d)
@@ -102,9 +147,10 @@ def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
     gate_vals, expert_idx = top_p[:, :K], top_i[:, :K]          # (T, K)
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(dim=-1, keepdim=True), 1e-9)
-    aux = _aux_loss(cfg, probs, expert_idx)
+    aux = (_aux_loss(cfg, probs, expert_idx) if dp is None
+           else _aux_loss_dp(cfg, probs, expert_idx, dp))
 
-    if cfg.moe_dense_decode and T <= 512:
+    if cfg.moe_dense_decode and T * n_dp <= 512:
         # every expert on every token: exact (no capacity drops), for a
         # handful of decode tokens
         h_all = F.silu(torch.einsum("td,edf->tef", xf, p["gate"])) * \
@@ -129,8 +175,14 @@ def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
     seg_start = torch.cumsum(counts, dim=0) - counts
     pos_in_e = torch.arange(TK, device=dev) - seg_start[e_sorted]
 
-    C = capacity(cfg, T)
-    keep = pos_in_e < C
+    C = capacity(cfg, T * n_dp)
+    if dp is None:
+        keep = pos_in_e < C
+    else:       # the tokens of the same expert on lower ranks come first
+        every = [torch.empty_like(counts) for _ in range(n_dp)]
+        dist.all_gather(every, counts, group=dp)
+        below = sum(every[:dist.get_rank(dp)], torch.zeros_like(counts))
+        keep = pos_in_e + below[e_sorted] < C
     dest = torch.where(keep, e_sorted * C + pos_in_e,
                        torch.full_like(pos_in_e, E * C))       # drop slot
 

@@ -24,8 +24,11 @@ Where the port departs from a line-by-line copy, and why:
   that the padded B and C keep their stride-0 head axis.
 * **Softplus** is ``logaddexp(x, 0)``, the function ``jax.nn.softplus``
   computes, not ``F.softplus`` with its linear cut-over.
-* The reference's sharding hints are no-ops unless enabled, and the port
-  has no distributed slice yet: they are left out.
+* **Sharding hints** (`repro_torch.distributed.hints`) sit where the
+  reference puts them, on x, B, C and the dt projection. They are off
+  unless enabled (the dry-run's ``--hints``), and act only on a DTensor:
+  the sharded step runs this block on gathered plain tensors, which pass
+  through unchanged.
 """
 from __future__ import annotations
 
@@ -229,6 +232,16 @@ def ssm_forward(p: Params, cfg: ArchConfig, u: torch.Tensor,
 
     Bm = per_head(xBC[..., d_in:d_in + G * N])
     Cm = per_head(xBC[..., d_in + G * N:])
+
+    # the reference's hint: pin the head dim to the tensor axis (no-op
+    # unless enabled)
+    from repro_torch.distributed import hints
+    if hints.enabled():
+        x = hints.constrain(x, (None, None, "tensor", None), divisible_dim=2)
+        Bm = hints.constrain(Bm, (None, None, "tensor", None), divisible_dim=2)
+        Cm = hints.constrain(Cm, (None, None, "tensor", None), divisible_dim=2)
+        dt_raw = hints.constrain(dt_raw, (None, None, "tensor"),
+                                 divisible_dim=2)
 
     dt = torch.logaddexp(dt_raw.float() + p["dt_bias"],
                          torch.zeros((), device=u.device))

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
@@ -94,14 +94,17 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
-                 state: Dict) -> Tuple[Any, Dict, Dict]:
+                 state: Dict, grad_norm: Optional[torch.Tensor] = None
+                 ) -> Tuple[Any, Dict, Dict]:
     """One AdamW step, in place. Returns (params, state, metrics): the
     params and moments passed in, updated, the new step, and the metrics
-    ``lr``, ``grad_norm`` and ``step`` as tensors on the device."""
+    ``lr``, ``grad_norm`` and ``step`` as tensors on the device.
+    ``grad_norm``: the norm to clip by, where ``grads`` are shards of a
+    larger gradient (`repro_torch.distributed.step`); default, theirs."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
 
     b1c = 1 - cfg.b1 ** step.float()

@@ -33,6 +33,10 @@ MODULES = [
     "repro_torch.spec", "repro_torch.spec.policy", "repro_torch.spec.verify",
     "repro_torch.spec.routing", "repro_torch.training",
     "repro_torch.training.checkpoint", "repro_torch.launch.train",
+    "repro_torch.distributed", "repro_torch.distributed.sharding",
+    "repro_torch.distributed.hints", "repro_torch.distributed.step",
+    "repro_torch.launch.mesh", "repro_torch.launch.specs",
+    "repro_torch.launch.dryrun",
 ]
 FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)"

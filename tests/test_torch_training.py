@@ -530,13 +530,19 @@ def test_launcher_trains_on_the_cpu(arch, tmp_path, capsys):
 
 
 def test_launcher_refuses_a_mesh_and_a_missing_card():
+    """A production mesh needs its ranks started for it, and a world of
+    ranks on ``cuda`` needs its cards: both exit naming the counts (the
+    sharded runs themselves: tests/test_torch_sharded_train.py)."""
     from repro_torch.launch.train import main
-    with pytest.raises(SystemExit) as exc:
-        main(["--arch", "chatglm3-6b", "--smoke", "--device", "cpu",
-              "--mesh", "debug"])
-    assert exc.value.code not in (0, None)
-    assert "item 16" in str(exc.value.code)
+    for mesh, ranks in (("single", "256"), ("multi", "512")):
+        with pytest.raises(SystemExit) as exc:
+            main(["--arch", "chatglm3-6b", "--smoke", "--device", "cpu",
+                  "--mesh", mesh])
+        assert exc.value.code not in (0, None)
+        assert f"needs {ranks} ranks" in str(exc.value.code)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="CUDA is not available"):
+        main(["--arch", "chatglm3-6b", "--smoke", "--mesh", "debug"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--arch", "chatglm3-6b", "--smoke", "--steps", "1"])
