@@ -266,26 +266,32 @@ Phases, each of which fails the script on error:
    first. The card is one, so no multi-rank exchange runs here: the sharded
    path runs at full width over a world-1 NCCL group (127.0.0.1, a free
    port) on ``make_debug_mesh(1, 1)``, every leaf a DTensor in the
-   `ShardingPolicy`'s placements. f32 parity: full-width
-   granite-moe-3b-a800m at 2 MoE layers, three sharded steps
-   (`make_sharded_train_step`) against three unsharded ones
-   (`make_train_step`) on the same weights and phase 9's markov batches:
-   each loss within 1e-5 relative, the params within 1e-5 after the three
-   steps, and every param and moment a DTensor on the card in the policy's
-   placements (the step counter replicated). Then phase 9's granite run
-   (full depth, bf16, 8 steps of 8 x 64 tokens) sharded, held to phase 9's
-   gates (finite, every leaf with a gradient moved or held by bf16 spacing,
-   a lower mean loss over the run's batches, no port kernel launched); it
-   prints its step ms and peak GB beside phase 9's unsharded granite. Then
-   ``python -m repro_torch.launch.train --arch mamba2-370m --smoke --steps
-   3 --mesh debug`` as a subprocess: it must exit non-zero naming 4 ranks
-   and 1 card. Last, the dry-run on the host only (meta tensors under the
-   fake process group, no card): ``python -m repro_torch.launch.dryrun``
-   for each arch and mesh kind (20 subprocesses, 8 at a time: the 80
-   pairs take about 645 s of one CPU core, so one process would
-   pass 180 s) into a temporary folder; it fails unless there are 80
-   artifacts, none with ``error``, each with ``flops > 0`` and ``n_chips``
-   256 (single) or 512 (multi). It prints the phase's wall.
+   `ShardingPolicy`'s placements, the step's tensor-parallel compute
+   (`repro_torch.distributed.tp`) over one-rank groups. f32 parity:
+   full-width granite-moe-3b-a800m and chatglm3-6b at 2 layers, three
+   sharded steps (`make_sharded_train_step`) against three unsharded ones
+   (`make_train_step`) on the same weights and phase 9's markov batches
+   (granite at phase 9's lr, chatglm at 1e-4: its key bias's gradient is
+   rounding noise, which Adam moves by up to the lr): each loss within
+   1e-5 relative, the params within 1e-5 after the three steps, and every
+   param and moment a DTensor on the card in the policy's placements (the
+   step counter replicated). Then phase 9's granite run (full depth, bf16,
+   8 steps of 8 x 64 tokens) sharded, held to phase 9's gates (finite,
+   every leaf with a gradient moved or held by bf16 spacing, a lower mean
+   loss over the run's batches, no port kernel launched); it prints its
+   step ms and peak GB beside phase 9's unsharded granite, and fails if
+   its peak is more than 1.5 GB above phase 9's. Then ``python -m
+   repro_torch.launch.train --arch mamba2-370m --smoke --steps 3 --mesh
+   debug`` as a subprocess: it must exit non-zero naming 4 ranks and 1
+   card. Last, the dry-run on the host only (meta tensors under the fake
+   process group, no card): ``python -m repro_torch.launch.dryrun`` for
+   each arch and mesh kind (20 subprocesses, 8 at a time: the 80 pairs take
+   about 780 s of one CPU core) into a temporary folder; it fails unless
+   there are 80 artifacts, none with ``error``, each with ``flops > 0`` and
+   ``n_chips`` 256 (single) or 512 (multi), and the train_4k artifacts of
+   qwen2-72b, yi-34b, deepseek-coder-33b and chatglm3-6b on both meshes
+   show at most 2x the ideal ``6 * N * tokens / n_chips`` FLOPs and hold
+   under 80 GB by their own accounting. It prints the phase's wall.
 11. Print the script's wall time (the build included), the ``kernels``
    JSON line (its ``launches_by_run`` holds phases 9 and 10's runs, all 0),
    the card again, and as the last line ``{"ok": true, "device": {...}}``.
@@ -452,11 +458,18 @@ TRAIN_RUNS = {"train-chatglm3-6b-14": ("chatglm3-6b", 14),
               "train-mamba2": ("mamba2-370m", None),
               "train-musicgen": ("musicgen-medium", None)}
 TRAIN_F32 = dict(layers=2, parity_batch=2, parity_seq=32)
-# phase 10, the distributed slice: the arch of the sharded runs (its f32
-# parity at TRAIN_F32's 2 layers, then phase 9's bf16 run), the parity's
-# steps, and the dry-run's concurrent subprocesses (one per arch and mesh
-# kind)
-DIST = dict(arch="granite-moe-3b-a800m", parity_steps=3, dryrun_jobs=8)
+# phase 10, the distributed slice: the arch of the sharded bf16 run (phase
+# 9's, whose peak may exceed phase 9's by at most ``peak_over_gb``), the
+# archs of the f32 parity at TRAIN_F32's 2 layers with their learning rates
+# (chatglm's key bias has a gradient of rounding noise, which Adam moves by
+# up to the lr whichever way it rounds: 1e-4 keeps that below the 1e-5
+# gate), the parity's steps, the dry-run's concurrent subprocesses (one per
+# arch and mesh kind) and the archs whose train_4k artifacts must fit a card
+DIST = dict(arch="granite-moe-3b-a800m", peak_over_gb=1.5,
+            parity={"granite-moe-3b-a800m": TRAIN["lr"], "chatglm3-6b": 1e-4},
+            parity_steps=3, dryrun_jobs=8,
+            fit_archs=("qwen2-72b", "yi-34b", "deepseek-coder-33b",
+                       "chatglm3-6b"), fit_flops_per_6NT=2.0, fit_gb=80.0)
 
 
 def emit(tag: str, obj) -> None:
@@ -3239,19 +3252,21 @@ def placed(tree, want) -> bool:
         for (_, t), (_, pl) in zip(got, leaves_of(want)))
 
 
-def dist_parity(seed: int, policy) -> dict:
-    """Phase 10, f32 at full width and 2 MoE layers: three sharded steps
-    against three unsharded steps on the same weights and batches; losses
-    within 1e-5 relative, params within 1e-5, params and moments DTensors in
-    the policy's placements. Returns the launch counts (all must be 0)."""
+def dist_parity(seed: int, policy, arch: str, lr: float) -> dict:
+    """Phase 10, f32 at full width and 2 layers: three sharded steps
+    against three unsharded steps on the same weights and batches, at
+    ``lr``; losses within 1e-5 relative, params within 1e-5, params and
+    moments DTensors in the policy's placements. Returns the launch counts
+    (all must be 0)."""
     from repro_torch.distributed.step import (full_tree,
                                               init_sharded_opt_state,
                                               make_sharded_train_step,
                                               shard_batch, shard_params)
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.training import make_train_step
-    cfg = f32_cfg(DIST["arch"])
+    cfg = f32_cfg(arch)
     model, params, opt, opt_cfg = train_setup(cfg, torch.float32, seed)
+    opt_cfg = dataclasses.replace(opt_cfg, lr=lr)
     data = train_batches(cfg, torch.float32, TRAIN["batch"], TRAIN["seq"])
     batches = [next(data) for _ in range(DIST["parity_steps"])]
     reset_launch_counts()
@@ -3279,14 +3294,15 @@ def dist_parity(seed: int, policy) -> dict:
     diff = max_diff(full_tree(sp), up)
     rel = max(abs(a - b) / abs(b) for a, b in zip(s_loss, u_loss))
     emit("dist-parity-f32", dict(
-        arch=cfg.name, layers=cfg.n_layers, steps=DIST["parity_steps"],
+        arch=cfg.name, layers=cfg.n_layers, lr=lr,
+        steps=DIST["parity_steps"],
         batch=TRAIN["batch"], seq=TRAIN["seq"], sharded_losses=s_loss,
         unsharded_losses=u_loss, loss_rel_diff=rel, param_max_diff=diff,
         placements_ok=placements_ok, sharded_s=sharded_s, launches=counts))
     if rel > 1e-5 or diff > 1e-5 or not placements_ok or any(
             counts.values()):
         raise AssertionError(
-            f"phase 10 f32 parity: loss rel {rel}, params {diff}, "
+            f"phase 10 f32 parity of {arch}: loss rel {rel}, params {diff}, "
             f"placements {placements_ok}, launches {counts}")
     del sp, so, up, opt, model
     torch.cuda.empty_cache()
@@ -3315,7 +3331,10 @@ def dist_dryrun() -> dict:
     subprocess each, `DIST["dryrun_jobs"]` at a time, on the host only
     (meta tensors, the fake process group). Fails unless the 80 artifacts
     are there, none with ``error``, each with ``flops > 0`` and its mesh's
-    ``n_chips``."""
+    ``n_chips``, and the train_4k artifacts of `DIST`'s ``fit_archs`` on
+    both meshes show at most ``fit_flops_per_6NT`` times the ideal
+    ``6 * N * tokens / n_chips`` and hold under ``fit_gb`` by their own
+    accounting."""
     import os
     import tempfile
     from repro_torch.configs import ASSIGNED_ARCHS
@@ -3355,10 +3374,22 @@ def dist_dryrun() -> dict:
     bad = [(a.get("arch"), a.get("shape"), a.get("mesh")) for a in arts
            if "error" in a or not a["cost_analysis"].get("flops", 0) > 0
            or a["n_chips"] != (512 if a["mesh"] == "multi" else 256)]
+    fit = {f"{a['arch']}/{a['mesh']}": dict(
+        flops_per_6NT=a["cost_analysis"]["flops_per_6NT"],
+        held_gb=a["memory_analysis"]["held_bytes"] / 1e9,
+        saved_gb=a["memory_analysis"]["saved_bytes"] / 1e9,
+        gathered_gb=a["memory_analysis"]["gathered_param_bytes"] / 1e9)
+        for a in arts if "error" not in a and a["shape"] == "train_4k"
+        and a["arch"] in DIST["fit_archs"]}
+    bad += [k for k, v in fit.items()
+            if v["flops_per_6NT"] > DIST["fit_flops_per_6NT"]
+            or not v["held_gb"] < DIST["fit_gb"]]
+    if len(fit) != 2 * len(DIST["fit_archs"]):
+        bad.append(f"train_4k fit records: {sorted(fit)}")
     out = dict(host_only=True, artifacts=len(arts), bad=bad, failed=failed,
                wall_s=wall, jobs=DIST["dryrun_jobs"], job_s=job_s,
                trace_s=sum(a.get("lower_s", 0) for a in arts if
-                           "error" not in a))
+                           "error" not in a), train_4k_fit=fit)
     emit("dist-dryrun", out)
     if len(arts) != 80 or bad or failed:
         raise AssertionError(f"phase 10 dry-run: {len(arts)} artifacts, "
@@ -3373,20 +3404,28 @@ def distributed(seed: int, train_records: dict) -> dict:
     mesh = dist_world()
     try:
         policy = ShardingPolicy(mesh)
-        counts = {"dist-f32": dist_parity(seed + 3, policy)}
+        counts = {f"dist-f32-{arch}": dist_parity(seed + 3, policy, arch, lr)
+                  for arch, lr in DIST["parity"].items()}
         c, rec = train_run("dist-train-granite", DIST["arch"], None, seed,
                            policy=policy)
         counts["dist-train-granite"] = c
         base = train_records["train-granite"]
+        over = rec["peak_gb_steps_2_8"] - base["peak_gb_steps_2_8"]
         emit("dist-vs-phase9", dict(
             arch=DIST["arch"], mesh=dict(zip(mesh.mesh_dim_names,
                                              mesh.shape)),
+            card=card_line(),
             sharded_step_ms_median_2_8=rec["step_ms_median_2_8"],
             unsharded_step_ms_median_2_8=base["step_ms_median_2_8"],
             sharded_peak_gb=rec["peak_gb_steps_2_8"],
             unsharded_peak_gb=base["peak_gb_steps_2_8"],
+            peak_over_gb=over,
             sharded_update_ms=rec["update_ms_median_2_8"],
             unsharded_update_ms=base["update_ms_median_2_8"]))
+        if over > DIST["peak_over_gb"]:
+            raise AssertionError(
+                f"phase 10: the sharded bf16 step's peak is {over} GB above "
+                f"phase 9's (at most {DIST['peak_over_gb']})")
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()

@@ -21,8 +21,13 @@ ranks' weights agree before anything runs.
 2. bf16 at full depth: granite-moe-3b-a800m's 8 steps at the launcher's
    recipe (lr 1e-3, 5 warmup steps), sharded, with each step synchronised
    and timed and each rank's peak memory; then rank 0 runs the same 8
-   steps unsharded. Their losses are printed side by side (information: in
-   bf16 the cross-rank gradient sum rounds otherwise).
+   steps unsharded, timed, with its peak. Their losses are printed side by
+   side (information: in bf16 the cross-rank gradient sum rounds
+   otherwise), and so are the matmul FLOPs of step 1 (``mm``, ``addmm``,
+   ``bmm`` under ``FlopCounterMode``, forward and backward; step 1 is not
+   in the median): each rank's sharded step, the unsharded step on the
+   whole batch, and that divided by the batch axes' size (the unsharded
+   step on a rank's rows).
 
 Rank 0 prints one JSON line a part and, last, ``{"ok": ...}``; the script
 exits non-zero if a gate fails.
@@ -32,6 +37,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import sys
 import time
 from typing import Dict, List
@@ -39,6 +45,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, data_iterator
@@ -134,6 +141,31 @@ def parity(rank: int, mesh, smoke: bool) -> List[Dict]:
     return out
 
 
+def _mm_flops(counter) -> int:
+    return sum(n for op, n in counter.get_flop_counts()["Global"].items()
+               if str(op).rsplit(".", 1)[-1] in ("mm", "addmm", "bmm"))
+
+
+def _timed(step, state, batches, dev):
+    """Run ``step`` over the batches, each synchronised and timed; step 1
+    under a FLOP counter. Returns the state, losses, ms and step 1's matmul
+    FLOPs."""
+    losses, ms, flops = [], [], 0
+    for i, b in enumerate(batches):
+        _sync(dev)
+        t = time.perf_counter()
+        if i == 0:
+            with FlopCounterMode(display=False) as counter:
+                state = step(*state, b)
+            flops = _mm_flops(counter)
+        else:
+            state = step(*state, b)
+        _sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(float(state[2]["loss"]))
+    return state, losses, ms, flops
+
+
 def bf16_run(rank: int, mesh, smoke: bool) -> Dict:
     dev = _device(mesh, rank)
     cfg = get_config(ARCH).reduced() if smoke else get_config(ARCH)
@@ -143,44 +175,51 @@ def bf16_run(rank: int, mesh, smoke: bool) -> Dict:
     sp = shard_params(params, policy)
     so = init_sharded_opt_state(sp)
     step = make_sharded_train_step(model, opt_cfg, policy)
-    s_loss, step_ms = [], []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    for b in batches:
-        _sync(dev)
-        t = time.perf_counter()
-        sp, so, m = step(sp, so, shard_batch(b, policy))
-        _sync(dev)
-        step_ms.append(1e3 * (time.perf_counter() - t))
-        s_loss.append(float(m["loss"]))
+    (sp, so, _), s_loss, step_ms, flops = _timed(
+        lambda p, o, m, b: step(p, o, shard_batch(b, policy)),
+        (sp, so, {}), batches, dev)
     peak = (torch.cuda.max_memory_allocated(dev) / 1e9
             if dev.type == "cuda" else None)
     peaks = [None] * dist.get_world_size()
     dist.all_gather_object(peaks, peak)
+    flops_by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(flops_by_rank, flops)
+    n_batch = math.prod(mesh.size(mesh.mesh_dim_names.index(a))
+                        for a in _axes(policy.batch_axes(BATCH)))
     rec = {}
     if rank == 0:
         del sp, so
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         u_step = make_train_step(model, opt_cfg)
         up, uo = params, init_opt_state(params)
-        u_loss, u_ms = [], []
-        for b in batches:
-            _sync(dev)
-            t = time.perf_counter()
-            up, uo, m = u_step(up, uo, b)
-            _sync(dev)
-            u_ms.append(1e3 * (time.perf_counter() - t))
-            u_loss.append(float(m["loss"]))
+        _, u_loss, u_ms, u_flops = _timed(
+            lambda p, o, m, b: u_step(p, o, b), (up, uo, {}), batches, dev)
+        u_peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+                  if dev.type == "cuda" else None)
         rec = dict(part="train-bf16", arch=cfg.name, layers=cfg.n_layers,
                    steps=BF16["steps"], batch=BATCH, seq=SEQ,
                    sharded_step_ms=step_ms,
                    sharded_step_ms_median_2_8=float(np.median(step_ms[1:])),
                    unsharded_step_ms=u_ms,
                    unsharded_step_ms_median_2_8=float(np.median(u_ms[1:])),
-                   sharded_peak_gb_by_rank=peaks, sharded_losses=s_loss,
-                   unsharded_losses=u_loss,
+                   sharded_peak_gb_by_rank=peaks, unsharded_peak_gb=u_peak,
+                   sharded_mm_flops_by_rank=flops_by_rank,
+                   unsharded_mm_flops=u_flops,
+                   unsharded_mm_flops_per_batch_rank=u_flops / n_batch,
+                   sharded_over_unsharded_rows=max(flops_by_rank) / (
+                       u_flops / n_batch),
+                   sharded_losses=s_loss, unsharded_losses=u_loss,
                    finite=all(np.isfinite(s_loss + u_loss)))
     dist.barrier()
     return rec
+
+
+def _axes(axes) -> tuple:
+    return () if axes is None else (axes if isinstance(axes, tuple)
+                                    else (axes,))
 
 
 def _world(rank: int, mesh, smoke: bool, out: str) -> None:

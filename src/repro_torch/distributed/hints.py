@@ -11,10 +11,10 @@ the rest as they are. Enabled process-wide by `enable` (the dry-run's
 
 In the port the hint acts on a DTensor: its dims marked ``"tensor"`` are
 redistributed to ``Shard`` on the tensor axis of its mesh when they divide
-the axis. A plain tensor (the model's activations on the sharded step's
-gathered path, `repro_torch.distributed.step`) or a dim that does not
-divide comes back unchanged, as the reference skips a hint it cannot
-apply.
+the axis. A plain tensor (the model's activations under the sharded step,
+`repro_torch.distributed.step`, whose Mamba-2 mixer computes whole on every
+tensor rank: ROADMAP F13) or a dim that does not divide comes back
+unchanged, as the reference skips a hint it cannot apply.
 """
 from __future__ import annotations
 

@@ -6,29 +6,34 @@ the reference).
 Parameters and AdamW moments are DTensors in the policy's placements
 (`shard_params`, `init_sharded_opt_state`); a batch is DTensors in its
 ``data_spec`` placements (`shard_batch`). The step keeps the boundary's
-contract and computes between them as follows:
+contract and computes between them as follows (`repro_torch.distributed.
+tp` has the collectives and the gather):
 
-1. every parameter leaf is all-gathered (``Shard -> Replicate``) to a
-   plain tensor;
-2. each rank runs the port's plain-path loss and gradients
-   (`repro_torch.training.loop.value_and_grad`) on its own rows of the
-   batch, the rows of its coordinate on the batch axes; the MoE FFN gets
-   the batch axes' process group, so its capacity, slots and aux loss stay
-   those of the whole batch (`repro_torch.models.moe`);
-3. the gradients, ``Partial(sum)`` over the batch axes (each rank's loss
-   scaled by 1 / the batch axes' size: the global loss is the mean of
-   equal local token means), are reduce-scattered to each parameter's
-   placements, explicitly: DTensor's propagation is not left to choose the
-   layout;
-4. the gradient norm is the square root of one all-reduced sum of local
+1. each rank runs the model on its own rows of the batch (its coordinate
+   on the batch axes), with the params tree as `Leaf` objects over its
+   shards (`leaf_tree`); the MoE FFN gets the batch axes' process group, so
+   its capacity, slots and aux loss stay the whole batch's
+   (`repro_torch.models.moe`);
+2. a layer asks for a leaf when it runs (`TensorParallel.take`): the FSDP
+   axis ("data") is all-gathered and the tensor axis ("model") kept as the
+   layer computes on it, so the block's compute splits over the tensor
+   ranks (heads, the MLP's hidden dim, experts or their hidden dim, the
+   vocabulary) and the residual stream between layers is sharded on
+   d_model; a leaf's backward reduce-scatters its gradient straight to its
+   at-rest placement (summed over the batch axes: each rank's loss is
+   scaled by 1 / their size), and the gathered tensors are saved for
+   backward as tokens and gathered again (`TensorParallel.saving`), so a
+   block's gathered weights live while it runs; under remat the block
+   gathers again in its recompute;
+3. the gradient norm is the square root of one all-reduced sum of local
    squared sums, each element counted once (a leaf replicated over a mesh
    dim counts only on that dim's coordinate 0), and AdamW
    (`repro_torch.training.optimizer.adamw_update`) updates each local
-   shard in place with it.
+   shard in place with it. No rank holds a whole-model gradient.
 
-Ranks along the tensor axis therefore compute the same rows: the tensor
-axis shards storage, not compute (ROADMAP.md §3, F13). Sharding changes no
-result: a sharded step equals the unsharded port step to f32 rounding.
+The MLA, Mamba-2 and cross-attention mixers take their leaves whole and
+compute alike on every tensor rank (ROADMAP.md §3, F13). Sharding changes
+no result: a sharded step equals the unsharded port step to f32 rounding.
 Metrics (``loss``, ``grad_norm``, ``lr``, ``step``) come back as plain
 tensors, equal on every rank.
 """
@@ -39,12 +44,14 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.distributed.sharding import ShardingPolicy
+from repro_torch.distributed.tp import Leaf, Registry, TensorParallel
+from repro_torch.models import blocks as blk
 from repro_torch.models.model import Model
-from repro_torch.training.loop import value_and_grad
-from repro_torch.training.optimizer import AdamWConfig, adamw_update
+from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                            row_chunks)
 from repro_torch.training.tree import flatten, leaves, unflatten
 
 
@@ -144,8 +151,6 @@ class BatchAxes:
         elif self.dims:
             self.group = mesh[tuple(self.names)]._flatten().get_group()
         self.rows = rows // self.size
-        self.partial = tuple(Partial() if i in self.dims else Replicate()
-                             for i in range(mesh.ndim))
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a tensor every rank holds whole."""
@@ -163,15 +168,61 @@ class BatchAxes:
                               self.rows_only(x.placements)).to_local()
 
 
-# ------------------------------------------------------------------ the step
+# ------------------------------------------------------------------ compute
+
+
+def tensor_parallel(policy: ShardingPolicy, ax: BatchAxes) -> TensorParallel:
+    """The rank's tensor-parallel context: the policy's tensor axis (none
+    when it has none) and the batch axes."""
+    names = list(policy.axis_sizes)
+    t = policy.tensor_axis
+    dim = names.index(t) if t in names and names.index(t) not in ax.dims \
+        else None
+    return TensorParallel(policy.mesh, dim, ax.dims)
+
+
+def _unstacked(placements) -> tuple:
+    return tuple(Shard(pl.dim - 1) if isinstance(pl, Shard) else pl
+                 for pl in placements)
+
+
+def leaf_tree(params: Any, grad: bool) -> Tuple[Any, List]:
+    """The params tree as `Leaf` objects over this rank's shards: a stacked
+    ``blocks`` leaf as a list of per-layer leaves (one autograd leaf a
+    layer, so each layer's gradient lands in its own slice, as
+    `repro_torch.training.loop.value_and_grad` does). Returns the tree and,
+    per params leaf, the list of its autograd inputs."""
+    out, inputs = [], []
+    for path, p in flatten(params):
+        local = p.to_local()
+        if path.startswith("blocks/"):
+            xs = [local[i].detach().requires_grad_(grad)
+                  for i in range(local.shape[0])]
+            pls = _unstacked(p.placements)
+            out.append([Leaf(x, pls, p.shape[1:], f"{path}/{i}")
+                        for i, x in enumerate(xs)])
+        else:
+            xs = [local.detach().requires_grad_(grad)]
+            out.append(Leaf(xs[0], p.placements, p.shape, path))
+        inputs.append(xs)
+    return unflatten(params, out), inputs
+
+
+def _registry_params(tp: TensorParallel, inputs: List) -> None:
+    tp.registry.params = {x.untyped_storage()._cdata
+                          for xs in inputs for x in xs}
+
 
 def _norm_share(local: torch.Tensor, placements, coord) -> torch.Tensor:
     """This rank's part of a leaf's squared sum: its shard's, or zero where
-    a mesh dim replicates the leaf and this rank is not its coordinate 0."""
+    a mesh dim replicates the leaf and this rank is not its coordinate 0.
+    A few rows at a time, as `global_norm` sums (an f32 copy of a whole
+    stacked leaf would be the step's peak)."""
     if any(isinstance(pl, Replicate) and c != 0
            for pl, c in zip(placements, coord)):
         return torch.zeros((), dtype=torch.float32, device=local.device)
-    return torch.sum(torch.square(local.float()))
+    return sum(torch.sum(torch.square(local[sl].float()))
+               for sl in row_chunks(local))
 
 
 def sharded_grad_norm(grads: List[torch.Tensor], placements: List[tuple],
@@ -184,16 +235,26 @@ def sharded_grad_norm(grads: List[torch.Tensor], placements: List[tuple],
     return torch.sqrt(total)
 
 
+# ------------------------------------------------------------------ the step
+
 def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig,
                             policy: ShardingPolicy,
                             microbatches: int = 1) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
     over DTensor params, moments and batch (module docstring); params and
     moments are updated in place. ``microbatches > 1`` splits the global
-    batch into that many slices, run one after another with the gradients
-    summed in f32 as `repro_torch.training.make_train_step` sums them; each
-    slice is the global one, split over the batch axes, so the MoE FFN
-    drops the tokens the unsharded step drops."""
+    batch into that many slices, run one after another with the local
+    gradient shards summed in f32 as `repro_torch.training.make_train_step`
+    sums whole ones; each slice is the global one, split over the batch
+    axes, so the MoE FFN drops the tokens the unsharded step drops.
+
+    After each call ``step.stats`` holds what the step held on this rank:
+    ``grad_bytes`` (the local gradient shards, and the f32 accumulators
+    with microbatches), ``gathered_bytes`` (the most gathered parameter
+    bytes alive at once), ``gathered_by_path`` (each gathered leaf's
+    compute-layout bytes) and ``saved_bytes`` (the bytes saved for
+    backward, one count a storage; under remat the blocks' inputs, not
+    what a block's recompute saves, `block_saved_bytes`)."""
     if model.use_kernel:
         raise ValueError("cannot train a model with use_kernel=True: the "
                          "hand-written CUDA kernels have no backward")
@@ -205,19 +266,39 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig,
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{microbatches} microbatches")
         ax = BatchAxes(policy, rows // microbatches)
-
-        def loss_fn(tree, b):
-            return model.loss(tree, b, dp=ax.group) / ax.size
-
+        tp = tensor_parallel(policy, ax)
         flat = flatten(params)
-        full = unflatten(params, [gather(p) for _, p in flat])
+        tree, inputs = leaf_tree(params, grad=True)
+        stats = {"gathered_bytes": 0, "saved_bytes": 0,
+                 "gathered_by_path": {}}
+
+        def run(b):
+            tp.registry = Registry()
+            _registry_params(tp, inputs)
+            with tp.saving():
+                loss = model.loss(tree, b, dp=ax.group, tp=tp) / ax.size
+            gs = list(torch.autograd.grad(
+                loss, [x for xs in inputs for x in xs], allow_unused=True))
+            out = []
+            for (path, _), xs in zip(flat, inputs):
+                g = [torch.zeros_like(x) if gi is None else gi
+                     for x, gi in zip(xs, gs[:len(xs)])]
+                del gs[:len(xs)]
+                out.append(torch.stack(g) if path.startswith("blocks/")
+                           else g[0])
+            reg = tp.registry
+            stats["gathered_bytes"] = max(stats["gathered_bytes"], reg.peak)
+            stats["saved_bytes"] = max(stats["saved_bytes"], reg.saved)
+            stats["gathered_by_path"].update(reg.by_path)
+            return loss.detach(), out
+
         if microbatches == 1:
-            loss, grads = value_and_grad(
-                loss_fn, full, {k: ax.rows_of(v) for k, v in batch.items()})
-            grads = leaves(grads)
+            loss, grads = run({k: ax.rows_of(v) for k, v in batch.items()})
+            stats["grad_bytes"] = sum(g.numel() * g.element_size()
+                                      for g in grads)
         else:
             whole = {k: gather(v) for k, v in batch.items()}
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
+            grads = [torch.zeros(p.to_local().shape, dtype=torch.float32,
                                  device=p.to_local().device)
                      for _, p in flat]
             loss = 0.0
@@ -225,22 +306,19 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig,
             for i in range(microbatches):
                 mb = {k: ax.local(v[i * n:(i + 1) * n])
                       for k, v in whole.items()}
-                mloss, g = value_and_grad(loss_fn, full, mb)
+                mloss, g = run(mb)
                 loss = loss + mloss / microbatches
                 with torch.no_grad():
-                    for acc, gi in zip(grads, leaves(g)):
+                    for acc, gi in zip(grads, g):
                         acc += gi.float() / microbatches
+                stats["grad_bytes"] = sum(
+                    t.numel() * t.element_size() for t in grads + g)
                 del g
-        del full
+        step.stats = stats
 
-        # gradients to the params' placements; AdamW on the local shards
+        # local gradient shards in the params' placements: AdamW on them
         placements = [p.placements for _, p in flat]
-        local_grads = [
-            DTensor.from_local(g, mesh, ax.partial, run_check=False)
-            .redistribute(mesh, pl).to_local()
-            for g, pl in zip(grads, placements)]
-        del grads
-        gnorm = sharded_grad_norm(local_grads, placements, mesh)
+        gnorm = sharded_grad_norm(grads, placements, mesh)
 
         def local(tree):
             return unflatten(tree, [x.to_local() for x in leaves(tree)])
@@ -248,7 +326,7 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig,
         state = {"m": local(opt_state["m"]), "v": local(opt_state["v"]),
                  "step": opt_state["step"].to_local()}
         _, new_state, metrics = adamw_update(
-            opt_cfg, local(params), unflatten(params, local_grads), state,
+            opt_cfg, local(params), unflatten(params, grads), state,
             grad_norm=gnorm)
         loss = loss.detach().clone()
         if ax.group is not None:
@@ -260,7 +338,45 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig,
                          run_check=False)}
         return params, opt_state, metrics
 
+    step.stats = {}
     return step
+
+
+def block_saved_bytes(model: Model, policy: ShardingPolicy, params: Any,
+                      batch: Dict) -> int:
+    """The bytes one stacked super-block saves for backward on this rank:
+    what a block's recompute holds under remat. The first stacked block,
+    run with gradients under the counting hooks on a residual shard of this
+    rank's rows of ``batch``."""
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    ax = BatchAxes(policy, tokens.shape[0])
+    tp = tensor_parallel(policy, ax)
+    tree, inputs = leaf_tree(params, grad=True)
+    _registry_params(tp, inputs)
+    b = {k: ax.rows_of(v) for k, v in batch.items()}
+    rows, S = b["tokens"].shape[:2]
+    local = next(x for xs in inputs for x in xs)
+    x = torch.zeros((rows, S, cfg.d_model // tp.n), dtype=model.dtype,
+                    device=local.device, requires_grad=True)
+    positions = b.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=local.device)[None].expand(rows, S)
+        if cfg.mrope_sections:
+            positions = positions[..., None].expand(rows, S, 3)
+    memory = b.get("cond_memory") if cfg.cross_attention else None
+    with tp.saving():
+        blk.super_block_forward(_first(tree["blocks"]), cfg, x, positions,
+                                None, memory, use_kernel=False, dp=ax.group,
+                                tp=tp)
+    return tp.registry.saved
+
+
+def _first(tree):
+    if isinstance(tree, dict):
+        return {k: _first(v) for k, v in tree.items()}
+    return tree[0]
 
 
 # ------------------------------------------------------------------ forward
@@ -269,34 +385,53 @@ def make_sharded_forward(model: Model, policy: ShardingPolicy,
                          position: int) -> Callable:
     """``fwd(params, batch, cache) -> (logits, cache)`` over DTensors: the
     prefill (``position=-1``) or decode (``position=0``) step of the
-    reference's dry-run. Each rank gathers the params and runs the plain
-    forward on its rows of the batch and of the cache (tensor-sharded cache
-    dims gathered); the logits at ``position`` leave in the policy's
-    ``logits_spec`` placements and the cache in its ``cache_spec`` ones
-    (each rank keeps its shard of what it wrote)."""
+    reference's dry-run. Each rank runs the tensor-parallel forward on its
+    rows of the batch and on its shards of the cache, in place (the cache
+    stays in the policy's ``cache_spec`` placements: attention reads and
+    writes its head-dim chunk; the MLA and Mamba-2 mixers gather their
+    tensor-sharded cache dims for the layer, ROADMAP F13); the logits at
+    ``position`` leave in the policy's ``logits_spec`` placements.
+    ``fwd.stats`` holds ``gathered_bytes`` and ``gathered_by_path`` (as
+    `make_sharded_train_step`'s) after each call."""
     mesh, cfg = policy.mesh, model.cfg
 
     @torch.no_grad()
     def fwd(params, batch, cache):
-        rows = batch["tokens"].shape[0]
+        rows, S = batch["tokens"].shape[:2]
         ax = BatchAxes(policy, rows)
-        local_cache = unflatten(cache, [ax.rows_of(c)
-                                        for c in leaves(cache)])
-        logits, local_cache, _ = model.forward(
-            full_tree(params), {k: ax.rows_of(v) for k, v in batch.items()},
-            local_cache, dp=ax.group)
-        logits = logits[:, position]
+        tp = tensor_parallel(policy, ax)
+        tree, _ = leaf_tree(params, grad=False)
+        for path, c in flatten(cache):
+            name = path.rsplit("/", 1)[-1]
+            lead = 1 if path.startswith("blocks/") else 0
+            pl = (c.placements[tp.tensor_dim] if tp.tensor_dim is not None
+                  else None)
+            tp.cache_dims[name] = (pl.dim - lead if isinstance(pl, Shard)
+                                   else None)
+        local_cache = unflatten(cache, [c.to_local() for c in leaves(cache)])
+        at = position % S
+        logits, _, _ = model.forward(
+            tree, {k: ax.rows_of(v) for k, v in batch.items()}, local_cache,
+            logits_at=at, dp=ax.group, tp=tp)
+        fwd.stats = {"gathered_bytes": tp.registry.peak,
+                     "gathered_by_path": dict(tp.registry.by_path)}
+        logits = logits[:, 0]
+        V = cfg.padded_vocab
         spec = policy.logits_spec(rows, cfg.vocab_size,
                                   extra_dims=logits.dim() - 2)
+        placements = list(ax.rows_only(policy.named(spec)))
+        if tp.n > 1 and V % tp.n == 0:
+            placements[tp.tensor_dim] = Shard(logits.dim() - 1)
+        elif tp.n > 1:
+            logits = tp.gather_sets(logits, -1, tp.ranges(V), V)
+        shape = (rows,) + tuple(logits.shape[1:-1]) + (V,)
         out = DTensor.from_local(
-            logits, mesh, ax.rows_only(policy.named(spec)),
-            run_check=False).redistribute(mesh, policy.named(spec))
-        for c, new in zip(leaves(cache), leaves(local_cache)):
-            c.to_local().copy_(DTensor.from_local(
-                new, mesh, ax.rows_only(c.placements),
-                run_check=False).redistribute(mesh, c.placements).to_local())
+            logits.contiguous(), mesh, tuple(placements), run_check=False,
+            shape=shape, stride=torch.empty(shape, device="meta").stride()
+        ).redistribute(mesh, policy.named(spec))
         return out, cache
 
+    fwd.stats = {}
     return fwd
 
 

@@ -14,14 +14,23 @@ path: the kernels take no meta tensors.
 XLA's analyses have no torch twin, so every measure is analytic (the
 artifact's ``"analytic"`` list names them):
 
-  * ``memory_analysis``: per-device bytes from the placements: params,
-    AdamW moments and gradients at rest (train), the batch and cache shards,
-    and what the step gathers (every param leaf, F13: the tensor axis
-    shards storage, not compute), its largest leaf;
+  * ``memory_analysis``: per-device bytes: params and AdamW moments at
+    rest, the batch and cache shards (from the placements); what the traced
+    step held: ``grad_bytes`` (its gradient shards), ``gathered_param_bytes``
+    (the most gathered parameter bytes alive at once: about one
+    super-block's compute layout, the embedding and the head) and, for a
+    train shape, ``saved_bytes`` (saved for backward, one count a storage,
+    through ``saved_tensors_hooks``: the blocks' inputs under remat plus
+    one block's recompute, `repro_torch.distributed.step.
+    block_saved_bytes`) and ``held_bytes`` (params, gradients, moments,
+    gathered and saved); ``largest_gathered_leaf_bytes`` is the largest
+    whole leaf;
   * ``cost_analysis``: ``flops`` (`torch.utils.flop_counter.FlopCounterMode`
     over the traced ops: matmuls, attention, convolutions, forward and
     backward) and ``bytes accessed`` (every traced op's operand and result
-    bytes, views excepted, unfused) of rank 0's step;
+    bytes, views excepted, unfused) of rank 0's step, and ``flops_per_6NT``,
+    the flops over ``6 * N * tokens / n_chips`` (N the param count; tokens
+    the global batch's, one a row at decode);
   * ``collective_bytes``: the result bytes of every collective the traced
     step issued, under the keys of ``core/roofline.collective_bytes_from_hlo``.
 
@@ -54,7 +63,8 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config
 from repro_torch.distributed import ShardingPolicy, hints
-from repro_torch.distributed.step import (init_sharded_opt_state,
+from repro_torch.distributed.step import (block_saved_bytes,
+                                          init_sharded_opt_state,
                                           make_sharded_forward,
                                           make_sharded_train_step,
                                           shard_batch, shard_params,
@@ -65,12 +75,13 @@ from repro_torch.launch.specs import (adapt_config, get_shape, input_specs,
 from repro_torch.models import Model
 from repro_torch.models.config import INPUT_SHAPES
 from repro_torch.training import AdamWConfig
-from repro_torch.training.tree import leaves
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "experiments", "dryrun_torch")
 WORLD = {"single": 256, "multi": 512}
-ANALYTIC = ["memory_analysis", "cost_analysis", "collective_bytes"]
+ANALYTIC = ["memory_analysis", "cost_analysis", "collective_bytes",
+            "grad_bytes", "gathered_param_bytes", "saved_bytes", "held_bytes",
+            "flops_per_6NT"]
 COLLECTIVES = (("all_gather", "all-gather"), ("allgather", "all-gather"),
                ("reduce_scatter", "reduce-scatter"),
                ("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
@@ -187,8 +198,6 @@ def lower_and_compile(arch: str, shape_name: str, mesh_kind: str = "single",
     mem: Dict[str, Any] = {}
     mem["param_bytes"], mem["largest_gathered_leaf_bytes"] = \
         sharded_bytes(params)
-    mem["gathered_param_bytes"] = sum(
-        x.numel() * x.element_size() for x in leaves(params))
     mem["batch_bytes"] = sharded_bytes(batch)[0]
     traffic = _Traffic()
     with FlopCounterMode(display=False) as flops, traffic:
@@ -200,7 +209,9 @@ def lower_and_compile(arch: str, shape_name: str, mesh_kind: str = "single",
             mem["opt_state_bytes"] = (sharded_bytes(opt["m"])[0] +
                                       sharded_bytes(opt["v"])[0] +
                                       _nbytes(opt["step"].to_local()))
-            mem["grad_bytes"] = mem["param_bytes"]
+            mem["grad_bytes"] = step.stats["grad_bytes"]
+            mem["gathered_param_bytes"] = step.stats["gathered_bytes"]
+            mem["saved_bytes"] = step.stats["saved_bytes"]
             out_bytes = mem["param_bytes"] + mem["opt_state_bytes"]
         else:
             cache = sharded_cache(cache_specs, policy)
@@ -209,22 +220,35 @@ def lower_and_compile(arch: str, shape_name: str, mesh_kind: str = "single",
                 model, policy, -1 if shape.kind == "prefill" else 0)
             logits, cache = fwd(params, batch, cache)
             mem["logits_bytes"] = _nbytes(logits.to_local())
+            mem["gathered_param_bytes"] = fwd.stats["gathered_bytes"]
             out_bytes = mem["logits_bytes"] + mem["cache_bytes"]
+    if shape.kind == "train":
+        # what one block's recompute saves (outside the counters)
+        if model.remat:
+            mem["saved_bytes"] += block_saved_bytes(model, policy, params,
+                                                    batch)
+        mem["held_bytes"] = sum(mem[k] for k in (
+            "param_bytes", "grad_bytes", "opt_state_bytes",
+            "gathered_param_bytes", "saved_bytes"))
     t_lower = time.time() - t0
     mem["argument_size_in_bytes"] = sum(
         mem.get(k, 0) for k in ("param_bytes", "opt_state_bytes",
                                 "batch_bytes", "cache_bytes"))
     mem["output_size_in_bytes"] = out_bytes
     mem["repr"] = ", ".join(f"{k}={v}" for k, v in mem.items())
+    n_params = Model(cfg).param_count()
+    tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                   else shape.seq_len)
     cost = {"flops": float(flops.get_total_flops()),
             "bytes accessed": float(traffic.bytes)}
+    cost["flops_per_6NT"] = cost["flops"] / (6 * n_params * tokens / n_chips)
     coll = traffic.collective_bytes()
 
     artifact = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
         "n_chips": int(n_chips),
         "kind": shape.kind,
-        "param_count": Model(cfg).param_count(),
+        "param_count": n_params,
         "active_param_count": Model(cfg).active_param_count(),
         "seq_len": shape.seq_len, "global_batch": shape.global_batch,
         "attn_window": cfg.attn_window,

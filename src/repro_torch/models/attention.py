@@ -363,6 +363,125 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 # =============================================================================
+# GQA attention, tensor-parallel (the sharded step)
+# =============================================================================
+
+def _proj(p: Params, x: torch.Tensor, tp, sets) -> torch.Tensor:
+    """``dense`` on the columns ``sets[rank]`` of a projection leaf."""
+    y = x @ tp.take(p["w"], -1, sets)
+    if "b" in p:
+        y = y + tp.take(p["b"], 0, sets)
+    return y
+
+
+def _kv_ranges(ranges, group: int):
+    """The K/V heads each rank's query heads read (whole heads)."""
+    return [range(r.start // group, (r.stop - 1) // group + 1) if len(r)
+            else range(0, 0) for r in ranges]
+
+
+def gqa_forward_tp(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                   positions: torch.Tensor, cache: Optional[Dict], tp,
+                   decode: bool = False
+                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """`gqa_forward` from and to the d-sharded residual stream over the
+    tensor group ``tp``.
+
+    Train and fresh prefill: the query heads split over the tensor ranks
+    (floor ranges: 56 heads on 16 ranks give 3 or 4), each rank with the
+    whole K/V heads its query heads read (a head shared by two ranks is
+    computed on both), RoPE on whole heads; ``wo`` re-laid to the rows of
+    the rank's heads, its partial output reduce-scattered. A prefill writes
+    the cache's head-dim chunk of every K/V head (the policy's cache
+    placement) from the K/V heads all-gathered. Decode against the cache:
+    every head's head-dim chunk (the chunk the cache holds), the partial
+    scores all-reduced, RoPE on the gathered whole heads, ``wo`` re-laid to
+    the rows of the chunk. Plain PyTorch: the kernels take no shards."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if H < tp.n:
+        raise ValueError(f"{H} heads over a {tp.n}-wide tensor axis")
+    h = tp.gather_input(x)
+    pos1d = positions[..., 0] if positions.dim() == 3 else positions
+    rope = cfg.rope_variant not in ("none", "sinusoidal")
+    scale = 1.0 / np.sqrt(hd)
+
+    if cache is None or (S > 1 and not decode):
+        heads = tp.ranges(H)
+        kvs = _kv_ranges(heads, H // KV)
+        q_sets = tp.head_sets(heads, hd)
+        mine, kv_mine = heads[tp.rank], kvs[tp.rank]
+        q = _proj(p["wq"], h, tp, q_sets).reshape(B, S, len(mine), hd)
+        kv_sets = tp.head_sets(kvs, hd)
+        k = _proj(p["wk"], h, tp, kv_sets).reshape(B, S, len(kv_mine), hd)
+        v = _proj(p["wv"], h, tp, kv_sets).reshape(B, S, len(kv_mine), hd)
+        if rope:
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction,
+                           cfg.mrope_sections)
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction,
+                           cfg.mrope_sections)
+        if cache is not None:
+            if tp.cache_dims.get("k") != 3:
+                raise NotImplementedError("a tensor-parallel prefill writes "
+                                          "a cache sharded on head_dim")
+            own = tp.own(hd)
+            _fill_cache(cfg, cache,
+                        tp.gather_sets(k, 2, kvs, KV)[..., own.start:own.stop],
+                        tp.gather_sets(v, 2, kvs, KV)[..., own.start:own.stop],
+                        pos1d)
+        # each query head reads its K/V head: whole groups go to sdpa as
+        # they are, else K/V repeat to one a query head
+        ql, kl, g = len(mine), len(kv_mine), H // KV
+        idx = [(mine.start + i) // g - kv_mine.start for i in range(ql)]
+        if ql % kl or idx != [i // (ql // kl) for i in range(ql)]:
+            k, v = k[:, :, idx], v[:, :, idx]
+        if S * S > BLOCKED_THRESHOLD:
+            out = sdpa_causal_blocked(q, k, v, pos1d, cfg.attn_window, scale)
+        else:
+            out = sdpa(q, k, v, causal_mask(pos1d, pos1d, cfg.attn_window),
+                       scale)
+        y = out.reshape(B, S, len(mine) * hd) @ tp.take(p["wo"]["w"], 0,
+                                                        q_sets)
+        return tp.reduce_scatter(y), cache
+
+    # ---- decode: every head's head-dim chunk, against the cache's chunk
+    if tp.cache_dims.get("k") != 3:
+        raise NotImplementedError("a tensor-parallel decode reads a cache "
+                                  "sharded on head_dim")
+    c = hd // tp.n
+    q_sets, kv_sets = tp.chunk_sets(H, hd), tp.chunk_sets(KV, hd)
+    q = _proj(p["wq"], h, tp, q_sets).reshape(B, S, H, c)
+    k = _proj(p["wk"], h, tp, kv_sets).reshape(B, S, KV, c)
+    v = _proj(p["wv"], h, tp, kv_sets).reshape(B, S, KV, c)
+    if rope:
+        q = tp.chunk(apply_rope(tp.gather(q, -1), positions, cfg.rope_theta,
+                                cfg.rope_fraction, cfg.mrope_sections), -1)
+        k = tp.chunk(apply_rope(tp.gather(k, -1), positions, cfg.rope_theta,
+                                cfg.rope_fraction, cfg.mrope_sections), -1)
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    W = ck.shape[1]
+    slot = (pos1d % W).long()
+    bidx = torch.arange(B, device=x.device)[:, None]
+    ck[bidx, slot] = k.to(ck.dtype)
+    cv[bidx, slot] = v.to(cv.dtype)
+    cpos[bidx, slot] = pos1d.to(torch.int32)
+    ok = (cpos[:, None, :] >= 0) & (cpos[:, None, :] <= pos1d[:, :, None])
+    if cfg.attn_window is not None:
+        ok &= cpos[:, None, :] > pos1d[:, :, None] - cfg.attn_window
+    g = H // KV
+    qg = q.reshape(B, S, KV, g, c)
+    scores = tp.all_reduce(torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                                        ck.float())) * scale
+    scores = torch.where(ok[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv.float())
+    out = out.reshape(B, S, H * c).to(cv.dtype)
+    y = out @ tp.take(p["wo"]["w"], 0, q_sets)
+    return tp.reduce_scatter(y), cache
+
+
+# =============================================================================
 # MLA attention (DeepSeek-V2): latent KV cache
 # =============================================================================
 

@@ -23,7 +23,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Params, dense_shapes, mlp, mlp_init,
-                                       mlp_shapes, rmsnorm, rmsnorm_init)
+                                       mlp_shapes, mlp_tp, rmsnorm,
+                                       rmsnorm_init, rmsnorm_tp)
 
 
 def layer_kinds(cfg: ArchConfig, n_prefix: int):
@@ -108,13 +109,18 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                      use_kernel: bool,
                      block_table: Optional[torch.Tensor] = None,
                      kv_len: Optional[int] = None,
-                     decode: bool = False, dp=None
+                     decode: bool = False, dp=None, tp=None
                      ) -> Tuple[torch.Tensor, Optional[Dict],
                                 Union[torch.Tensor, float]]:
     """Returns (x, cache, aux loss): the MoE FFN's aux loss (a 0-d f32
     tensor), else 0.0, which launches nothing. ``memory`` (B, Tm, d) is
-    the conditioning memory of a cross-attention arch, or None. ``dp``:
-    the MoE FFN's data-parallel group (`repro_torch.models.moe`)."""
+    the conditioning memory of a cross-attention arch, or None. ``dp`` and
+    ``tp``: the sharded step's batch-axes group (the MoE FFN's, see
+    `repro_torch.models.moe`) and tensor-parallel context
+    (`_sublayer_tp`)."""
+    if tp is not None:
+        return _sublayer_tp(p, cfg, x, positions, mixer, cache, memory,
+                            decode, dp, tp)
     aux = 0.0
     # the cross-attention K/V cache entries: read at a decode step (S == 1,
     # or ``decode``), as the reference reads them before its self-attention
@@ -148,8 +154,7 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
             new_cache["xv"].copy_(v)
     if "moe" in p:
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        y, aux = moe_mod.moe_forward(p["moe"], cfg, h, use_kernel=use_kernel,
-                                     dp=dp)
+        y, aux = moe_mod.moe_forward(p["moe"], cfg, h, use_kernel=use_kernel)
         x = x + y
     elif "mlp" in p:
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
@@ -162,7 +167,7 @@ def super_block_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                         memory: Optional[torch.Tensor], use_kernel: bool,
                         block_table: Optional[torch.Tensor] = None,
                         kv_len: Optional[int] = None,
-                        decode: bool = False, dp=None
+                        decode: bool = False, dp=None, tp=None
                         ) -> Tuple[torch.Tensor, Optional[Dict],
                                    Union[torch.Tensor, float]]:
     """One period of the layer pattern. cache is {"l{i}": sub-cache} or None;
@@ -175,8 +180,76 @@ def super_block_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         x, nc, aux = sublayer_forward(p[key], cfg, x, positions, mixer,
                                       sub_cache, memory, use_kernel,
                                       block_table=block_table, kv_len=kv_len,
-                                      decode=decode, dp=dp)
+                                      decode=decode, dp=dp, tp=tp)
         if new_cache is not None:
             new_cache[key] = nc
         aux_total = aux_total + aux
     return x, new_cache, aux_total
+
+
+# --------------------------------------------------------------------------- tensor-parallel
+
+def _whole_cache(cache: Optional[Dict], tp):
+    """A mixer's sub-cache with its tensor-sharded dims gathered (a
+    transient copy per layer), and a function that writes this rank's
+    chunks back in place."""
+    if cache is None:
+        return None, lambda: None
+    full = {k: (tp.gather(v, tp.cache_dims[k])
+                if tp.cache_dims.get(k) is not None else v)
+            for k, v in cache.items()}
+
+    def write_back():
+        for k, v in cache.items():
+            if tp.cache_dims.get(k) is not None:
+                v.copy_(tp.chunk(full[k], tp.cache_dims[k]))
+    return full, write_back
+
+
+def _sublayer_tp(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor, mixer: str, cache: Optional[Dict],
+                 memory: Optional[torch.Tensor], decode: bool, dp, tp):
+    """`sublayer_forward` on the d-sharded residual stream ``x`` (B, S,
+    d / n) over the tensor group of ``tp``: GQA attention, the dense MLP
+    and the MoE FFN compute on their shards; MLA, the Mamba-2 mixer and
+    cross-attention take their leaves whole (gathered over both mesh axes
+    for the block) and compute alike on every tensor rank (ROADMAP F13),
+    their caches' tensor-sharded dims gathered for the layer."""
+    aux = 0.0
+    eps = cfg.norm_eps
+    cross_kv = None
+    if cfg.cross_attention and cfg.cross_kv_cache and cache is not None \
+            and (x.shape[1] == 1 or decode):
+        cross_kv = (cache["xk"], cache["xv"])
+    h = rmsnorm_tp(p["ln1"], x, eps, tp)
+    if mixer == "a" and cfg.mla is None:
+        y, new_cache = attn.gqa_forward_tp(p["attn"], cfg, h, positions,
+                                           cache, tp, decode=decode)
+    else:
+        hw = tp.gather_input(h, dual="slice")
+        full, write_back = _whole_cache(cache, tp)
+        if mixer != "a":
+            y, _ = ssm_mod.ssm_forward(tp.whole(p["ssm"]), cfg, hw, full)
+        else:
+            y, _ = attn.mla_forward(tp.whole(p["attn"]), cfg, hw, positions,
+                                    full, absorbed_decode=cfg.mla_absorbed)
+        write_back()
+        y, new_cache = tp.scatter(y), cache
+    x = x + y
+    if cfg.cross_attention and (memory is not None or cross_kv is not None):
+        hx = tp.gather_input(rmsnorm_tp(p["ln_x"], x, eps, tp), dual="slice")
+        y, (k, v) = attn.cross_forward(tp.whole(p["cross"]), cfg, hx, memory,
+                                       cached_kv=cross_kv)
+        x = x + tp.scatter(y)
+        if cfg.cross_kv_cache and new_cache is not None and cross_kv is None:
+            new_cache["xk"].copy_(k)
+            new_cache["xv"].copy_(v)
+    if "moe" in p:
+        y, aux = moe_mod.moe_forward_tp(p["moe"], cfg,
+                                        rmsnorm_tp(p["ln2"], x, eps, tp),
+                                        tp, dp)
+        x = x + y
+    elif "mlp" in p:
+        x = x + mlp_tp(p["mlp"], rmsnorm_tp(p["ln2"], x, eps, tp),
+                       cfg.mlp_variant, tp)
+    return x, new_cache, aux

@@ -201,3 +201,75 @@ def lm_head(p: Params, x: torch.Tensor) -> torch.Tensor:
     if w.dim() == 3:  # (K, D, V) -> logits (B,S,K,V)
         return torch.einsum("bsd,kdv->bskv", x, w)
     return x @ w
+
+
+# --------------------------------------------------------------------------- tensor-parallel
+
+# Under the sharded step (`repro_torch.distributed.step`) ``tp`` is the
+# rank's `repro_torch.distributed.tp.TensorParallel`: parameter leaves are
+# taken through ``tp.take`` and the residual stream is sharded on d_model
+# over the tensor group. The functions below are the layers above on those
+# shards; the collectives are the context's.
+
+def rmsnorm_tp(p: Params, x: torch.Tensor, eps: float, tp) -> torch.Tensor:
+    """`rmsnorm` of a d-sharded ``x``: the sum of squares all-reduced over
+    the tensor group, the scale's own range (one tensor rank: `rmsnorm`
+    itself)."""
+    d = x.shape[-1] * tp.n
+    scale = tp.take(p["scale"], 0, tp.range_sets(d))
+    if tp.n == 1:
+        return rmsnorm({"scale": scale}, x, eps)
+    xf = x.float()
+    var = tp.all_reduce_both(torch.sum(xf * xf, dim=-1, keepdim=True)) / d
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def embed_tp(p: Params, tokens: torch.Tensor, tp) -> torch.Tensor:
+    """`embed` into the rank's d_model range (the table's at-rest tensor
+    shard): no exchange along the tensor axis."""
+    table = p["table"]
+    d = table.shape[-1]
+    t = tp.take(table, -1, tp.range_sets(d))
+    return embed({"table": t}, tokens)
+
+
+def mlp_partial(p: Params, h: torch.Tensor, variant: str, tp) -> torch.Tensor:
+    """The MLP on the rank's hidden range of the whole input ``h``: the
+    column-parallel products, then the row-parallel one, whose (B, S, d)
+    output is this rank's partial sum (``fc_out``'s bias not added)."""
+    if variant == "swiglu":
+        sets = tp.range_sets(p["gate"]["w"].shape[-1])
+        g = h @ tp.take(p["gate"]["w"], -1, sets)
+        u = h @ tp.take(p["up"]["w"], -1, sets)
+        return (F.silu(g) * u) @ tp.take(p["down"]["w"], 0, sets)
+    sets = tp.range_sets(p["fc_in"]["w"].shape[-1])
+    a = h @ tp.take(p["fc_in"]["w"], -1, sets) + \
+        tp.take(p["fc_in"]["b"], 0, sets)
+    return F.gelu(a, approximate="tanh") @ tp.take(p["fc_out"]["w"], 0, sets)
+
+
+def mlp_tp(p: Params, x: torch.Tensor, variant: str, tp) -> torch.Tensor:
+    """`mlp` from and to the d-sharded residual stream: the input
+    all-gathered, the output reduce-scattered (the row-parallel route for
+    ``down``, PERF.md)."""
+    y = tp.reduce_scatter(mlp_partial(p, tp.gather_input(x), variant, tp))
+    if variant != "swiglu":
+        d = y.shape[-1] * tp.n
+        y = y + tp.take(p["fc_out"]["b"], 0, tp.range_sets(d))
+    return y
+
+
+def lm_head_tp(w, h: torch.Tensor, tp, tied: bool) -> torch.Tensor:
+    """The rank's vocabulary range of the logits from the d-sharded final
+    hidden state: ``w`` is the head (d, V) / (K, d, V), or with ``tied``
+    the embedding table (V, d) / (K, V, d)."""
+    x = tp.gather_input(h)
+    V = w.shape[-2] if tied else w.shape[-1]
+    sets = tp.range_sets(V)
+    if tied:
+        t = tp.take(w, -2, sets)
+        return x @ t.T if t.dim() == 2 else torch.einsum("bsd,kvd->bskv",
+                                                         x, t)
+    t = tp.take(w, -1, sets)
+    return x @ t if t.dim() == 2 else torch.einsum("bsd,kdv->bskv", x, t)

@@ -25,8 +25,9 @@ from repro_torch.models import blocks as blk
 from repro_torch.models import cache as cache_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (embed, embed_init, embed_shapes,
-                                       lm_head, lm_head_init, lm_head_shapes,
-                                       rmsnorm, rmsnorm_init)
+                                       embed_tp, lm_head, lm_head_init,
+                                       lm_head_shapes, lm_head_tp, rmsnorm,
+                                       rmsnorm_init, rmsnorm_tp)
 
 
 def _index(tree, i: int):
@@ -160,7 +161,7 @@ class Model:
                 cache: Optional[Dict] = None,
                 kv_len: Optional[int] = None,
                 decode: bool = False, logits_at: Optional[int] = None,
-                dp=None
+                dp=None, tp=None
                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
         """Returns (logits, cache, aux_loss); ``cache`` is the one passed in,
         updated in place (None in train mode).
@@ -172,9 +173,14 @@ class Model:
         cache-attending branches even when S > 1. ``logits_at`` projects
         only that sequence position to the vocabulary (logits (B, 1, V)):
         a caller that reads one position skips the head's product over the
-        others. ``dp``: the process group whose ranks hold the batch's other
-        rows, for the MoE FFN's global capacity, slots and aux loss
-        (`repro_torch.models.moe`; the sharded train step passes it).
+        others. ``dp``, with ``tp``: the process group whose ranks hold the
+        batch's other rows, for the MoE FFN's global capacity, slots and aux
+        loss (`repro_torch.models.moe`; the sharded step passes both).
+        ``tp``: the sharded step's tensor-parallel context
+        (`repro_torch.distributed.tp`): ``params`` then holds its leaves,
+        the residual stream runs sharded on d_model, and the logits come
+        back as the rank's vocabulary range (pad columns masked on the
+        rank that holds them).
         """
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -190,7 +196,11 @@ class Model:
             if cfg.mrope_sections:
                 positions = positions[..., None].expand(B, S, 3)
 
-        h = embed(params["embed"], tokens)
+        h = (embed(params["embed"], tokens) if tp is None
+             else embed_tp(params["embed"], tokens, tp))
+        # the residual stream's d_model range on this rank
+        d_own = tp.own(cfg.d_model) if tp is not None else \
+            range(0, cfg.d_model)
 
         if cfg.rope_variant == "sinusoidal":  # musicgen-style additive positions
             # made on the device: a decode graph's capture copies nothing
@@ -200,21 +210,21 @@ class Model:
                 -torch.log(torch.full((), 10000.0, device=dev))
                 * torch.arange(half, dtype=torch.float32, device=dev) / half)
             ang = positions[..., None].float() * freq
-            h = h + torch.cat([torch.sin(ang), torch.cos(ang)],
-                              dim=-1).to(h.dtype)
+            h = h + torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[
+                ..., d_own.start:d_own.stop].to(h.dtype)
 
         vision = batch.get("vision_embeds")
         if vision is not None and S > 1 and not decode:
             nv = min(vision.shape[1], S)
             h = h.clone()
-            h[:, :nv] = vision[:, :nv].to(h.dtype)
+            h[:, :nv] = vision[:, :nv, d_own.start:d_own.stop].to(h.dtype)
 
         memory = batch.get("cond_memory") if cfg.cross_attention else None
         if memory is not None:
             memory = memory.to(h.dtype)
 
         kw = dict(use_kernel=self.use_kernel, block_table=block_table,
-                  kv_len=kv_len, decode=decode, dp=dp)
+                  kv_len=kv_len, decode=decode, dp=dp, tp=tp)
         aux_total = 0.0            # a tensor once an MoE layer adds to it
         # ---- prefix layers (unrolled; deepseek's leading dense layer)
         for i, (mixer, _ffn) in enumerate(self._prefix_kinds()):
@@ -234,6 +244,8 @@ class Model:
         for i in range(cache_mod.n_scanned_super_blocks(cfg)):
             bp = _index(params["blocks"], i)
             if remat:
+                if tp is not None:      # the block's input, saved by remat
+                    tp.registry.count(h)
                 h, aux = checkpoint(one, bp, h, use_reentrant=False)
             else:
                 sub_cache = (_index(cache["blocks"], i) if cache is not None
@@ -242,16 +254,28 @@ class Model:
                     bp, cfg, h, positions, sub_cache, memory, **kw)
             aux_total = aux_total + aux
 
-        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        if tp is not None:
+            h = rmsnorm_tp(params["final_norm"], h, cfg.norm_eps, tp)
+        else:
+            h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
         if logits_at is not None:
             h = h[:, logits_at:logits_at + 1]
-        if cfg.tie_embeddings:
+        if tp is not None:
+            tied = cfg.tie_embeddings
+            logits = lm_head_tp(params["embed"]["table"] if tied
+                                else params["lm_head"]["w"], h, tp, tied)
+            v_own = tp.own(cfg.padded_vocab)
+            if v_own.stop > cfg.vocab_size:
+                pad_mask = torch.arange(v_own.start, v_own.stop,
+                                        device=dev) >= cfg.vocab_size
+                logits = logits.masked_fill(pad_mask, -1e9)
+        elif cfg.tie_embeddings:
             table = params["embed"]["table"]
             logits = h @ table.T if table.dim() == 2 else torch.einsum(
                 "bsd,kvd->bskv", h, table)
         else:
             logits = lm_head(params["lm_head"], h)
-        if cfg.padded_vocab != cfg.vocab_size:
+        if tp is None and cfg.padded_vocab != cfg.vocab_size:
             # mask pad columns: exact softmax/sampling over the true vocab
             pad_mask = torch.arange(cfg.padded_vocab,
                                     device=dev) >= cfg.vocab_size
@@ -261,12 +285,28 @@ class Model:
         return logits, cache, aux_total
 
     # ------------------------------------------------------------------ losses
-    def loss(self, params: Dict, batch: Dict, dp=None) -> torch.Tensor:
+    def loss(self, params: Dict, batch: Dict, dp=None,
+             tp=None) -> torch.Tensor:
         """Mean next-token NLL of ``batch["labels"]`` ((B, S), or (B, S, K)
         with K codebooks) under f32 log-softmax, plus the MoE aux loss
-        (``dp`` as in `forward`)."""
-        logits, _, aux = self.forward(params, batch, dp=dp)
-        logp = torch.log_softmax(logits.float(), dim=-1)
+        (``dp`` and ``tp`` as in `forward`). Under ``tp`` the logits are
+        vocabulary ranges, and the cross-entropy is vocabulary-parallel:
+        the max, the sum of exponentials and the target's logit are
+        all-reduced over the tensor group, in f32."""
+        logits, _, aux = self.forward(params, batch, dp=dp, tp=tp)
         labels = batch["labels"].long()
-        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        if tp is None or tp.n == 1:         # the whole vocabulary here
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+            return nll.mean() + aux
+        lf = logits.float()
+        m = tp.all_reduce_max(lf.amax(dim=-1, keepdim=True))
+        sumexp = tp.reduce_from(torch.sum(torch.exp(lf - m), dim=-1))
+        own = tp.own(self.cfg.padded_vocab)
+        here = (labels >= own.start) & (labels < own.stop)
+        idx = torch.where(here, labels - own.start, torch.zeros_like(labels))
+        target = torch.gather(lf, -1, idx[..., None])[..., 0]
+        target = tp.reduce_from(torch.where(here, target,
+                                            torch.zeros_like(target)))
+        nll = m[..., 0] + torch.log(sumexp) - target
         return nll.mean() + aux

@@ -26,8 +26,9 @@ Where the port departs from a line-by-line copy, and why:
   sums differ from the reference's by f32 rounding, not more.
 
 **Data-parallel rows.** Under the sharded train step
-(`repro_torch.distributed.step`) each rank runs its own rows of the batch,
-where the reference's GSPMD keeps the whole batch's meaning. ``dp``, the
+(`repro_torch.distributed.step`, `moe_forward_tp`) each rank runs its own
+rows of the batch, where the reference's GSPMD keeps the whole batch's
+meaning. ``dp``, the
 process group of the ranks that split the batch (rows in rank order),
 keeps the three values that depend on the batch global: the capacity comes
 from the global token count; a token's slot in its expert counts the
@@ -50,7 +51,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Params, dense, dense_init, mlp,
-                                       mlp_init, normal_)
+                                       mlp_init, mlp_partial, normal_)
 
 
 def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype, device,
@@ -127,21 +128,11 @@ def _aux_loss_dp(cfg: ArchConfig, probs: torch.Tensor,
     return m.n_experts * torch.sum(me * ce) * m.router_aux_weight
 
 
-def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                use_kernel: bool = False, dp=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (y (B, S, d), aux loss f32 scalar). ``dp``: the
-    process group whose ranks hold the other rows of the batch (module
-    docstring), or None."""
-    m = cfg.moe
-    B, S, d = x.shape
-    T = B * S
-    n_dp = 1 if dp is None else dist.get_world_size(dp)
-    E, K = m.n_experts, m.top_k
-    dev = x.device
-    xf = x.reshape(T, d)
-
-    logits = dense(p["router"], xf).float()                    # (T, E)
+def _route(router: Params, cfg: ArchConfig, xf: torch.Tensor, dp):
+    """The router's probabilities, each token's top-k gates (renormalised)
+    and experts, and the aux loss."""
+    K = cfg.moe.top_k
+    logits = dense(router, xf).float()                          # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_idx = top_p[:, :K], top_i[:, :K]          # (T, K)
@@ -149,22 +140,21 @@ def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         gate_vals.sum(dim=-1, keepdim=True), 1e-9)
     aux = (_aux_loss(cfg, probs, expert_idx) if dp is None
            else _aux_loss_dp(cfg, probs, expert_idx, dp))
+    return gate_vals, expert_idx, aux
 
-    if cfg.moe_dense_decode and T * n_dp <= 512:
-        # every expert on every token: exact (no capacity drops), for a
-        # handful of decode tokens
-        h_all = F.silu(torch.einsum("td,edf->tef", xf, p["gate"])) * \
-            torch.einsum("td,edf->tef", xf, p["up"])
-        y_all = torch.einsum("tef,efd->ted", h_all, p["down"])  # (T, E, d)
-        weights = torch.zeros((T, E), dtype=torch.float32, device=dev)
-        weights.scatter_add_(1, expert_idx, gate_vals)
-        y = torch.einsum("te,ted->td", weights, y_all.float())
-        y = y.to(x.dtype).reshape(B, S, d)
-        if m.n_shared:
-            y = y + mlp(p["shared"], x, "swiglu")
-        return y, aux
 
-    # ---- sort-based dispatch: (expert, token) order, capacity C per expert
+def _dispatch(cfg: ArchConfig, expert_idx: torch.Tensor, n_dp: int, dp,
+              compact: bool = False):
+    """Sort-based dispatch: the (expert, token) order of the T*k
+    assignments, the token of each, its slot ``e * C + position`` (the drop
+    slot ``E * C`` past capacity) and C. With ``compact`` (and ``dp``) the
+    slots are this rank's own: position among its own tokens of the
+    expert, C no more than its T tokens (which tokens drop is the global
+    dispatch's all the same)."""
+    m = cfg.moe
+    E, K = m.n_experts, m.top_k
+    T = expert_idx.shape[0]
+    dev = expert_idx.device
     TK = T * K
     flat_e = expert_idx.reshape(TK)
     order = torch.argsort(flat_e, stable=True)
@@ -183,9 +173,58 @@ def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         dist.all_gather(every, counts, group=dp)
         below = sum(every[:dist.get_rank(dp)], torch.zeros_like(counts))
         keep = pos_in_e + below[e_sorted] < C
+    if compact and dp is not None:
+        C = min(C, T)
     dest = torch.where(keep, e_sorted * C + pos_in_e,
                        torch.full_like(pos_in_e, E * C))       # drop slot
+    return order, tok_sorted, dest, C
 
+
+def _combine(ye: torch.Tensor, order: torch.Tensor, dest: torch.Tensor,
+             gate_vals: torch.Tensor, T: int, K: int) -> torch.Tensor:
+    """Each (token, k) reads its slot of ``ye`` (E', C, d) (the zero drop
+    row past the end when dropped), scaled by its gate in the model dtype,
+    summed over k in f32: (T, d)."""
+    d = ye.shape[-1]
+    ye_flat = torch.cat([ye.reshape(-1, d),
+                         torch.zeros((1, d), dtype=ye.dtype,
+                                     device=ye.device)])
+    slot = torch.empty_like(dest)
+    slot[order] = dest                                          # flat (t, k)
+    contrib = ye_flat[slot] * gate_vals.reshape(T * K, 1).to(ye.dtype)
+    return contrib.float().reshape(T, K, d).sum(dim=1)
+
+
+def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                use_kernel: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y (B, S, d), aux loss f32 scalar); the sharded
+    step's counterpart is `moe_forward_tp`."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, K = m.n_experts, m.top_k
+    dev = x.device
+    xf = x.reshape(T, d)
+
+    gate_vals, expert_idx, aux = _route(p["router"], cfg, xf, None)
+
+    if cfg.moe_dense_decode and T <= 512:
+        # every expert on every token: exact (no capacity drops), for a
+        # handful of decode tokens
+        h_all = F.silu(torch.einsum("td,edf->tef", xf, p["gate"])) * \
+            torch.einsum("td,edf->tef", xf, p["up"])
+        y_all = torch.einsum("tef,efd->ted", h_all, p["down"])  # (T, E, d)
+        weights = torch.zeros((T, E), dtype=torch.float32, device=dev)
+        weights.scatter_add_(1, expert_idx, gate_vals)
+        y = torch.einsum("te,ted->td", weights, y_all.float())
+        y = y.to(x.dtype).reshape(B, S, d)
+        if m.n_shared:
+            y = y + mlp(p["shared"], x, "swiglu")
+        return y, aux
+
+    # ---- sort-based dispatch: (expert, token) order, capacity C per expert
+    order, tok_sorted, dest, C = _dispatch(cfg, expert_idx, 1, None)
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
     buf[dest] = xf[tok_sorted]
     xe = buf[:E * C].reshape(E, C, d)
@@ -203,14 +242,99 @@ def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
     # ---- combine: each (token, k) reads its slot (the zero drop row when
     # dropped), scaled by its gate in the model dtype, summed over k in f32
-    ye_flat = torch.cat([ye.reshape(E * C, d),
-                         torch.zeros((1, d), dtype=ye.dtype, device=dev)])
-    slot = torch.empty_like(dest)
-    slot[order] = dest                                          # flat (t, k)
-    contrib = ye_flat[slot] * gate_vals.reshape(TK, 1).to(ye.dtype)
-    y = contrib.float().reshape(T, K, d).sum(dim=1)
+    y = _combine(ye, order, dest, gate_vals, T, K)
     y = y.to(x.dtype).reshape(B, S, d)
 
     if m.n_shared:
         y = y + mlp(p["shared"], x, "swiglu")
     return y, aux
+
+
+def moe_forward_tp(p: Params, cfg: ArchConfig, x: torch.Tensor, tp,
+                   dp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`moe_forward` from and to the d-sharded residual stream over the
+    tensor group of ``tp`` (`repro_torch.distributed.tp`).
+
+    The router runs on the gathered input on every tensor rank alike (the
+    same inputs and weights route alike; ``tp.check_replicated`` asserts it
+    when the tests turn the check on), so capacity, slots, drops and the
+    aux loss are the whole batch's as without ``tp``. Experts split over
+    the tensor ranks where the policy puts E on the tensor axis: a rank
+    runs its experts' slots (with the batch split over ranks, only the
+    slots its own rows hold: one product an expert over its kept tokens,
+    whose counts it reads back; on meta tensors, which hold no counts, a
+    slot an expert for each of its tokens, up to the capacity). Otherwise every rank runs every expert on its
+    range of the expert hidden dim (``down`` re-laid to those rows). Either
+    way a rank's combine is a partial sum, reduce-scattered in f32 to the
+    residual's d-shards; the experts' input and the gates carry partial
+    gradients, so they pass through ``copy_to`` (all-reduced in the
+    backward), and the router's whole ones do not."""
+    m = cfg.moe
+    h = tp.gather_input(x, dual="slice")
+    B, S, d = h.shape
+    T = B * S
+    n_dp = 1 if dp is None else dist.get_world_size(dp)
+    E, K = m.n_experts, m.top_k
+    xf = h.reshape(T, d)
+
+    gate_vals, expert_idx, aux = _route(tp.whole(p["router"]), cfg, xf, dp)
+    tp.check_replicated(expert_idx, "the MoE routing")
+    xs = tp.copy_to(xf)
+    gates = tp.copy_to(gate_vals)
+
+    if tp.placement(p["gate"]) == 0:                # experts on the axis
+        mine = tp.own(E)
+        sets = tp.range_sets(E)
+        wg, wu = tp.take(p["gate"], 0, sets), tp.take(p["up"], 0, sets)
+        wd = tp.take(p["down"], 0, sets)
+    else:                                           # their hidden dim
+        mine = range(0, E)
+        sets = tp.range_sets(p["gate"].shape[-1])
+        wg, wu = tp.take(p["gate"], -1, sets), tp.take(p["up"], -1, sets)
+        wd = tp.take(p["down"], 1, sets)
+
+    if cfg.moe_dense_decode and T * n_dp <= 512:
+        h_all = F.silu(torch.einsum("td,edf->tef", xs, wg)) * \
+            torch.einsum("td,edf->tef", xs, wu)
+        y_all = torch.einsum("tef,efd->ted", h_all, wd)
+        weights = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+        weights = weights.scatter_add(1, expert_idx, gates)
+        y = torch.einsum("te,ted->td", weights[:, mine.start:mine.stop],
+                         y_all.float())
+    elif n_dp > 1 and x.device.type != "meta":
+        # the rank's own kept tokens only, one product an expert: a rank's
+        # rows fill only their own slots of the global dispatch
+        order, tok_sorted, dest, C = _dispatch(cfg, expert_idx, n_dp, dp)
+        e_sorted = torch.div(dest, C, rounding_mode="floor")
+        here = (dest < E * C) & (e_sorted >= mine.start) & \
+            (e_sorted < mine.stop)
+        sel = torch.nonzero(here)[:, 0]
+        counts = torch.bincount(e_sorted[sel] - mine.start,
+                                minlength=len(mine)).tolist()
+        xk = xs[tok_sorted[sel]]
+        outs, start = [], 0
+        for e, c in enumerate(counts):
+            seg = xk[start:start + c]
+            outs.append((F.silu(seg @ wg[e]) * (seg @ wu[e])) @ wd[e])
+            start += c
+        row = torch.full_like(dest, len(sel))
+        row[sel] = torch.arange(len(sel), device=x.device)
+        y = _combine(torch.cat(outs) if outs else xk[:0], order, row, gates,
+                     T, K)
+    else:
+        order, tok_sorted, dest, C = _dispatch(cfg, expert_idx, n_dp, dp,
+                                               compact=True)
+        lo, n_local = mine.start * C, len(mine) * C
+        dest = torch.where((dest >= lo) & (dest < lo + n_local), dest - lo,
+                           torch.full_like(dest, n_local))
+        buf = torch.zeros((n_local + 1, d), dtype=x.dtype, device=x.device)
+        buf[dest] = xs[tok_sorted]
+        xe = buf[:n_local].reshape(len(mine), C, d)
+        hh = F.silu(torch.einsum("ecd,edf->ecf", xe, wg)) * \
+            torch.einsum("ecd,edf->ecf", xe, wu)
+        ye = torch.einsum("ecf,efd->ecd", hh, wd)
+        y = _combine(ye, order, dest, gates, T, K)
+    if m.n_shared:
+        y = y + mlp_partial(p["shared"], xs.reshape(B, S, d), "swiglu",
+                            tp).reshape(T, d).float()
+    return tp.reduce_scatter(y.reshape(B, S, d)).to(x.dtype), aux

@@ -3,10 +3,12 @@ all four shapes on the single-pod mesh (256 fake ranks) and at decode_32k
 on the multi-pod mesh (512), traced on meta tensors in a subprocess. The
 artifacts carry every key of the reference's (``src/repro/launch/
 dryrun.py``'s artifact dict) and the ``analytic`` list; decode flops equal
-the closed form of chatglm's matmuls and attention over the cache; train
-steps issue collectives; the per-device param bytes are the sum of the
-policy's shards; a failing pair writes an ``error`` artifact; nothing is
-written under the reference's ``experiments/dryrun/``."""
+the closed form of chatglm's matmuls and attention over the cache, split
+over the tensor axis; train steps issue collectives; the per-device param
+and gradient bytes are the sum of the policy's shards, and the gathered
+bytes a block's worth; a failing pair writes an ``error`` artifact; nothing
+is written under the reference's ``experiments/dryrun/``; qwen2-72b's
+train step fits a card at full width."""
 import json
 import os
 import subprocess
@@ -68,7 +70,9 @@ def test_artifact_keys_and_counts(artifacts, shape, mesh):
     assert "error" not in art, art.get("traceback")
     assert REF_KEYS <= set(art)
     assert set(art["analytic"]) == {"memory_analysis", "cost_analysis",
-                                    "collective_bytes"}
+                                    "collective_bytes", "grad_bytes",
+                                    "gathered_param_bytes", "saved_bytes",
+                                    "held_bytes", "flops_per_6NT"}
     assert art["n_chips"] == (512 if mesh == "multi" else 256)
     assert art["cost_analysis"]["flops"] > 0
     assert art["cost_analysis"]["bytes accessed"] > 0
@@ -97,13 +101,20 @@ def test_param_bytes_are_the_sum_of_the_shards(artifacts, shape, mesh):
         want += n
     mem = artifacts[(shape, mesh)]["memory_analysis"]
     assert mem["param_bytes"] == want
-    assert mem["gathered_param_bytes"] == 2 * model.param_count()
+    # gathered a block at a time: alive at once, less than a tensor rank's
+    # share of the whole model
+    assert 0 < 16 * mem["gathered_param_bytes"] < 2 * model.param_count()
+    if INPUT_SHAPES[shape].kind == "train":
+        assert mem["grad_bytes"] == want         # the gradient's shards
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 def test_decode_flops_equal_the_closed_form(artifacts, mesh):
     """Per device: 2 x rows x (every matmul weight) + 4 x rows x heads x
-    head dim x cache slots x layers (scores and values over the cache)."""
+    head dim x cache slots x layers (scores and values over the cache),
+    split over the 16-wide tensor axis (every product computes on its
+    shard: heads' head-dim chunks, the MLP's hidden dim, the
+    vocabulary)."""
     cfg = get_config(ARCH)
     sh = INPUT_SHAPES["decode_32k"]
     rows = sh.global_batch // (32 if mesh == "multi" else 16)
@@ -113,7 +124,7 @@ def test_decode_flops_equal_the_closed_form(artifacts, mesh):
     weights = cfg.n_layers * per_layer + d * cfg.padded_vocab
     attn = 4 * rows * cfg.n_heads * hd * sh.seq_len * cfg.n_layers
     assert artifacts[("decode_32k", mesh)]["cost_analysis"]["flops"] == \
-        2 * rows * weights + attn
+        (2 * rows * weights + attn) / 16
 
 
 def test_a_failing_pair_writes_an_error_artifact(tmp_path):
@@ -140,3 +151,30 @@ def test_trace_store_ingests_an_artifact(artifacts, tmp_path):
     assert rec["kind"] == "dryrun" and rec["n_chips"] == 256
     assert rec["flops"] == art["cost_analysis"]["flops"]
     assert rec["bytes_accessed"] == art["cost_analysis"]["bytes accessed"]
+
+
+def test_qwen2_72b_train_fits_a_card():
+    """qwen2-72b at train_4k on the single-pod mesh, full width on meta
+    tensors: a device computes at most 2x the ideal ``6 * N * tokens /
+    n_chips`` (every tensor rank its share, remat's recompute included) and
+    holds under 80 GB by the artifact's accounting (param, gradient and
+    moment shards, the gathered block, the bytes saved for backward)."""
+    code = ("import json, sys\n"
+            "from repro_torch.launch import dryrun\n"
+            "art = dryrun.lower_and_compile('qwen2-72b', 'train_4k', "
+            "'single', verbose=False)\n"
+            "print(json.dumps(art))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    art = json.loads(res.stdout.strip().splitlines()[-1])
+    mem = art["memory_analysis"]
+    assert art["cost_analysis"]["flops_per_6NT"] <= 2.0, art["cost_analysis"]
+    assert mem["held_bytes"] < 80e9, mem
+    assert mem["held_bytes"] == sum(mem[k] for k in (
+        "param_bytes", "grad_bytes", "opt_state_bytes",
+        "gathered_param_bytes", "saved_bytes"))
+    # the blocks' inputs under remat are d_model shards: 80 layers x 16
+    # rows x 4096 tokens x 8192 / 16 x 2 bytes, and more
+    assert mem["saved_bytes"] >= 80 * 16 * 4096 * 512 * 2
