@@ -268,14 +268,19 @@ Phases, each of which fails the script on error:
    port) on ``make_debug_mesh(1, 1)``, every leaf a DTensor in the
    `ShardingPolicy`'s placements, the step's tensor-parallel compute
    (`repro_torch.distributed.tp`) over one-rank groups. f32 parity:
-   full-width granite-moe-3b-a800m and chatglm3-6b at 2 layers, three
-   sharded steps (`make_sharded_train_step`) against three unsharded ones
-   (`make_train_step`) on the same weights and phase 9's markov batches
-   (granite at phase 9's lr, chatglm at 1e-4: its key bias's gradient is
-   rounding noise, which Adam moves by up to the lr): each loss within
-   1e-5 relative, the params within 1e-5 after the three steps, and every
-   param and moment a DTensor on the card in the policy's placements (the
-   step counter replicated). Then phase 9's granite run (full depth, bf16,
+   full-width granite-moe-3b-a800m, chatglm3-6b, deepseek-v2-lite-16b,
+   mamba2-370m and musicgen-medium (a random conditioning memory) at 2
+   layers, three sharded steps (`make_sharded_train_step`) against three
+   unsharded ones (`make_train_step`) on the same weights and phase 9's
+   markov batches (granite at phase 9's lr, the others at 1e-4: chatglm's
+   key bias's gradient is rounding noise, which Adam moves by up to the
+   lr): each loss within 1e-5 relative, the params within 1e-5 after the
+   three steps, and every param and moment a DTensor on the card in the
+   policy's placements (the step counter replicated). Deepseek, mamba2 and
+   musicgen (with its cross K/V cache) then run a sharded prefill of 4 x
+   32 tokens and a decode step (`make_sharded_forward`) against the
+   unsharded forward: logits and cache within 1e-5, the cache in the
+   policy's placements. Then phase 9's granite run (full depth, bf16,
    8 steps of 8 x 64 tokens) sharded, held to phase 9's gates (finite,
    every leaf with a gradient moved or held by bf16 spacing, a lower mean
    loss over the run's batches, no port kernel launched); it prints its
@@ -290,8 +295,12 @@ Phases, each of which fails the script on error:
    there are 80 artifacts, none with ``error``, each with ``flops > 0`` and
    ``n_chips`` 256 (single) or 512 (multi), and the train_4k artifacts of
    qwen2-72b, yi-34b, deepseek-coder-33b and chatglm3-6b on both meshes
-   show at most 2x the ideal ``6 * N * tokens / n_chips`` FLOPs and hold
-   under 80 GB by their own accounting. It prints the phase's wall.
+   show at most 2x the ideal ``6 * N * tokens / n_chips`` FLOPs (N the
+   active params), those of deepseek-v2-lite-16b, jamba-v0.1-52b and
+   musicgen-medium at most 2.5x and mamba2-370m's 3x, and all hold under
+   80 GB by their own accounting; each is printed beside the figures
+   before MLA, Mamba-2 and cross-attention computed on their shards. It
+   prints the phase's wall.
 11. Print the script's wall time (the build included), the ``kernels``
    JSON line (its ``launches_by_run`` holds phases 9 and 10's runs, all 0),
    the card again, and as the last line ``{"ok": true, "device": {...}}``.
@@ -463,13 +472,29 @@ TRAIN_F32 = dict(layers=2, parity_batch=2, parity_seq=32)
 # archs of the f32 parity at TRAIN_F32's 2 layers with their learning rates
 # (chatglm's key bias has a gradient of rounding noise, which Adam moves by
 # up to the lr whichever way it rounds: 1e-4 keeps that below the 1e-5
-# gate), the parity's steps, the dry-run's concurrent subprocesses (one per
-# arch and mesh kind) and the archs whose train_4k artifacts must fit a card
+# gate), the archs of the sharded prefill and decode and their gate, the
+# parity's steps, the dry-run's concurrent subprocesses (one per arch and
+# mesh kind), and the archs whose train_4k artifacts must fit a card
+# (``held_bytes`` under ``fit_gb``) with their bounds on ``flops_per_6NT``
+# and, printed beside the dry-run's figures, the tree's figures before
+# MLA, Mamba-2 and cross-attention computed on their shards
+# (``flops_per_6NT`` over the active params, held GB single / multi; the
+# dense four's from the dry-run's artifacts of the same tree)
 DIST = dict(arch="granite-moe-3b-a800m", peak_over_gb=1.5,
-            parity={"granite-moe-3b-a800m": TRAIN["lr"], "chatglm3-6b": 1e-4},
-            parity_steps=3, dryrun_jobs=8,
-            fit_archs=("qwen2-72b", "yi-34b", "deepseek-coder-33b",
-                       "chatglm3-6b"), fit_flops_per_6NT=2.0, fit_gb=80.0)
+            parity={"granite-moe-3b-a800m": TRAIN["lr"], "chatglm3-6b": 1e-4,
+                    "deepseek-v2-lite-16b": 1e-4, "mamba2-370m": 1e-4,
+                    "musicgen-medium": 1e-4},
+            forward=("deepseek-v2-lite-16b", "mamba2-370m",
+                     "musicgen-medium"), forward_tol=1e-5,
+            parity_steps=3, dryrun_jobs=8, fit_gb=80.0,
+            fit={"qwen2-72b": (2.0, (1.339, 25.11, 14.35)),
+                 "yi-34b": (2.0, (1.343, 15.85, 8.77)),
+                 "deepseek-coder-33b": (2.0, (1.361, 14.81, 8.21)),
+                 "chatglm3-6b": (2.0, (1.467, 9.12, 4.73)),
+                 "deepseek-v2-lite-16b": (2.5, (15.3, 69.6, 35.2)),
+                 "jamba-v0.1-52b": (2.5, (10.9, 593.1, 294.2)),
+                 "mamba2-370m": (3.0, (22.81, 21.7, 10.8)),
+                 "musicgen-medium": (2.5, (3.863, 3.8, 1.9))})
 
 
 def emit(tag: str, obj) -> None:
@@ -3269,6 +3294,13 @@ def dist_parity(seed: int, policy, arch: str, lr: float) -> dict:
     opt_cfg = dataclasses.replace(opt_cfg, lr=lr)
     data = train_batches(cfg, torch.float32, TRAIN["batch"], TRAIN["seq"])
     batches = [next(data) for _ in range(DIST["parity_steps"])]
+    if cfg.cross_attention:
+        # a random memory: the launcher's zeros give the cross-attention's
+        # projections no gradient
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        for b in batches:
+            b["cond_memory"] = torch.randn(b["cond_memory"].shape,
+                                           generator=g, device="cuda")
     reset_launch_counts()
     sp = shard_params(params, policy)
     so = init_sharded_opt_state(sp)
@@ -3309,6 +3341,73 @@ def dist_parity(seed: int, policy, arch: str, lr: float) -> dict:
     return counts
 
 
+def dist_forward(seed: int, policy, arch: str) -> dict:
+    """Phase 10, f32 at full width and 2 layers: the sharded prefill
+    (``make_sharded_forward``, 4 x 32 tokens) and a decode step against the
+    unsharded forward on the same weights and a whole cache; the logits
+    and the cache (gathered) within ``DIST["forward_tol"]``, the cache in
+    the policy's placements. Musicgen keeps its cross K/V cache (its
+    decode step reads it, with no memory). Returns the launch counts (all
+    must be 0)."""
+    from repro_torch.distributed.step import (full_tree, make_sharded_forward,
+                                              shard_batch, shard_params,
+                                              sharded_cache)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    cfg = f32_cfg(arch)
+    if cfg.cross_attention:
+        cfg = cfg.with_overrides(cross_kv_cache=True)
+    model = Model(cfg, dtype=torch.float32, device="cuda", use_kernel=False)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    rows, n = 4, 32
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+
+    def tokens(s):
+        return torch.randint(0, cfg.vocab_size, (rows, s) + books,
+                             generator=g, device="cuda", dtype=torch.int32)
+    prompt = {"tokens": tokens(n)}
+    if cfg.cross_attention:
+        prompt["cond_memory"] = torch.randn(rows, cfg.n_cond_tokens,
+                                            cfg.d_model, generator=g,
+                                            device="cuda")
+    step = {"tokens": tokens(1),
+            "positions": torch.full((rows, 1), n, dtype=torch.int32,
+                                    device="cuda")}
+    cache = model.init_cache(rows, n + 16)
+    reset_launch_counts()
+    sp = shard_params(params, policy)
+    sc = sharded_cache(cache, policy)
+    t0 = time.perf_counter()
+    s1, sc = make_sharded_forward(model, policy, -1)(
+        sp, shard_batch(prompt, policy), sc)
+    s2, sc = make_sharded_forward(model, policy, 0)(
+        sp, shard_batch(step, policy), sc)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    with torch.no_grad():
+        u1 = model.forward(params, prompt, cache)[0][:, -1]
+        u2 = model.forward(params, step, cache)[0][:, 0]
+    counts = launch_counts()
+    logits = max(float((a.full_tensor() - b).abs().max())
+                 for a, b in ((s1, u1), (s2, u2)))
+    cache_diff = max_diff(full_tree(sc), cache)
+    placements_ok = placed(sc, policy.cache_shardings(cache))
+    emit("dist-forward-f32", dict(
+        arch=cfg.name, layers=cfg.n_layers, rows=rows, prompt=n,
+        cross_kv_cache=cfg.cross_kv_cache, logits_max_diff=logits,
+        cache_max_diff=cache_diff, placements_ok=placements_ok,
+        sharded_s=sharded_s, launches=counts))
+    if logits > DIST["forward_tol"] or cache_diff > DIST["forward_tol"] \
+            or not placements_ok or any(counts.values()):
+        raise AssertionError(
+            f"phase 10 sharded forward of {arch}: logits {logits}, cache "
+            f"{cache_diff}, placements {placements_ok}, launches {counts}")
+    del sp, sc, params, cache, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def dist_launcher() -> None:
     """Phase 10: ``launch.train --mesh debug`` needs 4 ranks, one a card;
     on this one card it must exit non-zero and say so."""
@@ -3331,10 +3430,11 @@ def dist_dryrun() -> dict:
     subprocess each, `DIST["dryrun_jobs"]` at a time, on the host only
     (meta tensors, the fake process group). Fails unless the 80 artifacts
     are there, none with ``error``, each with ``flops > 0`` and its mesh's
-    ``n_chips``, and the train_4k artifacts of `DIST`'s ``fit_archs`` on
-    both meshes show at most ``fit_flops_per_6NT`` times the ideal
-    ``6 * N * tokens / n_chips`` and hold under ``fit_gb`` by their own
-    accounting."""
+    ``n_chips``, and the train_4k artifacts of `DIST`'s ``fit`` archs on
+    both meshes show at most their bound times the ideal ``6 * N * tokens
+    / n_chips`` (N the active params) and hold under ``fit_gb`` by their
+    own accounting; each beside the figures before this slice's mixers
+    computed on their shards."""
     import os
     import tempfile
     from repro_torch.configs import ASSIGNED_ARCHS
@@ -3374,17 +3474,23 @@ def dist_dryrun() -> dict:
     bad = [(a.get("arch"), a.get("shape"), a.get("mesh")) for a in arts
            if "error" in a or not a["cost_analysis"].get("flops", 0) > 0
            or a["n_chips"] != (512 if a["mesh"] == "multi" else 256)]
-    fit = {f"{a['arch']}/{a['mesh']}": dict(
-        flops_per_6NT=a["cost_analysis"]["flops_per_6NT"],
-        held_gb=a["memory_analysis"]["held_bytes"] / 1e9,
-        saved_gb=a["memory_analysis"]["saved_bytes"] / 1e9,
-        gathered_gb=a["memory_analysis"]["gathered_param_bytes"] / 1e9)
-        for a in arts if "error" not in a and a["shape"] == "train_4k"
-        and a["arch"] in DIST["fit_archs"]}
+    fit = {}
+    for a in arts:
+        if "error" in a or a["shape"] != "train_4k" or \
+                a["arch"] not in DIST["fit"]:
+            continue
+        bound, (flops0, single0, multi0) = DIST["fit"][a["arch"]]
+        fit[f"{a['arch']}/{a['mesh']}"] = dict(
+            flops_per_6NT=a["cost_analysis"]["flops_per_6NT"],
+            flops_bound=bound, flops_per_6NT_before=flops0,
+            held_gb=a["memory_analysis"]["held_bytes"] / 1e9,
+            held_gb_before=single0 if a["mesh"] == "single" else multi0,
+            saved_gb=a["memory_analysis"]["saved_bytes"] / 1e9,
+            gathered_gb=a["memory_analysis"]["gathered_param_bytes"] / 1e9)
     bad += [k for k, v in fit.items()
-            if v["flops_per_6NT"] > DIST["fit_flops_per_6NT"]
+            if v["flops_per_6NT"] > v["flops_bound"]
             or not v["held_gb"] < DIST["fit_gb"]]
-    if len(fit) != 2 * len(DIST["fit_archs"]):
+    if len(fit) != 2 * len(DIST["fit"]):
         bad.append(f"train_4k fit records: {sorted(fit)}")
     out = dict(host_only=True, artifacts=len(arts), bad=bad, failed=failed,
                wall_s=wall, jobs=DIST["dryrun_jobs"], job_s=job_s,
@@ -3406,6 +3512,9 @@ def distributed(seed: int, train_records: dict) -> dict:
         policy = ShardingPolicy(mesh)
         counts = {f"dist-f32-{arch}": dist_parity(seed + 3, policy, arch, lr)
                   for arch, lr in DIST["parity"].items()}
+        counts.update({f"dist-fwd-{arch}": dist_forward(seed + 5, policy,
+                                                        arch)
+                       for arch in DIST["forward"]})
         c, rec = train_run("dist-train-granite", DIST["arch"], None, seed,
                            policy=policy)
         counts["dist-train-granite"] = c

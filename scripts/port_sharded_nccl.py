@@ -18,6 +18,9 @@ ranks' weights agree before anything runs.
    over both axes through a flattened process group). Each loss within
    1e-5 relative, the params within 1e-5, params and moments in the
    policy's placements; the MoE's capacity factor is 0.5, so tokens drop.
+   The same for deepseek-v2-lite-16b (MLA, its heads over the tensor axis)
+   and mamba2-370m (the SSD's heads over the tensor axis) at 2 layers, in
+   the default layout.
 2. bf16 at full depth: granite-moe-3b-a800m's 8 steps at the launcher's
    recipe (lr 1e-3, 5 warmup steps), sharded, with each step synchronised
    and timed and each rank's peak memory; then rank 0 runs the same 8
@@ -62,6 +65,9 @@ from repro_torch.training.tree import leaves, tree_map
 ARCH = "granite-moe-3b-a800m"
 BATCH, SEQ = 8, 64
 PARITY = dict(layers=2, steps=3, lr=1e-4, capacity_factor=0.5, tol=1e-5)
+# (arch, tensor_enabled) of each f32 parity case
+PARITY_CASES = ((ARCH, True), (ARCH, False),
+                ("deepseek-v2-lite-16b", True), ("mamba2-370m", True))
 BF16 = dict(steps=8, lr=1e-3)
 
 
@@ -96,15 +102,20 @@ def _same_on_every_rank(params) -> bool:
     return all(bool(x == every[0]) for x in every)
 
 
+def _parity_cfg(arch: str, smoke: bool):
+    base = get_config(arch).reduced() if smoke else get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=PARITY["layers"])
+    if arch == ARCH:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            base.moe, capacity_factor=PARITY["capacity_factor"]))
+    return cfg
+
+
 def parity(rank: int, mesh, smoke: bool) -> List[Dict]:
     dev = _device(mesh, rank)
-    base = get_config(ARCH).reduced() if smoke else get_config(ARCH)
-    cfg = dataclasses.replace(
-        base, n_layers=PARITY["layers"],
-        moe=dataclasses.replace(base.moe,
-                                capacity_factor=PARITY["capacity_factor"]))
     out = []
-    for tensor in (True, False):
+    for arch, tensor in PARITY_CASES:
+        cfg = _parity_cfg(arch, smoke)
         model, params, batches, opt_cfg = _setup(
             cfg, torch.float32, dev, PARITY["lr"], PARITY["steps"])
         agree = _same_on_every_rank(params)
@@ -130,7 +141,7 @@ def parity(rank: int, mesh, smoke: bool) -> List[Dict]:
             diff = max(float((a - b).abs().max())
                        for a, b in zip(leaves(whole), leaves(up)))
             out.append(dict(
-                part="parity-f32", tensor_enabled=tensor,
+                part="parity-f32", arch=cfg.name, tensor_enabled=tensor,
                 batch_axes=policy.batch_axes(BATCH), layers=cfg.n_layers,
                 weights_agree=agree, sharded_losses=s_loss,
                 unsharded_losses=u_loss,

@@ -11,10 +11,12 @@ the rest as they are. Enabled process-wide by `enable` (the dry-run's
 
 In the port the hint acts on a DTensor: its dims marked ``"tensor"`` are
 redistributed to ``Shard`` on the tensor axis of its mesh when they divide
-the axis. A plain tensor (the model's activations under the sharded step,
-`repro_torch.distributed.step`, whose Mamba-2 mixer computes whole on every
-tensor rank: ROADMAP F13) or a dim that does not divide comes back
-unchanged, as the reference skips a hint it cannot apply.
+the axis. A plain tensor or a dim that does not divide comes back
+unchanged, as the reference skips a hint it cannot apply. The sharded step
+(`repro_torch.distributed.step`) needs no hint: its Mamba-2 mixer
+(`repro_torch.models.ssm.ssm_forward_tp`) splits the SSD's heads over the
+tensor ranks with or without `enable`, on plain tensors, which pass
+through the hint unchanged.
 """
 from __future__ import annotations
 

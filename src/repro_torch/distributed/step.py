@@ -17,8 +17,9 @@ tp` has the collectives and the gather):
 2. a layer asks for a leaf when it runs (`TensorParallel.take`): the FSDP
    axis ("data") is all-gathered and the tensor axis ("model") kept as the
    layer computes on it, so the block's compute splits over the tensor
-   ranks (heads, the MLP's hidden dim, experts or their hidden dim, the
-   vocabulary) and the residual stream between layers is sharded on
+   ranks (attention's and the SSD's heads, the MLP's hidden dim, experts
+   or their hidden dim, the vocabulary) and the residual stream between
+   layers is sharded on
    d_model; a leaf's backward reduce-scatters its gradient straight to its
    at-rest placement (summed over the batch axes: each rank's loss is
    scaled by 1 / their size), and the gathered tensors are saved for
@@ -31,9 +32,10 @@ tp` has the collectives and the gather):
    (`repro_torch.training.optimizer.adamw_update`) updates each local
    shard in place with it. No rank holds a whole-model gradient.
 
-The MLA, Mamba-2 and cross-attention mixers take their leaves whole and
-compute alike on every tensor rank (ROADMAP.md §3, F13). Sharding changes
-no result: a sharded step equals the unsharded port step to f32 rounding.
+Every mixer computes on its share: GQA, MLA and cross-attention by head,
+the Mamba-2 mixer by SSD head (`repro_torch.models.blocks._sublayer_tp`).
+Sharding changes no result: a sharded step equals the unsharded port step
+to f32 rounding.
 Metrics (``loss``, ``grad_norm``, ``lr``, ``step``) come back as plain
 tensors, equal on every rank.
 """
@@ -387,9 +389,10 @@ def make_sharded_forward(model: Model, policy: ShardingPolicy,
     prefill (``position=-1``) or decode (``position=0``) step of the
     reference's dry-run. Each rank runs the tensor-parallel forward on its
     rows of the batch and on its shards of the cache, in place (the cache
-    stays in the policy's ``cache_spec`` placements: attention reads and
-    writes its head-dim chunk; the MLA and Mamba-2 mixers gather their
-    tensor-sharded cache dims for the layer, ROADMAP F13); the logits at
+    stays in the policy's ``cache_spec`` placements: GQA attention reads
+    and writes its head-dim chunk, MLA its latent chunk, the Mamba-2 mixer
+    its heads' SSM state; only the Mamba-2 conv tail, and MLA's latent
+    window in a naive decode, are gathered for the layer); the logits at
     ``position`` leave in the policy's ``logits_spec`` placements.
     ``fwd.stats`` holds ``gathered_bytes`` and ``gathered_by_path`` (as
     `make_sharded_train_step`'s) after each call."""

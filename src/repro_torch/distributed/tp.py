@@ -14,7 +14,6 @@ each is a `torch.autograd.Function` whose backward is its dual:
                          rank's own chunk (``dual="slice"``: every rank
                          holds the whole gradient)
   `reduce_scatter`       all-gather
-  `scatter` (own chunk)  all-gather
   `copy_to` (identity)   all-reduce
   `reduce_from`          identity
   (all-reduce)
@@ -148,17 +147,6 @@ class _ReduceScatter(torch.autograd.Function):
         return _gather(g, ctx.dim, ctx.group), None, None
 
 
-class _Scatter(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
-        return _chunk(x, dim, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _gather(g, ctx.dim, ctx.group), None, None
-
-
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -195,14 +183,6 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if size(group) == 1:
         return x
     return _ReduceScatter.apply(x, dim, group)
-
-
-def scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """This rank's chunk of ``dim`` of a tensor every rank holds whole;
-    backward: all-gather."""
-    if size(group) == 1:
-        return x
-    return _Scatter.apply(x, dim, group)
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
@@ -350,16 +330,17 @@ def relayout(x: torch.Tensor, group, src_dim: int, dst_dim: int,
                            sets)
 
 
-def gather_sets(x: torch.Tensor, dim: int, group, sets: Sequence[range],
-                total: int) -> torch.Tensor:
-    """The whole of ``dim`` (``total`` long) from every rank's contiguous
-    range ``sets[r]`` of it (ranges may be uneven or overlap; an overlap
-    holds the same values on every rank). Forward only."""
+def gather_sets(x: torch.Tensor, dim: int, group, sets, total: int
+                ) -> torch.Tensor:
+    """The whole of ``dim`` (``total`` long) from every rank's part
+    ``sets[r]`` of it: contiguous ranges, or the index arrays of a `Sets`
+    (uneven or overlapping; an overlap holds the same values on every
+    rank). Forward only."""
     n = size(group)
     if n == 1:
         return x
     dim = dim % x.dim()
-    width = max(len(s) for s in sets)
+    width = max(len(sets[r]) for r in range(n))
     if x.shape[dim] < width:
         pad = list(x.shape)
         pad[dim] = width - x.shape[dim]
@@ -368,9 +349,13 @@ def gather_sets(x: torch.Tensor, dim: int, group, sets: Sequence[range],
     shape = list(x.shape)
     shape[dim] = total
     out = x.new_empty(shape)
-    for r, s in enumerate(sets):
-        out.narrow(dim, s.start, len(s)).copy_(
-            every.narrow(dim, r * width, len(s)))
+    for r in range(n):
+        s = sets[r]
+        part = every.narrow(dim, r * width, len(s))
+        if isinstance(s, range):
+            out.narrow(dim, s.start, len(s)).copy_(part)
+        else:
+            out.index_copy_(dim, sets.index(r, x.device), part)
     return out
 
 
@@ -535,6 +520,19 @@ class TensorParallel:
         return self._memo(key, lambda: [
             np.arange(r.start * hd, r.stop * hd) for r in ranges])
 
+    def every(self, total: int) -> Sets:
+        """Every index of ``total`` on every rank: a leaf taken whole for
+        compute whose consumers split over the tensor ranks (B and C of the
+        SSD, MLA's rope key), so that the overlaps' partial gradients are
+        summed back in the backward."""
+        return self._memo(("every", total),
+                          lambda: [np.arange(total)] * self.n)
+
+    def index_sets(self, key, make: Callable[[], Sequence]) -> Sets:
+        """A layer's own index sets (``make()``: one array a rank),
+        memoised under ``key``."""
+        return self._memo(("own",) + tuple(key), make)
+
     def chunk_sets(self, heads: int, hd: int) -> Sets:
         """Rank r's head-dim chunk of every head, as flat indices into
         ``heads * hd``."""
@@ -619,11 +617,8 @@ class TensorParallel:
 
     # ---- the collectives over the tensor group (the model's layers call
     # these; they import nothing of this package)
-    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
-        return reduce_scatter(x, -1, self.group)
-
-    def scatter(self, x: torch.Tensor) -> torch.Tensor:
-        return scatter(x, -1, self.group)
+    def reduce_scatter(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return reduce_scatter(x, dim, self.group)
 
     def copy_to(self, x: torch.Tensor) -> torch.Tensor:
         return copy_to(x, self.group)
@@ -645,12 +640,17 @@ class TensorParallel:
         """All-gather along ``dim``, forward only."""
         return _gather(x, dim, self.group)
 
+    def select(self, x: torch.Tensor, dim: int, sets: Sets) -> torch.Tensor:
+        """This rank's set of ``dim`` of a tensor it holds whole, forward
+        only."""
+        return select(x, dim, sets, self.rank)
+
     def chunk(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's even chunk of ``dim``, forward only."""
         return _chunk(x, dim % x.dim(), self.group)
 
-    def gather_sets(self, x: torch.Tensor, dim: int,
-                    sets: Sequence[range], total: int) -> torch.Tensor:
+    def gather_sets(self, x: torch.Tensor, dim: int, sets,
+                    total: int) -> torch.Tensor:
         return gather_sets(x, dim, self.group, sets, total)
 
     def check_replicated(self, x: torch.Tensor, what: str) -> None:

@@ -29,8 +29,13 @@ artifact's ``"analytic"`` list names them):
     over the traced ops: matmuls, attention, convolutions, forward and
     backward) and ``bytes accessed`` (every traced op's operand and result
     bytes, views excepted, unfused) of rank 0's step, and ``flops_per_6NT``,
-    the flops over ``6 * N * tokens / n_chips`` (N the param count; tokens
-    the global batch's, one a row at decode);
+    the flops over ``6 * N * tokens / n_chips`` (N the active param count,
+    ``active_param_count``: an MoE token runs only its top-k and shared
+    experts, a dense model all its params; tokens the global batch's, one
+    a row at decode); an MoE layer's compact dispatch, which cannot read a
+    rank's expert counts from meta tensors, counts each local expert at a
+    balanced router's share ``min(C, ceil(T * k / E))`` of the rank's T
+    tokens (``moe_balanced_slots``);
   * ``collective_bytes``: the result bytes of every collective the traced
     step issued, under the keys of ``core/roofline.collective_bytes_from_hlo``.
 
@@ -81,7 +86,7 @@ ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 WORLD = {"single": 256, "multi": 512}
 ANALYTIC = ["memory_analysis", "cost_analysis", "collective_bytes",
             "grad_bytes", "gathered_param_bytes", "saved_bytes", "held_bytes",
-            "flops_per_6NT"]
+            "flops_per_6NT", "active_param_count", "moe_balanced_slots"]
 COLLECTIVES = (("all_gather", "all-gather"), ("allgather", "all-gather"),
                ("reduce_scatter", "reduce-scatter"),
                ("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
@@ -237,11 +242,12 @@ def lower_and_compile(arch: str, shape_name: str, mesh_kind: str = "single",
     mem["output_size_in_bytes"] = out_bytes
     mem["repr"] = ", ".join(f"{k}={v}" for k, v in mem.items())
     n_params = Model(cfg).param_count()
+    n_active = Model(cfg).active_param_count()
     tokens = shape.global_batch * (1 if shape.kind == "decode"
                                    else shape.seq_len)
     cost = {"flops": float(flops.get_total_flops()),
             "bytes accessed": float(traffic.bytes)}
-    cost["flops_per_6NT"] = cost["flops"] / (6 * n_params * tokens / n_chips)
+    cost["flops_per_6NT"] = cost["flops"] / (6 * n_active * tokens / n_chips)
     coll = traffic.collective_bytes()
 
     artifact = {
@@ -249,7 +255,7 @@ def lower_and_compile(arch: str, shape_name: str, mesh_kind: str = "single",
         "n_chips": int(n_chips),
         "kind": shape.kind,
         "param_count": n_params,
-        "active_param_count": Model(cfg).active_param_count(),
+        "active_param_count": n_active,
         "seq_len": shape.seq_len, "global_batch": shape.global_batch,
         "attn_window": cfg.attn_window,
         "fsdp": fsdp, "shard_hints": shard_hints, "mla_naive": mla_naive,
@@ -306,7 +312,8 @@ def main(argv=None) -> None:
                     help="artifact directory (default "
                          "experiments/dryrun_torch)")
     ap.add_argument("--hints", action="store_true",
-                    help="SSD activation-sharding constraints")
+                    help="SSD activation-sharding constraints (the sharded "
+                         "step splits the SSD's heads with or without them)")
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--mla-naive", action="store_true")
     ap.add_argument("--ssm-split", action="store_true")

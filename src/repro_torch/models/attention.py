@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Params, Shapes, apply_rope, dense,
-                                       dense_init, dense_shapes)
+                                       dense_init, dense_shapes, dense_tp)
 
 NEG_INF = -1e30
 
@@ -366,14 +366,6 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # GQA attention, tensor-parallel (the sharded step)
 # =============================================================================
 
-def _proj(p: Params, x: torch.Tensor, tp, sets) -> torch.Tensor:
-    """``dense`` on the columns ``sets[rank]`` of a projection leaf."""
-    y = x @ tp.take(p["w"], -1, sets)
-    if "b" in p:
-        y = y + tp.take(p["b"], 0, sets)
-    return y
-
-
 def _kv_ranges(ranges, group: int):
     """The K/V heads each rank's query heads read (whole heads)."""
     return [range(r.start // group, (r.stop - 1) // group + 1) if len(r)
@@ -411,10 +403,10 @@ def gqa_forward_tp(p: Params, cfg: ArchConfig, x: torch.Tensor,
         kvs = _kv_ranges(heads, H // KV)
         q_sets = tp.head_sets(heads, hd)
         mine, kv_mine = heads[tp.rank], kvs[tp.rank]
-        q = _proj(p["wq"], h, tp, q_sets).reshape(B, S, len(mine), hd)
+        q = dense_tp(p["wq"], h, tp, q_sets).reshape(B, S, len(mine), hd)
         kv_sets = tp.head_sets(kvs, hd)
-        k = _proj(p["wk"], h, tp, kv_sets).reshape(B, S, len(kv_mine), hd)
-        v = _proj(p["wv"], h, tp, kv_sets).reshape(B, S, len(kv_mine), hd)
+        k = dense_tp(p["wk"], h, tp, kv_sets).reshape(B, S, len(kv_mine), hd)
+        v = dense_tp(p["wv"], h, tp, kv_sets).reshape(B, S, len(kv_mine), hd)
         if rope:
             q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction,
                            cfg.mrope_sections)
@@ -450,9 +442,9 @@ def gqa_forward_tp(p: Params, cfg: ArchConfig, x: torch.Tensor,
                                   "sharded on head_dim")
     c = hd // tp.n
     q_sets, kv_sets = tp.chunk_sets(H, hd), tp.chunk_sets(KV, hd)
-    q = _proj(p["wq"], h, tp, q_sets).reshape(B, S, H, c)
-    k = _proj(p["wk"], h, tp, kv_sets).reshape(B, S, KV, c)
-    v = _proj(p["wv"], h, tp, kv_sets).reshape(B, S, KV, c)
+    q = dense_tp(p["wq"], h, tp, q_sets).reshape(B, S, H, c)
+    k = dense_tp(p["wk"], h, tp, kv_sets).reshape(B, S, KV, c)
+    v = dense_tp(p["wv"], h, tp, kv_sets).reshape(B, S, KV, c)
     if rope:
         q = tp.chunk(apply_rope(tp.gather(q, -1), positions, cfg.rope_theta,
                                 cfg.rope_fraction, cfg.mrope_sections), -1)
@@ -485,6 +477,22 @@ def gqa_forward_tp(p: Params, cfg: ArchConfig, x: torch.Tensor,
 # MLA attention (DeepSeek-V2): latent KV cache
 # =============================================================================
 
+def _fill_latent(cache: Dict, c_kv: torch.Tensor, k_rope: torch.Tensor,
+                 pos1d: torch.Tensor) -> None:
+    """Write latents (B, S, r) and rope keys (B, S, rd) into the MLA cache's
+    ring slots, in place (only the last W tokens when S > W, so that the
+    scatter's indices stay unique)."""
+    cc, cr, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
+    W = cc.shape[1]
+    if pos1d.shape[1] > W:
+        c_kv, k_rope, pos1d = c_kv[:, -W:], k_rope[:, -W:], pos1d[:, -W:]
+    slot = (pos1d % W).long()
+    bidx = torch.arange(pos1d.shape[0], device=pos1d.device)[:, None]
+    cc[bidx, slot] = c_kv.to(cc.dtype)
+    cr[bidx, slot] = k_rope.to(cr.dtype)
+    cpos[bidx, slot] = pos1d.to(torch.int32)
+
+
 def mla_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor,
                 cache: Optional[Dict] = None,
@@ -513,13 +521,9 @@ def mla_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
     k_rope = apply_rope(k_rope, pos1d, cfg.rope_theta)
 
     if cache is not None and S == 1:
+        _fill_latent(cache, c_kv, k_rope[:, :, 0], pos1d)
         cc, cr, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
         W = cc.shape[1]
-        slot = (pos1d % W).long()
-        bidx = torch.arange(B, device=x.device)[:, None]
-        cc[bidx, slot] = c_kv.to(cc.dtype)
-        cr[bidx, slot] = k_rope[:, :, 0].to(cr.dtype)
-        cpos[bidx, slot] = pos1d.to(torch.int32)
         ok = (cpos[:, None, :] >= 0) & (cpos[:, None, :] <= pos1d[:, :, None])
         if cfg.attn_window is not None:
             ok &= cpos[:, None, :] > pos1d[:, :, None] - cfg.attn_window
@@ -565,18 +569,134 @@ def mla_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         mask = causal_mask(pos1d, pos1d, cfg.attn_window)
         out = sdpa(q_full, k_full, vv, mask, scale)
     if cache is not None:
-        cc, cr, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
-        W = cc.shape[1]
-        c_w, kr_w, pos_w = c_kv, k_rope[:, :, 0], pos1d
-        if S > W:
-            c_w, kr_w, pos_w = c_w[:, -W:], kr_w[:, -W:], pos_w[:, -W:]
-        slot = (pos_w % W).long()
-        bidx = torch.arange(B, device=x.device)[:, None]
-        cc[bidx, slot] = c_w.to(cc.dtype)
-        cr[bidx, slot] = kr_w.to(cr.dtype)
-        cpos[bidx, slot] = pos_w.to(torch.int32)
+        _fill_latent(cache, c_kv, k_rope[:, :, 0], pos1d)
     y = dense(p["wo"], out.reshape(B, S, H * vd))
     return y, cache
+
+
+def mla_forward_tp(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                   positions: torch.Tensor, cache: Optional[Dict], tp,
+                   absorbed_decode: bool = True
+                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """`mla_forward` from and to the d-sharded residual stream over the
+    tensor group ``tp``, the heads split over the tensor ranks (floor
+    ranges: deepseek-v2-lite's 16 heads on 16 ranks give one each).
+
+    Train and fresh prefill: ``wq``, ``w_uk`` and ``w_uv`` are taken by
+    head, RoPE on the rank's heads; ``c_kv`` is computed on the rank's
+    latent chunk (``w_dkv``'s at-rest shard, no relayout), which a prefill
+    writes to the cache's chunk, and all-gathered for the up-projections;
+    the rope key (rd wide) is computed whole on every rank (its overlapping
+    sets sum the heads' partial gradients back into the leaf) and a prefill
+    writes its chunk; ``wo`` is re-laid to the rows of the rank's heads and
+    its partial output reduce-scattered.
+
+    Absorbed decode reads the cache in its latent placement: the rank's
+    query heads are all-gathered over heads (S = 1), RoPE on whole rd;
+    ``q_lat`` on the cache's latent chunk for every head (``w_uk`` taken
+    along its latent dim with the chunk's sets); the latent and rope
+    partial scores summed in one all-reduce; the context on the chunk times
+    ``w_uv``'s chunk rows is a partial (B, 1, H, vd), reduce-scattered over
+    heads, then through the rows of ``wo``. Naive decode gathers the
+    layer's latent window and decompresses it for the rank's heads. Plain
+    PyTorch: the kernels take no shards. With one tensor rank,
+    `mla_forward`'s arithmetic."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nd, rd, vd, r = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+                     m.kv_lora_rank)
+    if H < tp.n or r % tp.n:
+        raise ValueError(f"{H} heads and a latent rank of {r} over a "
+                         f"{tp.n}-wide tensor axis")
+    scale = 1.0 / np.sqrt(nd + rd)
+    pos1d = positions[..., 0] if positions.dim() == 3 else positions
+    heads = tp.ranges(H)
+    mine = heads[tp.rank]
+    hl = len(mine)
+    q_sets = tp.head_sets(heads, nd + rd)
+    o_sets = tp.head_sets(heads, vd)
+    h = tp.gather_input(x)
+
+    q = dense_tp(p["wq"], h, tp, q_sets).reshape(B, S, hl, nd + rd)
+    q_full = torch.cat([q[..., :nd], apply_rope(q[..., nd:], pos1d,
+                                                cfg.rope_theta)], dim=-1)
+    c_own = dense_tp(p["w_dkv"], h, tp, tp.range_sets(r))    # (B, S, r / n)
+    k_rope = dense_tp(p["w_krope"], h, tp, tp.every(rd)).reshape(B, S, 1, rd)
+    k_rope = apply_rope(k_rope, pos1d, cfg.rope_theta)
+    rd_own = tp.own(rd)
+
+    if cache is not None:           # the cache's latent and rope chunks
+        if tp.n > 1 and any(tp.cache_dims.get(k) != 2
+                            for k in ("c_kv", "k_rope")):
+            raise NotImplementedError("a tensor-parallel MLA reads and "
+                                      "writes a cache sharded on its latent "
+                                      "dims")
+        kr_own = k_rope[:, :, 0, rd_own.start:rd_own.stop]
+    if cache is not None and S == 1:
+        _fill_latent(cache, c_own, kr_own, pos1d)
+        cc, cr, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
+        W = cc.shape[1]
+        ok = (cpos[:, None, :] >= 0) & (cpos[:, None, :] <= pos1d[:, :, None])
+        if cfg.attn_window is not None:
+            ok &= cpos[:, None, :] > pos1d[:, :, None] - cfg.attn_window
+
+        if absorbed_decode:
+            q = tp.gather_sets(q_full, 2, heads, H)     # every head, S = 1
+            q_nope, q_rope = q[..., :nd], q[..., nd:]
+            r_sets = tp.range_sets(r)
+            rl = cc.shape[-1]
+            w_uk = tp.take(p["w_uk"]["w"], 0, r_sets).reshape(rl, H, nd)
+            q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(),
+                                 w_uk.float())
+            ccf = cc.float()
+            scores = torch.einsum("bshr,bkr->bhsk", q_lat, ccf)
+            scores = scores + torch.einsum(
+                "bshr,bkr->bhsk",
+                q_rope[..., rd_own.start:rd_own.stop].float(), cr.float())
+            scores = tp.all_reduce(scores)
+            scores = torch.where(ok[:, None], scores * scale,
+                                 torch.full_like(scores, NEG_INF))
+            probs = torch.softmax(scores, dim=-1)
+            ctx_lat = torch.einsum("bhsk,bkr->bshr", probs, ccf)
+            w_uv = tp.take(p["w_uv"]["w"], 0, r_sets).reshape(rl, H, vd)
+            out = torch.einsum("bshr,rhv->bshv", ctx_lat, w_uv.float())
+            if H % tp.n == 0:
+                out = tp.reduce_scatter(out, 2)
+            else:
+                out = tp.all_reduce(out)[:, :, mine.start:mine.stop]
+            out = out.to(x.dtype)
+        else:
+            # the layer's latent window gathered, decompressed for the
+            # rank's heads
+            ccw, crw = tp.gather(cc, 2), tp.gather(cr, 2)
+            k_nope = (ccw @ tp.take(p["w_uk"]["w"], -1,
+                                    tp.head_sets(heads, nd))
+                      ).reshape(B, -1, hl, nd)
+            vv = (ccw @ tp.take(p["w_uv"]["w"], -1, o_sets)
+                  ).reshape(B, -1, hl, vd)
+            k_full = torch.cat([k_nope,
+                                crw[:, :, None].expand(B, W, hl, rd)], dim=-1)
+            out = sdpa(q_full, k_full, vv, ok, scale)
+        y = out.reshape(B, S, hl * vd) @ tp.take(p["wo"]["w"], 0, o_sets)
+        return tp.reduce_scatter(y), cache
+
+    # ---- train / prefill: the rank's heads over the gathered latent
+    c_kv = tp.gather_input(c_own)
+    k_nope = (c_kv @ tp.take(p["w_uk"]["w"], -1, tp.head_sets(heads, nd))
+              ).reshape(B, S, hl, nd)
+    vv = (c_kv @ tp.take(p["w_uv"]["w"], -1, o_sets)).reshape(B, S, hl, vd)
+    k_full = torch.cat([k_nope, k_rope.expand(B, S, hl, rd)], dim=-1)
+    if S * S > BLOCKED_THRESHOLD:
+        out = sdpa_causal_blocked(q_full, k_full, vv, pos1d, cfg.attn_window,
+                                  scale)
+    else:
+        out = sdpa(q_full, k_full, vv,
+                   causal_mask(pos1d, pos1d, cfg.attn_window), scale)
+    if cache is not None:
+        _fill_latent(cache, c_own, kr_own, pos1d)
+    y = out.reshape(B, S, hl * vd) @ tp.take(p["wo"]["w"], 0, o_sets)
+    return tp.reduce_scatter(y), cache
 
 
 # =============================================================================
@@ -604,3 +724,40 @@ def cross_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         v = dense(p["wv"], memory).reshape(B, Tm, cfg.n_heads, hd)
     out = sdpa(q, k, v, None, 1.0 / np.sqrt(hd))
     return dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd)), (k, v)
+
+
+def cross_forward_tp(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                     memory: Optional[torch.Tensor], tp,
+                     cached_kv: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                    torch.Tensor]]:
+    """`cross_forward` from and to the d-sharded residual stream over the
+    tensor group ``tp``: the heads split over the tensor ranks in floor
+    ranges (musicgen's 24 heads on 16 ranks give 1 or 2), ``wq``, ``wk``
+    and ``wv`` taken by head, ``wo`` re-laid to the rows of the rank's
+    heads and its partial output reduce-scattered. ``memory`` is the whole
+    conditioning memory of the rank's rows (the sharded step gathers its
+    d shards once a forward, with the batch); ``cached_kv``, the cross K/V
+    cache held whole over the tensor axis, is read at the rank's heads.
+    Returns the output and the rank's heads of the (k, v) attended to.
+    With one tensor rank, `cross_forward`'s arithmetic."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    if H < tp.n:
+        raise ValueError(f"{H} heads over a {tp.n}-wide tensor axis")
+    heads = tp.ranges(H)
+    mine = heads[tp.rank]
+    hl = len(mine)
+    sets = tp.head_sets(heads, hd)
+    q = dense_tp(p["wq"], tp.gather_input(x), tp, sets).reshape(B, S, hl, hd)
+    if cached_kv is not None:
+        k, v = (c[:, :, mine.start:mine.stop] for c in cached_kv)
+    else:
+        mem = tp.copy_to(memory)
+        Tm = mem.shape[1]
+        k = dense_tp(p["wk"], mem, tp, sets).reshape(B, Tm, hl, hd)
+        v = dense_tp(p["wv"], mem, tp, sets).reshape(B, Tm, hl, hd)
+    out = sdpa(q, k, v, None, 1.0 / np.sqrt(hd))
+    y = out.reshape(B, S, hl * hd) @ tp.take(p["wo"]["w"], 0, sets)
+    return tp.reduce_scatter(y), (k, v)

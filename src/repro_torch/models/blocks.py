@@ -189,32 +189,15 @@ def super_block_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
 # --------------------------------------------------------------------------- tensor-parallel
 
-def _whole_cache(cache: Optional[Dict], tp):
-    """A mixer's sub-cache with its tensor-sharded dims gathered (a
-    transient copy per layer), and a function that writes this rank's
-    chunks back in place."""
-    if cache is None:
-        return None, lambda: None
-    full = {k: (tp.gather(v, tp.cache_dims[k])
-                if tp.cache_dims.get(k) is not None else v)
-            for k, v in cache.items()}
-
-    def write_back():
-        for k, v in cache.items():
-            if tp.cache_dims.get(k) is not None:
-                v.copy_(tp.chunk(full[k], tp.cache_dims[k]))
-    return full, write_back
-
-
 def _sublayer_tp(p: Params, cfg: ArchConfig, x: torch.Tensor,
                  positions: torch.Tensor, mixer: str, cache: Optional[Dict],
                  memory: Optional[torch.Tensor], decode: bool, dp, tp):
     """`sublayer_forward` on the d-sharded residual stream ``x`` (B, S,
-    d / n) over the tensor group of ``tp``: GQA attention, the dense MLP
-    and the MoE FFN compute on their shards; MLA, the Mamba-2 mixer and
-    cross-attention take their leaves whole (gathered over both mesh axes
-    for the block) and compute alike on every tensor rank (ROADMAP F13),
-    their caches' tensor-sharded dims gathered for the layer."""
+    d / n) over the tensor group of ``tp``: every mixer (GQA and MLA by
+    head, the Mamba-2 mixer by SSD head, cross-attention by head), the
+    dense MLP and the MoE FFN compute on their shards, and read and write
+    their caches in the policy's placements (the cross K/V cache, held
+    whole over the tensor axis: a prefill writes every head, gathered)."""
     aux = 0.0
     eps = cfg.norm_eps
     cross_kv = None
@@ -222,28 +205,25 @@ def _sublayer_tp(p: Params, cfg: ArchConfig, x: torch.Tensor,
             and (x.shape[1] == 1 or decode):
         cross_kv = (cache["xk"], cache["xv"])
     h = rmsnorm_tp(p["ln1"], x, eps, tp)
-    if mixer == "a" and cfg.mla is None:
+    if mixer != "a":
+        y, new_cache = ssm_mod.ssm_forward_tp(p["ssm"], cfg, h, cache, tp)
+    elif cfg.mla is not None:
+        y, new_cache = attn.mla_forward_tp(p["attn"], cfg, h, positions,
+                                           cache, tp,
+                                           absorbed_decode=cfg.mla_absorbed)
+    else:
         y, new_cache = attn.gqa_forward_tp(p["attn"], cfg, h, positions,
                                            cache, tp, decode=decode)
-    else:
-        hw = tp.gather_input(h, dual="slice")
-        full, write_back = _whole_cache(cache, tp)
-        if mixer != "a":
-            y, _ = ssm_mod.ssm_forward(tp.whole(p["ssm"]), cfg, hw, full)
-        else:
-            y, _ = attn.mla_forward(tp.whole(p["attn"]), cfg, hw, positions,
-                                    full, absorbed_decode=cfg.mla_absorbed)
-        write_back()
-        y, new_cache = tp.scatter(y), cache
     x = x + y
     if cfg.cross_attention and (memory is not None or cross_kv is not None):
-        hx = tp.gather_input(rmsnorm_tp(p["ln_x"], x, eps, tp), dual="slice")
-        y, (k, v) = attn.cross_forward(tp.whole(p["cross"]), cfg, hx, memory,
-                                       cached_kv=cross_kv)
-        x = x + tp.scatter(y)
+        y, (k, v) = attn.cross_forward_tp(p["cross"], cfg,
+                                          rmsnorm_tp(p["ln_x"], x, eps, tp),
+                                          memory, tp, cached_kv=cross_kv)
+        x = x + y
         if cfg.cross_kv_cache and new_cache is not None and cross_kv is None:
-            new_cache["xk"].copy_(k)
-            new_cache["xv"].copy_(v)
+            heads = tp.ranges(cfg.n_heads)
+            new_cache["xk"].copy_(tp.gather_sets(k, 2, heads, cfg.n_heads))
+            new_cache["xv"].copy_(tp.gather_sets(v, 2, heads, cfg.n_heads))
     if "moe" in p:
         y, aux = moe_mod.moe_forward_tp(p["moe"], cfg,
                                         rmsnorm_tp(p["ln2"], x, eps, tp),

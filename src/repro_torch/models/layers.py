@@ -211,6 +211,15 @@ def lm_head(p: Params, x: torch.Tensor) -> torch.Tensor:
 # over the tensor group. The functions below are the layers above on those
 # shards; the collectives are the context's.
 
+def dense_tp(p: Params, x: torch.Tensor, tp, sets) -> torch.Tensor:
+    """`dense` on the columns ``sets[rank]`` of a projection leaf (its
+    bias's too)."""
+    y = x @ tp.take(p["w"], -1, sets)
+    if "b" in p:
+        y = y + tp.take(p["b"], 0, sets)
+    return y
+
+
 def rmsnorm_tp(p: Params, x: torch.Tensor, eps: float, tp) -> torch.Tensor:
     """`rmsnorm` of a d-sharded ``x``: the sum of squares all-reduced over
     the tensor group, the scale's own range (one tensor rank: `rmsnorm`

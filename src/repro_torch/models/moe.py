@@ -144,13 +144,15 @@ def _route(router: Params, cfg: ArchConfig, xf: torch.Tensor, dp):
 
 
 def _dispatch(cfg: ArchConfig, expert_idx: torch.Tensor, n_dp: int, dp,
-              compact: bool = False):
+              compact: bool = False, balanced: bool = False):
     """Sort-based dispatch: the (expert, token) order of the T*k
     assignments, the token of each, its slot ``e * C + position`` (the drop
     slot ``E * C`` past capacity) and C. With ``compact`` (and ``dp``) the
     slots are this rank's own: position among its own tokens of the
     expert, C no more than its T tokens (which tokens drop is the global
-    dispatch's all the same)."""
+    dispatch's all the same). With ``balanced`` as well (meta tensors,
+    which hold no counts) C is a balanced router's share of the rank's
+    tokens, ``min(C, ceil(T * k / E))``."""
     m = cfg.moe
     E, K = m.n_experts, m.top_k
     T = expert_idx.shape[0]
@@ -174,7 +176,7 @@ def _dispatch(cfg: ArchConfig, expert_idx: torch.Tensor, n_dp: int, dp,
         below = sum(every[:dist.get_rank(dp)], torch.zeros_like(counts))
         keep = pos_in_e + below[e_sorted] < C
     if compact and dp is not None:
-        C = min(C, T)
+        C = min(C, -(-TK // E) if balanced else T)
     dest = torch.where(keep, e_sorted * C + pos_in_e,
                        torch.full_like(pos_in_e, E * C))       # drop slot
     return order, tok_sorted, dest, C
@@ -263,7 +265,8 @@ def moe_forward_tp(p: Params, cfg: ArchConfig, x: torch.Tensor, tp,
     runs its experts' slots (with the batch split over ranks, only the
     slots its own rows hold: one product an expert over its kept tokens,
     whose counts it reads back; on meta tensors, which hold no counts, a
-    slot an expert for each of its tokens, up to the capacity). Otherwise every rank runs every expert on its
+    balanced router's share of its tokens an expert, ``ceil(T * k / E)``,
+    up to the capacity). Otherwise every rank runs every expert on its
     range of the expert hidden dim (``down`` re-laid to those rows). Either
     way a rank's combine is a partial sum, reduce-scattered in f32 to the
     residual's d-shards; the experts' input and the gates carry partial
@@ -322,8 +325,9 @@ def moe_forward_tp(p: Params, cfg: ArchConfig, x: torch.Tensor, tp,
         y = _combine(torch.cat(outs) if outs else xk[:0], order, row, gates,
                      T, K)
     else:
-        order, tok_sorted, dest, C = _dispatch(cfg, expert_idx, n_dp, dp,
-                                               compact=True)
+        order, tok_sorted, dest, C = _dispatch(
+            cfg, expert_idx, n_dp, dp, compact=True,
+            balanced=x.device.type == "meta")
         lo, n_local = mine.start * C, len(mine) * C
         dest = torch.where((dest >= lo) & (dest < lo + n_local), dest - lo,
                            torch.full_like(dest, n_local))
@@ -335,6 +339,9 @@ def moe_forward_tp(p: Params, cfg: ArchConfig, x: torch.Tensor, tp,
         ye = torch.einsum("ecf,efd->ecd", hh, wd)
         y = _combine(ye, order, dest, gates, T, K)
     if m.n_shared:
-        y = y + mlp_partial(p["shared"], xs.reshape(B, S, d), "swiglu",
+        # one tensor rank: the input itself, as `moe_forward` reads it, so
+        # that its gradient sums in the same order
+        hs = h if tp.n == 1 else xs.reshape(B, S, d)
+        y = y + mlp_partial(p["shared"], hs, "swiglu",
                             tp).reshape(T, d).float()
     return tp.reduce_scatter(y.reshape(B, S, d)).to(x.dtype), aux

@@ -26,9 +26,10 @@ Where the port departs from a line-by-line copy, and why:
   computes, not ``F.softplus`` with its linear cut-over.
 * **Sharding hints** (`repro_torch.distributed.hints`) sit where the
   reference puts them, on x, B, C and the dt projection. They are off
-  unless enabled (the dry-run's ``--hints``), and act only on a DTensor:
-  the sharded step runs this block on gathered plain tensors, which pass
-  through unchanged.
+  unless enabled (the dry-run's ``--hints``), and act only on a DTensor.
+  The sharded step does not need them: `ssm_forward_tp` splits the SSD's
+  heads over the tensor ranks with or without them, which is what the
+  reference's hint pins.
 """
 from __future__ import annotations
 
@@ -42,10 +43,10 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import segsum, ssd_chunk_ref
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Params, Shapes, dense, dense_init,
-                                       dense_shapes, normal_)
+                                       dense_shapes, dense_tp, normal_)
 
 __all__ = ["segsum", "ssm_shapes", "ssm_init", "ssd_chunked",
-           "ssd_decode_step", "ssm_forward"]
+           "ssd_decode_step", "ssm_forward", "ssm_forward_tp"]
 
 #: leaves kept in f32 whatever the model dtype (as the reference keeps them)
 F32_KEYS = frozenset({"A_log", "dt_bias", "D"})
@@ -266,4 +267,159 @@ def ssm_forward(p: Params, cfg: ArchConfig, u: torch.Tensor,
     if cache is not None:
         cache["ssm"].copy_(new_state)
         cache["conv"].copy_(new_conv)
+    return out, cache
+
+
+# --------------------------------------------------------------------------- tensor-parallel
+
+def _head_sets(cfg: ArchConfig, tp):
+    """Each rank's SSD heads (floor ranges), the groups they read, and its
+    index sets: ``"proj"`` into ``in_proj``'s columns (z and x of its
+    heads, B and C of its groups, dt of its heads), ``"ch"`` into the conv
+    channels (x, B, C), ``"bc"`` into ``in_proj_bc``'s columns (B, C)."""
+    s = cfg.ssm
+    d_in, H, N, G, P = (cfg.d_inner, cfg.ssm_heads, s.d_state, s.n_groups,
+                        s.headdim)
+    rep = H // G
+    heads = tp.ranges(H)
+    groups = [range(r.start // rep, (r.stop - 1) // rep + 1) if len(r)
+              else range(0, 0) for r in heads]
+
+    def parts(r):
+        hs, gs = heads[r], groups[r]
+        x = np.arange(hs.start * P, hs.stop * P)
+        bc = np.arange(gs.start * N, gs.stop * N)
+        return x, bc, np.arange(hs.start, hs.stop)
+
+    def make(kind):
+        out = []
+        for r in range(tp.n):
+            x, bc, dt = parts(r)
+            out.append({
+                "proj": [x, d_in + x, 2 * d_in + bc, 2 * d_in + G * N + bc,
+                         2 * d_in + 2 * G * N + dt],
+                "ch": [x, d_in + bc, d_in + G * N + bc],
+                "bc": [bc, G * N + bc]}[kind])
+        return [np.concatenate(a) for a in out]
+
+    sets = {k: tp.index_sets(("ssm", k, d_in, H, N, G, P),
+                             lambda k=k: make(k))
+            for k in ("proj", "ch", "bc")}
+    return heads, groups, sets
+
+
+def ssm_forward_tp(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                   cache: Optional[Dict], tp) -> Tuple[torch.Tensor,
+                                                       Optional[Dict]]:
+    """`ssm_forward` from and to the d-sharded residual stream over the
+    tensor group ``tp`` (`repro_torch.distributed.tp`), its SSD heads split
+    over the tensor ranks (floor ranges: mamba2-370m's 32 heads on 16 ranks
+    give 2 each, jamba's 128 give 8).
+
+    ``in_proj`` is taken with one index set a rank along its columns: z, x
+    and dt of the rank's heads, B and C of the groups they read (every
+    group on every rank with one group); with ``ssm_split_proj`` each of
+    the four projections with its own set. B and C are computed alike on
+    every rank, but each rank's heads read them, so their gradients are
+    partial sums, as every other consumer of the gathered input's are: the
+    overlapping sets sum them back into the leaf in the backward. The conv
+    takes the same channels, ``A_log``, ``dt_bias``, ``D`` and
+    ``norm_scale`` the rank's slice; the SSD runs on the rank's heads; the
+    gated RMSNorm's sum of squares over d_inner is all-reduced both ways;
+    ``out_proj`` is re-laid to the rows of the rank's channels and its
+    partial output reduce-scattered. The SSM state (B, H, P, N) is read and
+    written in place when the cache holds it chunked on H (the rank's
+    heads); the conv state (B, K-1, Ch), chunked evenly over channels that
+    do not line up with the rank's sets, is gathered for the layer (K - 1
+    rows) and the rank's chunk written back. Plain PyTorch: the kernels
+    take no shards. With one tensor rank, `ssm_forward`'s arithmetic."""
+    s = cfg.ssm
+    B, S, _ = x.shape
+    d_in, H, N, G, P = (cfg.d_inner, cfg.ssm_heads, s.d_state, s.n_groups,
+                        s.headdim)
+    if H < tp.n:
+        raise ValueError(f"{H} SSD heads over a {tp.n}-wide tensor axis")
+    heads, groups, sets = _head_sets(cfg, tp)
+    hs, gs = heads[tp.rank], groups[tp.rank]
+    hl, gl, xl = len(hs), len(gs), len(hs) * P
+    u = tp.gather_input(x)
+
+    if cfg.ssm_split_proj:
+        x_sets = tp.head_sets(heads, P)
+        z = dense_tp(p["in_proj_z"], u, tp, x_sets)
+        xBC = torch.cat([dense_tp(p["in_proj_x"], u, tp, x_sets),
+                         dense_tp(p["in_proj_bc"], u, tp, sets["bc"])], dim=-1)
+        dt_raw = dense_tp(p["in_proj_dt"], u, tp, tp.range_sets(H))
+    else:
+        zxbcdt = dense_tp(p["in_proj"], u, tp, sets["proj"])
+        z = zxbcdt[..., :xl]
+        xBC = zxbcdt[..., xl:2 * xl + 2 * gl * N]
+        dt_raw = zxbcdt[..., zxbcdt.shape[-1] - hl:]
+
+    conv_state = None
+    if cache is not None:           # the conv tail, gathered for the layer
+        conv = cache["conv"]
+        if tp.cache_dims.get("conv") is not None:
+            conv = tp.gather(conv, tp.cache_dims["conv"])
+        conv_state = tp.select(conv, 2, sets["ch"])
+    xBC, new_conv = _causal_conv(xBC, tp.take(p["conv_w"], -1, sets["ch"]),
+                                 tp.take(p["conv_b"], 0, sets["ch"]),
+                                 conv_state)
+    xBC = F.silu(xBC)
+
+    xh = xBC[..., :xl].reshape(B, S, hl, P)
+    rep = H // G
+
+    def per_head(a):            # (B,S,gl*N) -> (B,S,hl,N): the rank's heads
+        if gl == 1:
+            return a.reshape(B, S, 1, N).expand(B, S, hl, N)
+        if hs.start % rep == 0 and hl == gl * rep:     # whole groups
+            a = a.reshape(B, S, gl, 1, N).expand(B, S, gl, rep, N)
+            return a.reshape(B, S, hl, N)
+        idx = [(hs.start + i) // rep - gs.start for i in range(hl)]
+        return a.reshape(B, S, gl, N)[:, :, idx]
+
+    Bm = per_head(xBC[..., xl:xl + gl * N])
+    Cm = per_head(xBC[..., xl + gl * N:])
+
+    h_sets = tp.range_sets(H)
+    dt = torch.logaddexp(dt_raw.float() + tp.take(p["dt_bias"], 0, h_sets),
+                         torch.zeros((), device=x.device))
+    A = -torch.exp(tp.take(p["A_log"], 0, h_sets))
+
+    state = None
+    if cache is not None:
+        state = cache["ssm"]
+        if tp.cache_dims.get("ssm") is None:           # held whole: a view
+            state = state[:, hs.start:hs.stop]
+    if S == 1 and state is not None:
+        y, new_state = ssd_decode_step(xh, dt, A, Bm, Cm, state)
+    else:
+        y, new_state = ssd_chunked(xh, dt, A, Bm, Cm, s.chunk, state)
+
+    y = y + xh * tp.take(p["D"], 0, h_sets)[:, None].to(y.dtype)
+    y = y.reshape(B, S, xl)
+
+    # gated RMSNorm over the whole d_inner, in f32
+    g = y.float() * F.silu(z.float())
+    if tp.n == 1:
+        var = torch.mean(g * g, dim=-1, keepdim=True)
+    else:
+        var = tp.all_reduce_both(torch.sum(g * g, dim=-1,
+                                           keepdim=True)) / d_in
+    x_sets = tp.head_sets(heads, P)
+    g = g * torch.rsqrt(var + cfg.norm_eps) * \
+        tp.take(p["norm_scale"], 0, x_sets).float()
+    out = tp.reduce_scatter(g.to(x.dtype) @ tp.take(p["out_proj"]["w"], 0,
+                                                    x_sets))
+
+    if cache is not None:
+        if tp.cache_dims.get("ssm") is None and tp.n > 1:
+            cache["ssm"].copy_(tp.gather_sets(new_state, 1, heads, H))
+        else:
+            state.copy_(new_state)
+        whole = tp.gather_sets(new_conv, 2, sets["ch"], d_in + 2 * G * N)
+        cdim = tp.cache_dims.get("conv")
+        cache["conv"].copy_(tp.chunk(whole, cdim) if cdim is not None
+                            else whole)
     return out, cache

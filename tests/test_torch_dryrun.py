@@ -72,7 +72,9 @@ def test_artifact_keys_and_counts(artifacts, shape, mesh):
     assert set(art["analytic"]) == {"memory_analysis", "cost_analysis",
                                     "collective_bytes", "grad_bytes",
                                     "gathered_param_bytes", "saved_bytes",
-                                    "held_bytes", "flops_per_6NT"}
+                                    "held_bytes", "flops_per_6NT",
+                                    "active_param_count",
+                                    "moe_balanced_slots"}
     assert art["n_chips"] == (512 if mesh == "multi" else 256)
     assert art["cost_analysis"]["flops"] > 0
     assert art["cost_analysis"]["bytes accessed"] > 0

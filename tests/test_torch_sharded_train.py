@@ -268,7 +268,9 @@ def test_launcher_refuses_a_cuda_world_without_its_cards():
 
 def test_the_four_rank_script_on_the_cpu(tmp_path):
     """``scripts/port_sharded_nccl.py --device cpu --smoke``: the four-card
-    script's parity gates pass on four gloo processes."""
+    script's parity gates pass on four gloo processes, granite in both
+    layouts, then deepseek-v2-lite (MLA) and mamba2 (the SSD) with the
+    tensor axis on."""
     out = tmp_path / "nccl.jsonl"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
@@ -279,5 +281,7 @@ def test_the_four_rank_script_on_the_cpu(tmp_path):
     records = [json.loads(line) for line in out.read_text().splitlines()]
     assert records[-1]["ok"] and records[-1]["ranks"] == 4
     parity = [r for r in records if r.get("part") == "parity-f32"]
-    assert [r["tensor_enabled"] for r in parity] == [True, False]
+    assert [(r["arch"], r["tensor_enabled"]) for r in parity] == [
+        ("granite-moe-3b-a800m", True), ("granite-moe-3b-a800m", False),
+        ("deepseek-v2-lite-16b", True), ("mamba2-370m", True)]
     assert all(r["weights_agree"] for r in parity)

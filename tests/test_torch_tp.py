@@ -57,15 +57,21 @@ REMAT_CASES = {"granite-remat": ("granite-moe-3b-a800m", {}, 1)}
 # experts, Mamba-2 with tied embeddings, Mamba-2 + attention + MoE,
 # cross-attention with 4 codebooks, sinusoidal positions and the gelu MLP,
 # M-RoPE with vision embeddings. MLA, Mamba-2 and cross-attention compute
-# whole on every tensor rank (ROADMAP F13), so no FLOP bound holds here.
+# on their heads' shards, so the first four also hold the FLOP, saved-bytes
+# and gathered-bytes bounds.
 ARCH_CASES = {"deepseek-v2-lite": ("deepseek-v2-lite-16b", {}, 1),
               "mamba2": ("mamba2-370m", {}, 1),
               "jamba": ("jamba-v0.1-52b", {}, 1),
               "musicgen": ("musicgen-medium", {}, 1),
               "qwen2-vl": ("qwen2-vl-7b", {}, 1)}
+SHARE_CASES = list(CASES) + ["deepseek-v2-lite", "mamba2", "jamba",
+                             "musicgen"]
 FORWARD_CASES = {"chatglm-forward": ("chatglm3-6b", {}),
-                 "granite-forward": ("granite-moe-3b-a800m", {})}
-# the mixers that gather their cache's tensor-sharded dims (parity)
+                 "granite-forward": ("granite-moe-3b-a800m", {}),
+                 "musicgen-cross-forward": ("musicgen-medium",
+                                            {"cross_kv_cache": True}),
+                 "mamba2-forward": ("mamba2-370m", {})}
+# MLA and the Mamba-2 + attention hybrid over 16 layers (parity, relative)
 ARCH_FORWARD_CASES = {"deepseek-v2-lite-forward": ("deepseek-v2-lite-16b",
                                                    {}),
                       "jamba-forward": ("jamba-v0.1-52b", {})}
@@ -225,9 +231,13 @@ def _forward_case(rank, mesh, arch, over) -> dict:
     model = Model(cfg, dtype=torch.float32, device="cpu")
     params = model.init(torch.Generator().manual_seed(1))
     g = torch.Generator().manual_seed(2)
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, 12), generator=g,
-                           dtype=torch.int32)
-    step = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, 1),
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, 12) + books,
+                                      generator=g, dtype=torch.int32)}
+    if cfg.cross_attention:     # the decode step reads the cross K/V cache
+        prompt["cond_memory"] = torch.randn(BATCH, cfg.n_cond_tokens,
+                                            cfg.d_model, generator=g)
+    step = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, 1) + books,
                                     generator=g, dtype=torch.int32),
             "positions": torch.full((BATCH, 1), 12, dtype=torch.int32)}
     policy = ShardingPolicy(mesh)
@@ -237,8 +247,7 @@ def _forward_case(rank, mesh, arch, over) -> dict:
     prefill = make_sharded_forward(model, policy, -1)
     decode = make_sharded_forward(model, policy, 0)
     with FlopCounterMode(display=False) as counter:
-        p_logits, sc = prefill(sp, shard_batch({"tokens": prompt}, policy),
-                               sc)
+        p_logits, sc = prefill(sp, shard_batch(prompt, policy), sc)
         peak = prefill.stats["gathered_bytes"]
         d_logits, sc = decode(sp, shard_batch(step, policy), sc)
     flops = _mm_flops(counter)
@@ -252,8 +261,8 @@ def _forward_case(rank, mesh, arch, over) -> dict:
     ax = BatchAxes(policy, BATCH)
     u_cache = model.init_cache(BATCH // ax.size, 16)
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
-        model.forward(params, {"tokens": ax.local(prompt)}, u_cache,
-                      logits_at=11)
+        model.forward(params, {k: ax.local(v) for k, v in prompt.items()},
+                      u_cache, logits_at=11)
         model.forward(params, {k: ax.local(v) for k, v in step.items()},
                       u_cache)
     worst = _worst(rank, {"flops_ratio": flops / _mm_flops(counter),
@@ -262,7 +271,7 @@ def _forward_case(rank, mesh, arch, over) -> dict:
     if rank != 0:
         return {}
     with torch.no_grad():
-        u1 = model.forward(params, {"tokens": prompt}, cache)[0][:, -1]
+        u1 = model.forward(params, prompt, cache)[0][:, -1]
         u2 = model.forward(params, step, cache)[0][:, 0]
     return dict(
         worst,
@@ -310,14 +319,14 @@ def test_tensor_parallel_steps_equal_unsharded(world, case):
         assert abs(s - u) <= 1e-5 * abs(u), (case, r)
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", SHARE_CASES)
 def test_a_rank_computes_and_saves_its_share(world, case):
     r = world[case]
     assert r["flops_ratio"] <= RATIO, (case, r)
     assert r["saved_ratio"] <= RATIO, (case, r)
 
 
-@pytest.mark.parametrize("case", list(CASES) + list(REMAT_CASES))
+@pytest.mark.parametrize("case", SHARE_CASES + list(REMAT_CASES))
 def test_gathered_bytes_stay_within_a_block(world, case):
     r = world[case]
     assert r["gathered_over_bound"] <= 1.0, (case, r)
@@ -349,12 +358,12 @@ def test_tensor_parallel_prefill_and_decode(world, case):
 
 @pytest.mark.parametrize("case", list(ARCH_FORWARD_CASES))
 def test_whole_mixers_prefill_and_decode(world, case):
-    """MLA and Mamba-2 layers gather their cache's tensor-sharded dims for
-    the layer and write back their chunk: prefill and decode equal the
-    unsharded forward, the cache in its placements. Relative to the
-    largest value: jamba's 16 layers of f32 scans grow the two sides'
-    rounding (1-2 ulps at its first layer, about 1e-5 of values near 4 at
-    its last)."""
+    """MLA reads and writes its latent cache's chunk, the Mamba-2 mixer its
+    heads' SSM state (and the conv tail, gathered for the layer): prefill
+    and decode equal the unsharded forward, the cache in its placements.
+    Relative to the largest value: jamba's 16 layers of f32 scans grow the
+    two sides' rounding (1-2 ulps at its first layer, about 1e-5 of values
+    near 4 at its last)."""
     r = world[case]
     assert r["logits_diff"] <= PARAM_TOL * r["logits_scale"], (case, r)
     assert r["cache_diff"] <= PARAM_TOL * r["cache_scale"], (case, r)

@@ -53,11 +53,6 @@ def _cases(rank, group):
     xs, ws = _inputs((2, 6), 4), _inputs((2, 3), 5)
     run("reduce_scatter", lambda x: tp.reduce_scatter(x, -1, group),
         xs, ws, sum(xs).chunk(N, -1)[rank], torch.cat(ws, -1))
-    # scatter: own chunk of a whole tensor; backward all-gather
-    x_same = [_inputs((4, 6), 6)[0]] * N
-    run("scatter", lambda x: tp.scatter(x, 0, group), x_same,
-        _inputs((2, 6), 7), x_same[0].chunk(N, 0)[rank],
-        torch.cat(_inputs((2, 6), 7), 0))
     # copy_to: identity; backward all-reduce
     xs, ws = _inputs((5,), 8), _inputs((5,), 9)
     run("copy_to", lambda x: tp.copy_to(x, group), xs, ws, xs[rank],
@@ -103,6 +98,12 @@ def _cases(rank, group):
     got = tp.gather_sets(full[:, ranges[rank].start:ranges[rank].stop],
                          1, group, ranges, 5)
     out["gather_sets"] = (_diff(got, full), 0.0)
+    # gather_sets of index sets (forward only): uneven, overlapping,
+    # out of order within the whole
+    sets = tp.Sets([[4, 0, 2], [2, 1, 3]])
+    got = tp.gather_sets(full[:, torch.as_tensor(sets[rank])], 1, group,
+                         sets, 5)
+    out["gather_index_sets"] = (_diff(got, full), 0.0)
     # all_reduce_max (forward only)
     xs = _inputs((4,), 16)
     got = tp.all_reduce_max(xs[rank], group)
@@ -153,9 +154,10 @@ def world(tmp_path_factory):
     return json.loads(out.read_text())
 
 
-CASES = ["all_gather", "all_gather_slice", "reduce_scatter", "scatter",
-         "copy_to", "reduce_from", "all_reduce_both", "relayout_same_dim",
-         "relayout_other_dim", "gather_sets", "all_reduce_max", "take"]
+CASES = ["all_gather", "all_gather_slice", "reduce_scatter", "copy_to",
+         "reduce_from", "all_reduce_both", "relayout_same_dim",
+         "relayout_other_dim", "gather_sets", "gather_index_sets",
+         "all_reduce_max", "take"]
 
 
 @pytest.mark.parametrize("case", CASES)
