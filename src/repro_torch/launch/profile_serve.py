@@ -14,8 +14,7 @@ device time of each of the port's own kernels (``port_kernels``, by source:
 each CUDA kernel's device time and launches, so that a source's routes
 read apart: the paged and the dense decode kernel, the split-K, wgmma and
 tiled dequant-matmul) whether or not it is among the top,
-and the device's busy share: the profiled run's device time over the timed
-run's wall time. The timed run is traced (`repro_torch.obs`): the line adds
+and the profiled run's device time. The timed run is traced (`repro_torch.obs`): the line adds
 its CUDA graph captures, their host time, and its replays (one capture a
 batch, a replay for each decode step after the first), and the host's mean
 time a decode step
@@ -78,11 +77,11 @@ def kernel_name(symbol: str) -> str:
 
 
 def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
-    """Device time by kernel from a ``torch.profiler`` trace, and the share
-    of ``wall_s`` the device was busy (kernels of one stream do not
-    overlap). The device-side copies of ``record_function`` ranges (the
-    kernel scopes) are left out: they would count their kernels twice.
-    Empty without device activity (a CPU run)."""
+    """Device time by kernel from a ``torch.profiler`` trace, and its sum
+    (``device_busy_s``: kernels of one stream do not overlap) beside the
+    timed run's ``wall_s``. The device-side copies of ``record_function``
+    ranges (the kernel scopes) are left out: they would count their
+    kernels twice. Empty without device activity (a CPU run)."""
     from torch.autograd import DeviceType
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
@@ -105,7 +104,6 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
                             "count": sum(r[2] for r in hits),
                             "by_kernel": by_kernel}
     return {"wall_s": wall_s, "device_busy_s": busy_us / 1e6,
-            "device_busy_share": busy_us / 1e6 / wall_s if rows else None,
             "kernels": [{"name": k[:120], "device_ms": us / 1e3,
                          "share": us / busy_us, "count": n}
                         for k, us, n in rows[:top]],

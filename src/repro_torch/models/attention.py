@@ -36,6 +36,7 @@ import torch
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Params, Shapes, apply_rope, dense,
                                        dense_init, dense_shapes, dense_tp)
+from repro_torch.obs.segments import mark
 
 NEG_INF = -1e30
 
@@ -213,10 +214,12 @@ def gqa_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
     """
     B, S, _ = x.shape
     hd = cfg.hd
+    mark("attn.qkv")
     q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
     k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
     v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
 
+    mark("attn.rope_kv")
     if cfg.rope_variant not in ("none", "sinusoidal"):
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction,
                        cfg.mrope_sections)
@@ -229,6 +232,7 @@ def gqa_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
     if cache is None or (S > 1 and not decode):
         # ---- train / prefill over the full (possibly windowed) sequence;
         # the flash kernel's positions are an iota from 0: fresh prefill only
+        mark("attn.core")
         if use_kernel:
             from repro_torch.kernels.flash_attention import ops as fa_ops
             out = fa_ops.flash_attention(q, k, v, window=cfg.attn_window,
@@ -243,6 +247,7 @@ def gqa_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
             new_cache = (_fill_cache_paged(cache, k, v, pos1d, block_table)
                          if block_table is not None
                          else _fill_cache(cfg, cache, k, v, pos1d))
+        mark("attn.out")
         y = dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd))
         return y, new_cache
 
@@ -252,6 +257,7 @@ def gqa_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         new_cache = _fill_cache_paged(cache, k, v, pos1d, block_table)
         ck, cv, cpos = new_cache["k"], new_cache["v"], new_cache["pos"]
         quantized = ck.dtype == torch.int8
+        mark("attn.core")
         if use_kernel and not quantized and S == 1:
             from repro_torch.kernels.decode_attention import ops as da_ops
             out = da_ops.paged_decode_attention(
@@ -278,6 +284,7 @@ def gqa_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                 vc = (vc.float() * vsc[:, :n, :, None]).to(q.dtype)
             ok = (pc[:, None, :] >= 0) & (pc[:, None, :] <= pos1d[:, :, None])
             out = sdpa(q, kc, vc, ok, scale)
+        mark("attn.out")
         y = dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd))
         return y, new_cache
 
@@ -291,6 +298,7 @@ def gqa_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
     cv[bidx, slot] = v.to(cv.dtype)
     cpos[bidx, slot] = pos1d.to(torch.int32)
 
+    mark("attn.core")
     if use_kernel and S == 1:
         from repro_torch.kernels.decode_attention import ops as da_ops
         out = da_ops.decode_attention_cache(q, ck, cv, cpos,
@@ -303,6 +311,7 @@ def gqa_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         if cfg.attn_window is not None:
             ok &= cpos[:, None, :] > pos1d[:, :, None] - cfg.attn_window
         out = sdpa(q, ck, cv, ok, scale)
+    mark("attn.out")
     y = dense(p["wo"], out.reshape(B, S, cfg.n_heads * hd))
     return y, cache
 

@@ -25,6 +25,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Params, dense_shapes, mlp, mlp_init,
                                        mlp_shapes, mlp_tp, rmsnorm,
                                        rmsnorm_init, rmsnorm_tp)
+from repro_torch.obs.segments import mark
 
 
 def layer_kinds(cfg: ArchConfig, n_prefix: int):
@@ -129,11 +130,16 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
     if cfg.cross_attention and cfg.cross_kv_cache and cache is not None \
             and (x.shape[1] == 1 or decode):
         cross_kv = (cache["xk"], cache["xv"])
+    # segment marks (`repro_torch.obs.segments`): no-ops outside a timing
+    # capture; GQA marks its own phases
+    mark("attn.norm")
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if mixer != "a":
+        mark("mixer")
         y, new_cache = ssm_mod.ssm_forward(p["ssm"], cfg, h, cache,
                                            use_kernel=use_kernel)
     elif cfg.mla is not None:
+        mark("mixer")
         y, new_cache = attn.mla_forward(p["attn"], cfg, h, positions, cache,
                                         absorbed_decode=cfg.mla_absorbed,
                                         use_kernel=use_kernel)
@@ -142,8 +148,10 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                                         use_kernel=use_kernel,
                                         block_table=block_table,
                                         kv_len=kv_len, decode=decode)
+    mark("attn.residual")
     x = x + y
     if cfg.cross_attention and (memory is not None or cross_kv is not None):
+        mark("cross")
         y, (k, v) = attn.cross_forward(p["cross"], cfg,
                                        rmsnorm(p["ln_x"], x, cfg.norm_eps),
                                        memory, cached_kv=cross_kv)
@@ -152,13 +160,16 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
             # in place: a decode graph addresses these tensors
             new_cache["xk"].copy_(k)
             new_cache["xv"].copy_(v)
-    if "moe" in p:
+    if "moe" in p or "mlp" in p:
+        mark("ffn.norm")
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        y, aux = moe_mod.moe_forward(p["moe"], cfg, h, use_kernel=use_kernel)
+        if "moe" in p:
+            y, aux = moe_mod.moe_forward(p["moe"], cfg, h,
+                                         use_kernel=use_kernel)
+        else:
+            y = mlp(p["mlp"], h, cfg.mlp_variant)
+        mark("ffn.residual")
         x = x + y
-    elif "mlp" in p:
-        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + mlp(p["mlp"], h, cfg.mlp_variant)
     return x, new_cache, aux
 
 

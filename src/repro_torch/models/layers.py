@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.obs.segments import mark
+
 Params = Dict[str, torch.Tensor]
 Shapes = Dict[str, Tuple[int, ...]]
 
@@ -108,10 +110,21 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, variant: str,
 
 
 def mlp(p: Params, x: torch.Tensor, variant: str) -> torch.Tensor:
+    """The dense FFN, its segments marked (`repro_torch.obs.segments`)."""
+    mark("mlp.up")
     if variant == "swiglu":
-        return dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
+        g, u = dense(p["gate"], x), dense(p["up"], x)
+        mark("mlp.act")
+        g = F.silu(g)          # rebound: the pre-activation is freed
+        a = g * u
+        mark("mlp.down")
+        return dense(p["down"], a)
+    u = dense(p["fc_in"], x)
+    mark("mlp.act")
     # jax.nn.gelu defaults to the tanh approximation
-    return dense(p["fc_out"], F.gelu(dense(p["fc_in"], x), approximate="tanh"))
+    a = F.gelu(u, approximate="tanh")
+    mark("mlp.down")
+    return dense(p["fc_out"], a)
 
 
 # --------------------------------------------------------------------------- RoPE

@@ -28,6 +28,7 @@ from repro_torch.models.layers import (embed, embed_init, embed_shapes,
                                        embed_tp, lm_head, lm_head_init,
                                        lm_head_shapes, lm_head_tp, rmsnorm,
                                        rmsnorm_init, rmsnorm_tp)
+from repro_torch.obs.segments import mark
 
 
 def _index(tree, i: int):
@@ -196,6 +197,7 @@ class Model:
             if cfg.mrope_sections:
                 positions = positions[..., None].expand(B, S, 3)
 
+        mark("embed")
         h = (embed(params["embed"], tokens) if tp is None
              else embed_tp(params["embed"], tokens, tp))
         # the residual stream's d_model range on this rank
@@ -254,12 +256,14 @@ class Model:
                     bp, cfg, h, positions, sub_cache, memory, **kw)
             aux_total = aux_total + aux
 
+        mark("head.norm")
         if tp is not None:
             h = rmsnorm_tp(params["final_norm"], h, cfg.norm_eps, tp)
         else:
             h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
         if logits_at is not None:
             h = h[:, logits_at:logits_at + 1]
+        mark("head.vocab")
         if tp is not None:
             tied = cfg.tie_embeddings
             logits = lm_head_tp(params["embed"]["table"] if tied

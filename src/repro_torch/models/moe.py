@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Params, dense, dense_init, mlp,
                                        mlp_init, mlp_partial, normal_)
+from repro_torch.obs.segments import mark
 
 
 def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype, device,
@@ -209,14 +210,17 @@ def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
     dev = x.device
     xf = x.reshape(T, d)
 
+    mark("moe.route")
     gate_vals, expert_idx, aux = _route(p["router"], cfg, xf, None)
 
     if cfg.moe_dense_decode and T <= 512:
         # every expert on every token: exact (no capacity drops), for a
         # handful of decode tokens
+        mark("moe.gemm")
         h_all = F.silu(torch.einsum("td,edf->tef", xf, p["gate"])) * \
             torch.einsum("td,edf->tef", xf, p["up"])
         y_all = torch.einsum("tef,efd->ted", h_all, p["down"])  # (T, E, d)
+        mark("moe.combine")
         weights = torch.zeros((T, E), dtype=torch.float32, device=dev)
         weights.scatter_add_(1, expert_idx, gate_vals)
         y = torch.einsum("te,ted->td", weights, y_all.float())
@@ -232,6 +236,7 @@ def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
     xe = buf[:E * C].reshape(E, C, d)
 
     # ---- expert SwiGLU: three grouped products
+    mark("moe.gemm")
     if use_kernel:
         from repro_torch.kernels.moe_gemm import ops as mg_ops
         h = F.silu(mg_ops.moe_gemm(xe, p["gate"])) * \
@@ -244,6 +249,7 @@ def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
     # ---- combine: each (token, k) reads its slot (the zero drop row when
     # dropped), scaled by its gate in the model dtype, summed over k in f32
+    mark("moe.combine")
     y = _combine(ye, order, dest, gate_vals, T, K)
     y = y.to(x.dtype).reshape(B, S, d)
 

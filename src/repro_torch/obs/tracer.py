@@ -1,11 +1,11 @@
 """Request-span tracing for the serving pipeline.
 
-A span is one named interval on an **explicit clock**: the emitter supplies
-``t0_s``/``t1_s`` and says which clock they came from (``clock="sim"`` — the
-scheduler's simulated pipeline clock the SLA caps are defined on — or
-``clock="wall"`` for backend execution timings). The tracer never reads time
-itself, so sim-clock and wall-clock spans coexist in one trace without
-lying about comparability.
+A span is one named interval on an **explicit clock**: ``clock="sim"`` is
+the scheduler's simulated pipeline clock the SLA caps are defined on,
+``clock="wall"`` the host's ``time.perf_counter``. ``emit`` records an
+interval whose times the emitter supplies; ``span(name)`` is a context
+manager that reads the wall clock at its entry and exit. So sim-clock and
+wall-clock spans coexist in one trace without lying about comparability.
 
 Lifecycle of one admitted request (sim clock unless noted)::
 
@@ -20,20 +20,46 @@ children. `reconstruct_lifecycles` inverts this: given the emitted spans it
 rebuilds every admitted request's admit→release chain and reports whether
 the chain is complete and time-ordered (the serving bench gates on it).
 
+On the wall clock the scheduler and the backend nest their phases with
+``span``: a span opened inside another is its child (``parent_id``)::
+
+    step ─┬─ step.policy
+          ├─ step.form ── prefill ─┬─ enqueue
+          │                        └─ sync
+          ├─ decode ─┬─ enqueue     (a timed one's readout and device_time
+          │          │               come at the next decode step)
+          │          └─ sync
+          └─ step.retire
+
+plus one ``queued`` span a request, from ``submit`` to the ``step.form``
+that placed it. While a profiler records, each wall span also opens the
+profiler range ``repro_torch.serving/<name>`` (`SPAN_PREFIX`), and on the
+card an NVTX range of that name (`repro_torch.obs.profiling.scoped_range`).
+The tracer notes, once, ``clock_offset_ns = time.time_ns() -
+time.perf_counter_ns()``; `save` writes it as a header record, so that a
+span at ``t`` lands at ``t * 1e9 + clock_offset_ns`` on the realtime clock
+of the profiler's Chrome trace (its ``ts * 1000 + baseTimeNanoseconds``).
+
 Spans are JSONL-ready dicts (`Span.as_record`) with ``kind: "span"`` —
 `TraceStore` validates and persists them next to kernel/energy/serve
 records, so span traces ride the same files the `CalibrationFitter` reads.
 
-`NullTracer` is the zero-cost default: ``enabled`` is False and ``emit`` is
-a no-op, so instrumented hot paths guard on one attribute load. Emitting is
-a pure observation — tracers never touch the rng stream; the obs on/off
+`NullTracer` is the zero-cost default: ``enabled`` is False, ``emit`` is
+a no-op and ``span`` returns a shared no-op, so instrumented hot paths
+guard on one attribute load and open no range. Emitting is a pure
+observation — tracers never touch the rng stream; the obs on/off
 bit-parity test pins that.
 """
 from __future__ import annotations
 
 import json
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, List, Optional, Union
+
+import torch
+
+from repro_torch.obs.profiling import scoped_range
 
 #: canonical span names in lifecycle order (docs + lifecycle checker).
 #: preempt/resume/cancel are the robustness detours: a preempted request
@@ -43,6 +69,9 @@ from typing import Any, Dict, Iterable, List, Optional, Union
 LIFECYCLE = ("admit", "queue", "schedule", "prefill", "decode",
              "verify", "early_stop", "preempt", "resume", "cancel",
              "release")
+
+#: prefix of the profiler and NVTX range of every wall-clock span
+SPAN_PREFIX = "repro_torch.serving"
 
 
 @dataclass
@@ -71,13 +100,78 @@ class Span:
         return rec
 
 
+class _OpenSpan:
+    """A wall-clock span while it is open (`Tracer.span`): ``set`` adds
+    attributes, ``span_id`` names it as a parent; its record is added at
+    its exit (not when its body raised)."""
+
+    __slots__ = ("_tracer", "name", "attrs", "span_id", "parent_id",
+                 "batch_id", "t0_s", "_range")
+
+    def __init__(self, tracer: "Tracer", name: str,
+                 parent_id: Optional[int], attrs: Dict[str, Any]):
+        self._tracer = tracer
+        self.name = name
+        self.attrs = attrs
+        self.parent_id = parent_id
+        self.span_id = -1
+        self.t0_s = 0.0
+
+    def set(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+    def __enter__(self) -> "_OpenSpan":
+        tr = self._tracer
+        self.span_id = tr._next
+        tr._next += 1
+        if self.parent_id is None and tr._open:
+            self.parent_id = tr._open[-1]
+        tr._open.append(self.span_id)
+        self.batch_id = tr.batch_context
+        self._range = scoped_range(f"{SPAN_PREFIX}/{self.name}", tr._nvtx)
+        self._range.__enter__()
+        self.t0_s = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = time.perf_counter()
+        self._range.__exit__(exc_type, exc, tb)
+        tr = self._tracer
+        tr._open.pop()
+        if exc_type is None:
+            tr._add(Span(self.span_id, self.name, self.t0_s, t1,
+                         clock="wall", parent_id=self.parent_id,
+                         batch_id=self.batch_id, attrs=self.attrs))
+        return False
+
+
+class _NoSpan:
+    """`NullTracer.span`'s shared no-op."""
+
+    __slots__ = ()
+    span_id = -1
+    t0_s = 0.0
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
 class Tracer:
     """Collects spans; optionally mirrors them into a `TraceStore`.
 
-    ``emit`` is the whole API: components report completed (or point)
-    intervals with explicit timestamps. ``batch_context`` is scratch the
-    scheduler sets around backend calls so backend-emitted wall-clock spans
-    pick up the forming batch's id without widening the duck-typed backend
+    ``emit`` reports a completed (or point) interval with explicit
+    timestamps; ``span`` times a block on the wall clock. ``batch_context``
+    is scratch the scheduler sets around backend calls so backend spans
+    pick up the batch's id without widening the duck-typed backend
     signature.
     """
 
@@ -89,6 +183,15 @@ class Tracer:
         self.batch_context: Optional[int] = None
         self._roots: Dict[int, int] = {}   # request_id -> admit span_id
         self._next = 0
+        self._open: List[int] = []        # the open wall spans' ids
+        self._nvtx = torch.cuda.is_available()
+        #: the realtime clock (the profiler trace's) less ``perf_counter``
+        self.clock_offset_ns = time.time_ns() - time.perf_counter_ns()
+
+    def _add(self, span: Span) -> None:
+        self.spans.append(span)
+        if self.store is not None:
+            self.store.ingest(span.as_record())
 
     def emit(self, name: str, t0_s: float, t1_s: Optional[float] = None,
              *, clock: str = "sim", request_id: Optional[int] = None,
@@ -109,17 +212,27 @@ class Tracer:
                     batch_id=batch_id, sample=sample, attrs=attrs)
         if name == "admit" and request_id is not None:
             self._roots[request_id] = sid
-        self.spans.append(span)
-        if self.store is not None:
-            self.store.ingest(span.as_record())
+        self._add(span)
         return sid
+
+    def span(self, name: str, *, parent_id: Optional[int] = None,
+             **attrs) -> _OpenSpan:
+        """A wall-clock span around a ``with`` block: ``time.perf_counter``
+        at its entry and exit, ``batch_id`` from ``batch_context``, and as
+        parent the innermost span open around it (or ``parent_id``). The
+        block may ``set`` attributes on it."""
+        return _OpenSpan(self, name, parent_id, attrs)
 
     def records(self) -> List[Dict[str, Any]]:
         return [s.as_record() for s in self.spans]
 
     def save(self, path: str) -> str:
-        """Write every span as one JSON line (`TraceStore.load`-compatible)."""
+        """Write the clock header (``kind: "clock"``, ``clock_offset_ns``),
+        then every span, one JSON line each (`TraceStore.load`-compatible)."""
         with open(path, "w") as f:
+            f.write(json.dumps({"kind": "clock",
+                                "clock_offset_ns": self.clock_offset_ns})
+                    + "\n")
             for s in self.spans:
                 f.write(json.dumps(s.as_record()) + "\n")
         return path
@@ -129,7 +242,8 @@ class Tracer:
 
 
 class NullTracer:
-    """Disabled tracer: ``emit`` no-ops; hot paths guard on ``enabled``."""
+    """Disabled tracer: ``emit`` no-ops, ``span`` returns a shared no-op;
+    hot paths guard on ``enabled``."""
 
     enabled = False
 
@@ -139,6 +253,9 @@ class NullTracer:
 
     def emit(self, *a, **k) -> int:
         return -1
+
+    def span(self, *a, **k) -> _NoSpan:
+        return NO_SPAN
 
     def records(self) -> List[Dict[str, Any]]:
         return []

@@ -28,6 +28,8 @@ open calibration items describe:
 * ``span`` — request-lifecycle spans from `repro_torch.obs.Tracer` (admit ->
   queue -> schedule -> prefill -> decode -> release, explicit sim/wall
   clock): per-request latency attribution riding the same JSONL files.
+* ``clock`` — the header `repro_torch.obs.Tracer.save` writes first: its
+  ``clock_offset_ns`` puts the wall spans on a profiler trace's clock.
 * ``spec`` — per-batch speculative-decode outcomes from the scheduler
   (draft policy, depth, proposed/accepted draft token counts, optionally
   the serving model and merged tier): the `CalibrationFitter` aggregates
@@ -58,6 +60,8 @@ _SCHEMAS: Dict[str, tuple] = {
               "energy_j", "latency_s"),
     "span": ("name", "t0_s", "t1_s"),
     "spec": ("t_s", "policy", "n", "proposed", "accepted"),
+    # a saved span file's header: the realtime clock less perf_counter
+    "clock": ("clock_offset_ns",),
 }
 
 

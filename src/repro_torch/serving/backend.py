@@ -83,6 +83,19 @@ of ``spec_n + 1`` token slots a sequence for the tail writes of finished
 rows (`request_blocks` prices it). On the card verifies replay one CUDA
 graph a shape and draft depth, kept beside the decode graphs of the same
 cache; a batch's first verify runs eagerly until its shape has one.
+
+Tracing (a live ``obs.tracer``): each prefill and decode is a wall-clock
+span (`repro_torch.obs.tracer`) with two children, ``enqueue`` (the
+forward's device work enqueued: for a replay the step's `load` and the
+graph launch) and ``sync`` (the host blocked on the step's token copy);
+from the start of the first to the end of the second the device holds the
+forward's work. A decode graph captured while tracing is on carries a
+timed copy (`repro_torch.serving.graphs`), which one replay in
+`DEVICE_TIME_EVERY` takes. Its events are read at the next decode step,
+once that step's work is enqueued, so the host reads them while the
+device computes: a ``readout`` span, and a ``device_time`` span with the
+milliseconds by segment (`repro_torch.obs.segments`), both children of
+the timed replay's ``decode`` span.
 """
 from __future__ import annotations
 
@@ -99,6 +112,7 @@ from repro_torch.models import cache as cache_mod
 from repro_torch.models.model import Model
 from repro_torch.obs import NULL_OBS
 from repro_torch.obs.metrics import RATIO_BUCKETS
+from repro_torch.obs.segments import mark
 from repro_torch.quant.quantize import param_bytes, params_quant_format
 from repro_torch.serving.graphs import (DecodeGraph, GraphStats,
                                         StaticDecodeStep, StaticVerifyStep)
@@ -108,6 +122,10 @@ from repro_torch.spec.verify import verify_tokens
 
 #: ``(shape, device) -> float32 tensor`` of standard Gumbel draws
 NoiseSource = Callable[[Tuple[int, ...], torch.device], torch.Tensor]
+#: with tracing on, one decode replay in this many takes its graph's timed
+#: copy: at one in 8 the timed replays' event nodes and launches lengthened
+#: a traced run's mean decode by 4-6% on an H100 (`PERF.md` §6)
+DEVICE_TIME_EVERY = 32
 
 
 class GumbelNoise:
@@ -505,11 +523,12 @@ class InFlightBatch:
         return self.paged is not None and self.paged.pooled
 
 
-def _host(*ts: torch.Tensor) -> Tuple[np.ndarray, ...]:
+def _host(tracer, *ts: torch.Tensor) -> Tuple[np.ndarray, ...]:
     """A step's outputs (its sampled tokens and logprobs; a verify's accept
     lengths too) on the host. From the card: one synchronisation a step,
     as the reference copies them at once (non-blocking copies into pinned
-    buffers, then one event)."""
+    buffers, then one event); ``tracer`` times the wait as ``sync``."""
+    done = None
     if ts[0].is_cuda:
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 for t in ts]
@@ -517,8 +536,10 @@ def _host(*ts: torch.Tensor) -> Tuple[np.ndarray, ...]:
             dst.copy_(src, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        done.synchronize()
         ts = tuple(host)
+    with tracer.span("sync"):
+        if done is not None:
+            done.synchronize()
     return tuple(t.numpy() for t in ts)
 
 
@@ -590,6 +611,9 @@ class ExecutionBackend:
         self.kv_format = kv_format
         self.cuda_graphs = cuda_graphs
         self.graph_stats = GraphStats()
+        # the last timed replay's (segment timer, decode span id), until
+        # the next decode step reads it
+        self._timed_replay: Optional[Tuple[Any, int]] = None
         self.quant_format = params_quant_format(params)
         self.weight_bytes = param_bytes(params)
         self.allocator: Optional[BlockAllocator] = None
@@ -710,10 +734,12 @@ class ExecutionBackend:
         batch = {"tokens": tokens, **extras}
         if block_table is not None:
             batch["block_table"] = block_table
-        logits, cache, _ = self.model.forward(params, batch, cache)
-        if copy_src is not None:
-            # CoW fan-out of the shared partial prefix block, in place
-            cache = cache_mod.copy_cache_blocks(cache, copy_src, copy_dst)
+        with self.obs.tracer.span("enqueue"):
+            logits, cache, _ = self.model.forward(params, batch, cache)
+            if copy_src is not None:
+                # CoW fan-out of the shared partial prefix block, in place
+                cache = cache_mod.copy_cache_blocks(cache, copy_src,
+                                                    copy_dst)
         return logits[:, -1], cache
 
     def _tail_prefill(self, tokens: torch.Tensor, start_pos: int, cache,
@@ -738,8 +764,9 @@ class ExecutionBackend:
             pos = pos[..., None].expand(B, S, 3)
         b = {"tokens": tokens, "positions": pos, "block_table": block_table,
              **extras}
-        logits, _, _ = self.model.forward(self.params, b, cache,
-                                          kv_len=kv_len, decode=True)
+        with self.obs.tracer.span("enqueue"):
+            logits, _, _ = self.model.forward(self.params, b, cache,
+                                              kv_len=kv_len, decode=True)
         return logits[:, -1]
 
     # ---------------------------------------------------------------- plumbing
@@ -967,33 +994,35 @@ class ExecutionBackend:
                   for k, v in extras.items()}
 
         tracer = self.obs.tracer
-        t0 = time.perf_counter() if tracer.enabled else 0.0
-        n_spec = self._consume_spec_n()
-        if self.prefix_pool is not None:
-            h = self._start_batch_pooled(prompts, repeats, rep, base, B, plen,
-                                         max_new, temperature, noise, extras)
-            # only the post-dedup tails were prefilled
-            prefilled = (len(prompts) * plen
-                         - h.pool_hit_blocks * self.allocator.block_size)
-        elif self.allocator is not None:
-            h = self._start_batch_paged(prompts, repeats, rep, base, B, plen,
-                                        max_new, temperature, noise, extras)
-            prefilled = len(prompts) * plen     # one row per unique prompt
-        else:
-            h = self._start_batch_dense(prompts, repeats, rep, base, B, plen,
-                                        max_new, temperature, noise, extras)
-            prefilled = B * plen
-        if h.pending_prefill is not None:
-            # chunked: nothing forwarded yet; each slice meters its own
-            # tokens, and the draft depth arms when the last one lands
-            prefilled = 0
-            h.pending_prefill.n_spec = n_spec
-        elif n_spec > 0:
-            self._arm_spec(h, n_spec)
-        self._live[id(h)] = h
-        if tracer.enabled:
-            tracer.emit("prefill", t0, time.perf_counter(), clock="wall",
-                        prefill_tokens=prefilled, n_sequences=B, plen=plen)
+        with tracer.span("prefill") as span:
+            n_spec = self._consume_spec_n()
+            if self.prefix_pool is not None:
+                h = self._start_batch_pooled(prompts, repeats, rep, base, B,
+                                             plen, max_new, temperature,
+                                             noise, extras)
+                # only the post-dedup tails were prefilled
+                prefilled = (len(prompts) * plen
+                             - h.pool_hit_blocks * self.allocator.block_size)
+            elif self.allocator is not None:
+                h = self._start_batch_paged(prompts, repeats, rep, base, B,
+                                            plen, max_new, temperature,
+                                            noise, extras)
+                prefilled = len(prompts) * plen  # one row per unique prompt
+            else:
+                h = self._start_batch_dense(prompts, repeats, rep, base, B,
+                                            plen, max_new, temperature,
+                                            noise, extras)
+                prefilled = B * plen
+            if h.pending_prefill is not None:
+                # chunked: nothing forwarded yet; each slice meters its own
+                # tokens, and the draft depth arms when the last one lands
+                prefilled = 0
+                h.pending_prefill.n_spec = n_spec
+            elif n_spec > 0:
+                self._arm_spec(h, n_spec)
+            self._live[id(h)] = h
+            if tracer.enabled:
+                span.set(prefill_tokens=prefilled, n_sequences=B, plen=plen)
         if self._m is not None:
             self._m["tokens_in"].inc(prefilled)
             if h.pending_prefill is None:       # else metered at finish
@@ -1018,7 +1047,7 @@ class ExecutionBackend:
         tok, lp = sample_tokens(lf, h.temperature, h.noise)
         h.tok = tok
         h.step = 1
-        toks, lps = _host(tok, self._step_lp(lp))
+        toks, lps = _host(self.obs.tracer, tok, self._step_lp(lp))
         h.out_toks = [toks]
         h.out_lps = [lps]
         return h
@@ -1335,45 +1364,69 @@ class ExecutionBackend:
         if h.done:
             return False
         tracer = self.obs.tracer
-        t0 = time.perf_counter() if tracer.enabled else 0.0
-        step_pos = h.plen + h.step - 1
-        if h.graph is None and self._graphs_on(h):
-            graphs = self._graphs(h)
-            key = self._graph_key(h) + ("decode", not h.temperature > 0)
-            h.graph = graphs.get(key)
-            if h.graph is None and h.step >= 2:
-                # no fallback: a capture that fails raises
-                t_cap = time.perf_counter()
-                h.graph = DecodeGraph.capture(self._static_step(h))
-                self.graph_stats.captures += 1
-                self.graph_stats.capture_s += time.perf_counter() - t_cap
-                self.graph_stats.pool_bytes += h.graph.pool_bytes
-                graphs[key] = h.graph
-        if h.graph is not None:
-            # the graph serves every batch of its shape: load this batch's
-            # last tokens, decode inputs and temperature, and keep its
-            # sampled tokens apart from the graph's output, which the next
-            # replay overwrites
-            tok, lp = h.graph.replay(step_pos, h.noise, tok=h.tok,
-                                     inputs=self._decode_inputs(h),
-                                     temperature=h.temperature)
-            h.tok = tok.clone()
-            self.graph_stats.replays += 1
-        else:
-            pos = torch.full((h.n_sequences, 1), step_pos, dtype=torch.int32,
-                             device=h.tok.device)
-            h.tok, lp = self._decode_fn(h, self._decode_inputs(h))(
-                h.tok[:, None], pos, h.noise, self._temperature(h))
-        toks, lps = _host(h.tok, self._step_lp(lp))
-        h.out_toks.append(toks)
-        h.out_lps.append(lps)
-        h.step += 1
-        if tracer.enabled:
-            tracer.emit("decode", t0, time.perf_counter(), clock="wall",
-                        step=h.step, n_sequences=h.n_sequences)
+        with tracer.span("decode") as span:
+            step_pos = h.plen + h.step - 1
+            if h.graph is None and self._graphs_on(h):
+                graphs = self._graphs(h)
+                key = self._graph_key(h) + ("decode", not h.temperature > 0)
+                h.graph = graphs.get(key)
+                if h.graph is None and h.step >= 2:
+                    # no fallback: a capture that fails raises
+                    t_cap = time.perf_counter()
+                    h.graph = DecodeGraph.capture(self._static_step(h),
+                                                  timed=tracer.enabled)
+                    self.graph_stats.captures += 1
+                    self.graph_stats.capture_s += \
+                        time.perf_counter() - t_cap
+                    self.graph_stats.pool_bytes += h.graph.pool_bytes
+                    graphs[key] = h.graph
+            timed = (tracer.enabled and h.graph is not None
+                     and h.graph.timer is not None
+                     and (self.graph_stats.replays + 1)
+                     % DEVICE_TIME_EVERY == 0)
+            with tracer.span("enqueue"):
+                if h.graph is not None:
+                    # the graph serves every batch of its shape: load this
+                    # batch's last tokens, decode inputs and temperature,
+                    # and keep its sampled tokens apart from the graph's
+                    # output, which the next replay overwrites
+                    tok, lp = h.graph.replay(step_pos, h.noise, tok=h.tok,
+                                             inputs=self._decode_inputs(h),
+                                             temperature=h.temperature,
+                                             timed=timed)
+                    h.tok = tok.clone()
+                    self.graph_stats.replays += 1
+                else:
+                    pos = torch.full((h.n_sequences, 1), step_pos,
+                                     dtype=torch.int32, device=h.tok.device)
+                    h.tok, lp = self._decode_fn(h, self._decode_inputs(h))(
+                        h.tok[:, None], pos, h.noise, self._temperature(h))
+            if self._timed_replay is not None:
+                self._read_device_time()
+            toks, lps = _host(tracer, h.tok, self._step_lp(lp))
+            h.out_toks.append(toks)
+            h.out_lps.append(lps)
+            h.step += 1
+            if tracer.enabled:
+                span.set(step=h.step, n_sequences=h.n_sequences)
+        if timed:
+            self._timed_replay = (h.graph.timer, span.span_id)
         if self._m is not None:
             self._m["tokens_out"].inc(h.n_sequences - len(h.freed_seqs))
         return not h.done
+
+    def _read_device_time(self) -> None:
+        """Read the last timed replay's segments (a ``readout`` span) and
+        emit them as its ``device_time`` span, both children of its
+        ``decode`` span: ms by segment summed over layers, and
+        ``total_ms``."""
+        timer, decode_id = self._timed_replay
+        self._timed_replay = None
+        tracer = self.obs.tracer
+        with tracer.span("readout", parent_id=decode_id):
+            ms = timer.read()
+        tracer.emit("device_time", time.perf_counter(), clock="wall",
+                    parent_id=decode_id, **ms)
 
     def _step_lp(self, lp: torch.Tensor) -> torch.Tensor:
         """A step's logprob a sequence: with K codebooks the mean of the K
@@ -1435,6 +1488,7 @@ class ExecutionBackend:
             logits, _, _ = model.forward(
                 params, {"tokens": tok, "positions": pos, **inputs},
                 cache, kv_len=kv_len)
+            mark("head.sample")
             return sample_tokens(logits[:, 0].float(), temperature, noise,
                                  sampled)
         return decode
@@ -1556,7 +1610,7 @@ class ExecutionBackend:
             out = self._verify_fn(h, self._decode_inputs(h))(
                 toks, pos, draws.get("u"), draws.get("g"),
                 self._temperature(h))
-        return _host(*out)
+        return _host(self.obs.tracer, *out)
 
     def _verify_fn(self, h: InFlightBatch, inputs: Dict[str, torch.Tensor]):
         """The reference's ``_spec_verify`` for ``h``: ``(toks (B, n + 1),

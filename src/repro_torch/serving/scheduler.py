@@ -75,10 +75,19 @@ batch a jax PRNG key, the port hands it a noise source (`_batch_noise`): a
 from ``(SchedulerConfig.seed, batch id)``, or whatever the constructor's
 ``noise_for_batch`` hook returns (a parity test replays the reference's
 per-batch keys through it).
+
+Wall-clock tracing (a live ``obs.tracer``, beside the sim-clock lifecycle
+spans the reference emits): one ``step`` span a ``step()`` call (batches
+in flight, batches formed), with children ``step.policy`` (deadlines,
+shedding, the preemption check), one ``step.form`` a batch formed (it
+holds the batch's ``prefill``), the backend's ``decode`` spans and one
+``step.retire`` a batch retired; and one ``queued`` span an admitted
+request, from ``submit`` to the start of the ``step.form`` that placed it.
 """
 from __future__ import annotations
 
 import math
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
@@ -639,6 +648,9 @@ class ContinuousBatchingScheduler:
         self.shed_total = 0
         self.resume_full_tokens = 0    # re-prefill tokens a pool-less
         self.resume_tail_tokens = 0    # resume would have moved vs moved
+        # tracing on: request id -> perf_counter at submit, until the
+        # batch that places it forms (its ``queued`` span)
+        self._submitted: Dict[int, float] = {}
         # fault state pushed in over the DriftEvent bus (chaos harness /
         # SafetyMonitor): failed devices, KV squeeze, kernel slowdown
         self._failed_devices: set = set()
@@ -701,7 +713,8 @@ class ContinuousBatchingScheduler:
                temperature: Optional[float] = None, rng=None,
                extras: Optional[Dict] = None,
                arrival_s: Optional[float] = None) -> AdmissionResult:
-        return self.queue.submit(
+        t = time.perf_counter() if self.obs.tracer.enabled else 0.0
+        res = self.queue.submit(
             prompt, tier, n_samples=n_samples,
             max_new_tokens=(max_new_tokens if max_new_tokens is not None
                             else self.config.max_new_tokens),
@@ -711,6 +724,9 @@ class ContinuousBatchingScheduler:
             arrival_s=self.clock if arrival_s is None else arrival_s,
             budget=self._capacity_total(),
             cost=getattr(self.backend, "request_cost", None))
+        if res.admitted and self.obs.tracer.enabled:
+            self._submitted[res.request_id] = t
+        return res
 
     # ------------------------------------------------------------- control
     def on_reorchestrate(self, healthy: Optional[Sequence[str]] = None
@@ -915,6 +931,7 @@ class ContinuousBatchingScheduler:
         Only queued (KV-less) requests are cancelled, so nothing can leak;
         a parked resume chain stays an idle, LRU-evictable trie entry."""
         self.cancelled[req.id] = (req, reason)
+        self._submitted.pop(req.id, None)
         if reason == "deadline":
             self.deadline_misses += 1
             if self._m is not None:
@@ -991,6 +1008,25 @@ class ContinuousBatchingScheduler:
                                     bucket=bucket)
         if not reqs:
             return None
+        tracer = self.obs.tracer
+        with tracer.span("step.form") as span:
+            entry = self._place(reqs)
+            if tracer.enabled:
+                rec = entry.record
+                span.batch_id = rec.batch_id
+                span.set(requests=rec.n_requests, tier_mix=dict(rec.tier_mix))
+                for r in entry.requests:
+                    t = self._submitted.pop(r.id, None)
+                    if t is not None:
+                        tracer.emit("queued", t, span.t0_s, clock="wall",
+                                    request_id=r.id, batch_id=rec.batch_id,
+                                    tier=r.tier_name)
+        return entry
+
+    def _place(self, reqs: List[ServeRequest]) -> _InflightEntry:
+        """Form a batch of ``reqs`` (the queue's pop): split off requests
+        whose extras differ, shrink it to the merged caps (the rest return
+        to the queue head), route it, start it on the backend."""
         # extras compatibility: one batch stacks one set of per-request
         # extras rows, so a request with different (or no) extras keys
         # splits the batch there (it heads the next one — FIFO preserved)
@@ -1339,21 +1375,32 @@ class ContinuousBatchingScheduler:
         shedding), check tier preemption, form batches while capacity
         allows, then one decode token per in-flight batch; retire finished
         batches. Returns False when there was nothing to do."""
+        tracer = self.obs.tracer
+        with tracer.span("step") as span:
+            progressed, formed = self._step(tracer)
+            if tracer.enabled:
+                span.set(inflight=len(self.inflight), formed=formed)
+        return progressed
+
+    def _step(self, tracer) -> Tuple[bool, int]:
+        """`step`'s body; returns (progressed, batches formed)."""
         progressed = False
-        self._enforce_deadlines()
-        self._enforce_shedding()
-        # tier preemption returns the outranking waiter's bucket so its
-        # batch forms FIRST — the re-queued victims hold older seqs and
-        # would win the FIFO pop right back otherwise
-        bucket_pref = self._maybe_preempt_for_tier()
+        formed = 0
+        with tracer.span("step.policy"):
+            self._enforce_deadlines()
+            self._enforce_shedding()
+            # tier preemption returns the outranking waiter's bucket so its
+            # batch forms FIRST — the re-queued victims hold older seqs and
+            # would win the FIFO pop right back otherwise
+            bucket_pref = self._maybe_preempt_for_tier()
         while len(self.inflight) < self.config.max_inflight_batches:
             entry = self._form_batch(bucket_pref)
             bucket_pref = None
             if entry is None:
                 break
             self.inflight.append(entry)
+            formed += 1
             progressed = True
-        tracer = self.obs.tracer
         for entry in list(self.inflight):
             if not entry.handle.done:
                 tracer.batch_context = entry.record.batch_id
@@ -1363,8 +1410,9 @@ class ContinuousBatchingScheduler:
                     tracer.batch_context = None
                 progressed = True
             if entry.handle.done:
-                self.inflight.remove(entry)
-                self._retire(entry)
+                with tracer.span("step.retire"):
+                    self.inflight.remove(entry)
+                    self._retire(entry)
                 progressed = True
         if not progressed and not self.inflight and self.queue.pending:
             # everything queued is backoff-parked: jump the sim clock to the
@@ -1375,7 +1423,7 @@ class ContinuousBatchingScheduler:
                 progressed = True
         if self._m is not None:
             self._m["inflight"].set(len(self.inflight))
-        return progressed
+        return progressed, formed
 
     def run_until_idle(self, max_steps: int = 10 ** 6
                        ) -> Dict[int, CompletedRequest]:

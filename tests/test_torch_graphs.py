@@ -10,6 +10,7 @@ its first decode step, bit-equal to eager decoding) over a cache whose
 tensors never move. Reduced configs: chatglm3-6b dense, paged, int4 paged
 and pooled, granite-moe paged, mamba2 (f32).""" 
 import gc
+import time
 import weakref
 
 import numpy as np
@@ -22,6 +23,7 @@ from repro.quant import quantize as jq  # noqa: E402
 from repro.serving import ExecutionBackend as JBackend  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.obs.segments import SegmentTimer  # noqa: E402
 from repro_torch.quant import quantize as tq  # noqa: E402
 from repro_torch.serving import ExecutionBackend as TBackend  # noqa: E402
 from repro_torch.serving import GumbelNoise  # noqa: E402
@@ -58,20 +60,37 @@ def _pair(case):
     return _MODELS[arch] if fmt is None else _MODELS[arch, fmt]
 
 
+class HostEvent:
+    """A timing event on the host's clock, for a timed `EagerGraph`."""
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, later) -> float:
+        return (later.t - self.t) * 1e3
+
+
 class EagerGraph:
     """Stands in for a captured graph on the CPU: each replay runs the
-    static-buffer body eagerly."""
+    static-buffer body eagerly. One captured ``timed`` holds a `timer`; a
+    replay with ``timed`` runs under a fresh `SegmentTimer` of
+    `HostEvent`s, which becomes ``timer``."""
     pool_bytes = 0
 
-    def __init__(self, step: StaticDecodeStep):
+    def __init__(self, step: StaticDecodeStep, timed: bool = False):
         self.step = step
+        self.timer = SegmentTimer(HostEvent) if timed else None
 
     @classmethod
-    def capture(cls, step):
-        return cls(step)
+    def capture(cls, step, timed=False):
+        return cls(step, timed)
 
-    def replay(self, step_pos, noise, **batch):
-        return self.step.run(step_pos, noise, **batch)
+    def replay(self, step_pos, noise, timed=False, **batch):
+        if not timed:
+            return self.step.run(step_pos, noise, **batch)
+        self.timer = SegmentTimer(HostEvent)
+        with self.timer.recording():
+            return self.step.run(step_pos, noise, **batch)
 
 
 @pytest.fixture
@@ -140,7 +159,7 @@ def test_a_batch_with_one_decode_step_is_not_captured(eager_graphs):
 def test_a_failed_capture_raises_and_decodes_nothing(monkeypatch):
     class Refused:
         @classmethod
-        def capture(cls, step):
+        def capture(cls, step, timed=False):
             raise RuntimeError("capture refused")
 
     monkeypatch.setattr(TBackend, "_graphs_on", lambda self, h: True)

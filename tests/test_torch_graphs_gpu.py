@@ -323,3 +323,53 @@ def test_no_automatic_garbage_collection_inside_a_capture(cuda, monkeypatch):
     monkeypatch.setattr(StaticDecodeStep, "__call__", call)
     _serve(model, params, kw, graphs=True)
     assert seen == [(True, False)] and gc.isenabled()
+
+
+@pytest.mark.parametrize("case", ["chatglm-paged", "granite-paged",
+                                  "mamba2-dense"])
+def test_a_timed_graph_samples_alike_and_times_its_segments(cuda, case,
+                                                           monkeypatch):
+    """With the tracer on, the decode graph has a timed copy, captured
+    with a timing event at each segment mark (`repro_torch.obs.segments`),
+    which one replay in `DEVICE_TIME_EVERY` (8 here, so that the batch's
+    blocks fit `PAGED`) takes: the tokens and logprobs equal an untimed
+    serve's bit for bit, and each ``device_time`` holds the model's
+    segments, summing to within 5% of its ``total_ms``, which lies inside
+    the timed replay's ``enqueue`` to ``sync`` window."""
+    from repro_torch.obs import make_observability
+    from repro_torch.obs.segments import SEGMENTS
+    from repro_torch.serving import backend as backend_mod
+    monkeypatch.setattr(backend_mod, "DEVICE_TIME_EVERY", 8)
+    model, params, kw = _model(case)
+    steps = 2 * 8 + 4
+    runs = []
+    for obs in (None, make_observability()):
+        be = ExecutionBackend(model, params, obs=obs, **kw)
+        noise = GumbelNoise(torch.Generator(device="cuda").manual_seed(3))
+        h = be.start_batch(_prompts(model.cfg), 4, steps, 0.8, noise,
+                           _extras(model.cfg))
+        while be.decode_step(h):
+            pass
+        runs.append((np.stack(h.out_toks), np.stack(h.out_lps), obs,
+                     h.graph.timer))
+        be.finalize(h)
+    (toks, lps, _, untimed), (ttoks, tlps, obs, timer) = runs
+    np.testing.assert_array_equal(ttoks, toks)
+    np.testing.assert_array_equal(tlps, lps)
+    assert untimed is None and timer is not None
+    spans = obs.tracer.spans
+    by_id = {s.span_id: s for s in spans}
+    times = [s for s in spans if s.name == "device_time"]
+    assert len(times) == 2
+    for t in times:
+        segs = {k: v for k, v in t.attrs.items() if k != "total_ms"}
+        total = t.attrs["total_ms"]
+        print(f"[device-time] {case}: total {total:.4f} ms, " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(segs.items())))
+        assert set(segs) <= set(SEGMENTS) and total > 0
+        assert abs(sum(segs.values()) - total) <= 0.05 * total
+        dec = by_id[t.parent_id]
+        mine = [s for s in spans if s.parent_id == dec.span_id]
+        (enq,) = [s for s in mine if s.name == "enqueue"]
+        (sync,) = [s for s in mine if s.name == "sync"]
+        assert total <= 1e3 * (sync.t1_s - enq.t0_s)

@@ -77,11 +77,14 @@ def test_preemption_changes_no_token_inside_the_port(pair, routers, mode,
         assert gs.captures >= 1 and not on.backend._pool_graphs
 
 
-def _spans(obs) -> list:
-    """The spans of a drain, less their wall-clock times."""
+def _spans(obs, names=None) -> list:
+    """The spans of a drain, less their wall-clock times; with ``names``,
+    only the spans of those names (the port also emits wall-clock spans of
+    its own, which the reference does not: `test_wall_spans_of_a_drain`
+    pins them)."""
     return [(sp.name, sp.clock, sp.request_id, sp.batch_id, sp.sample,
              sp.attrs, (sp.t0_s, sp.t1_s) if sp.clock == "sim" else None)
-            for sp in obs.tracer.spans]
+            for sp in obs.tracer.spans if names is None or sp.name in names]
 
 
 def test_obs_changes_nothing_and_traces_as_the_reference(pair, routers):
@@ -99,7 +102,8 @@ def test_obs_changes_nothing_and_traces_as_the_reference(pair, routers):
     assert [_record(r) for r in off.sched.records] == \
         [_record(r) for r in on.sched.records]
     _same_results(off.sched, on.sched, 0.0)
-    assert _spans(port_obs) == _spans(ref_obs)
+    ref_names = {sp.name for sp in ref_obs.tracer.spans}
+    assert _spans(port_obs, ref_names) == _spans(ref_obs)
     assert {"preempt", "resume", "early_stop"} <= \
         {sp.name for sp in port_obs.tracer.spans}
     for name, labels in (("serving_preemptions_total", dict(reason="tier")),
@@ -108,6 +112,100 @@ def test_obs_changes_nothing_and_traces_as_the_reference(pair, routers):
         got, want = (obs.metrics.counter(name, labelnames=tuple(labels))
                      .value(**labels) for obs in (port_obs, ref_obs))
         assert got == want > 0
+
+
+def test_wall_spans_of_a_drain(pair, routers, monkeypatch):
+    """The port's own wall-clock spans of a per-batch paged drain through
+    the graph path (the CPU stand-in, timed when tracing is on): one
+    ``step`` a ``step()`` call with its phases inside it, one ``step.form``
+    a batch holding its ``prefill``, one ``queued`` an admitted request
+    (its tier and first batch, ending where that batch's formation
+    starts), an ``enqueue`` and a ``sync`` in every ``decode``, and a
+    ``readout`` and a ``device_time`` of one replay in
+    `DEVICE_TIME_EVERY` (4 here), at the next decode step. Tokens and
+    logprobs bit-equal to tracing off."""
+    from repro_torch.obs import make_observability
+    from repro_torch.obs.segments import SEGMENTS
+    _, _, tm, tp = pair
+    monkeypatch.setattr(TS.ExecutionBackend, "_graphs_on",
+                        lambda self, h: True)
+    monkeypatch.setattr(backend_mod, "DecodeGraph", EagerGraph)
+    # time one replay in 4: the fixture's drain replays a few dozen steps
+    monkeypatch.setattr(backend_mod, "DEVICE_TIME_EVERY", 4)
+    arrivals = _arrivals(routers[1], tm.cfg.vocab_size)
+    off = _serve("port", tm, tp, routers[1], arrivals, "paged")
+    calls = []
+    step = TS.ContinuousBatchingScheduler.step
+    monkeypatch.setattr(TS.ContinuousBatchingScheduler, "step",
+                        lambda self: calls.append(1) or step(self))
+    obs = make_observability()
+    on = _serve("port", tm, tp, routers[1], arrivals, "paged", obs=obs)
+    _same_results(off.sched, on.sched, 0.0)
+
+    spans = [s for s in obs.tracer.spans if s.clock == "wall"]
+    by_id = {s.span_id: s for s in spans}
+    kids = {}
+    for s in spans:
+        kids.setdefault(s.parent_id, []).append(s)
+    named = lambda n: [s for s in spans if s.name == n]   # noqa: E731
+
+    def inside(child, parent):
+        return parent.t0_s <= child.t0_s <= child.t1_s <= parent.t1_s
+
+    steps = named("step")
+    assert len(steps) == len(calls) > 0
+    assert all(s.parent_id is None for s in steps)
+    for name in ("step.policy", "step.form", "step.retire", "decode"):
+        assert named(name)
+        for s in named(name):
+            assert by_id[s.parent_id].name == "step", name
+            assert inside(s, by_id[s.parent_id]), name
+    assert len(named("step.policy")) == len(steps)
+    records = list(on.sched.records)
+    forms = named("step.form")
+    assert [f.batch_id for f in forms] == [r.batch_id for r in records]
+    assert [f.attrs["requests"] for f in forms] == \
+        [r.n_requests for r in records]
+    assert sum(s.attrs["formed"] for s in steps) == len(forms)
+    # a preempted batch returns its requests to the queue: it retires not
+    assert len(named("step.retire")) == \
+        len(records) - sum(on.sched.preemptions.values())
+    for f in forms:
+        (pre,) = [c for c in kids[f.span_id] if c.name == "prefill"]
+        assert pre.batch_id == f.batch_id and inside(pre, f)
+    for fwd in named("prefill") + named("decode"):
+        mine = kids[fwd.span_id]
+        enq = [c for c in mine if c.name == "enqueue"]
+        (sync,) = [c for c in mine if c.name == "sync"]
+        assert enq and all(inside(c, fwd) for c in enq + [sync])
+        assert max(c.t1_s for c in enq) <= sync.t0_s
+    # one queued span an admitted request: its tier, the first batch that
+    # placed it, from its submit to the start of that batch's formation
+    first = {}
+    for r in records:
+        for e in r.request_entries:
+            first.setdefault(e["id"], (r.batch_id, e["tier"]))
+    queued = named("queued")
+    assert sorted(q.request_id for q in queued) == sorted(first) == \
+        sorted(on.sched.completed)
+    form_t0 = {f.batch_id: f.t0_s for f in forms}
+    for q in queued:
+        assert (q.batch_id, q.attrs["tier"]) == first[q.request_id]
+        assert q.t0_s <= q.t1_s == form_t0[q.batch_id]
+    # one replay in 4 takes the timed stand-in; the next decode step reads
+    # its segments (the drain's last timed replay may stay unread)
+    times = named("device_time")
+    replays = on.backend.graph_stats.replays
+    unread = on.backend._timed_replay is not None
+    assert replays >= 8 and len(times) + unread == replays // 4
+    readouts = named("readout")
+    assert [r.parent_id for r in readouts] == [t.parent_id for t in times]
+    for r, t in zip(readouts, times):
+        assert by_id[t.parent_id].name == "decode"
+        assert by_id[t.parent_id].t1_s <= r.t0_s <= r.t1_s <= t.t0_s
+        segs = {k: v for k, v in t.attrs.items() if k != "total_ms"}
+        assert set(segs) <= set(SEGMENTS) and "attn.core" in segs
+        assert sum(segs.values()) == pytest.approx(t.attrs["total_ms"])
 
 
 def test_batch_noise_stream(pair):

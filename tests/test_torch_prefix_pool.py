@@ -31,6 +31,7 @@ from repro.serving import ExecutionBackend as JBackend  # noqa: E402
 from repro.serving import PrefixPool as JPool  # noqa: E402
 from repro_torch.models.cache import \
     prefix_pool_bytes as tpool_bytes  # noqa: E402
+from repro_torch.obs import LIFECYCLE  # noqa: E402
 from repro_torch.obs import make_observability as tobs  # noqa: E402
 from repro_torch.serving import BlockAllocator as TAlloc  # noqa: E402
 from repro_torch.serving import ExecutionBackend as TBackend  # noqa: E402
@@ -332,7 +333,9 @@ def test_pool_metrics_match_the_reference(fixture_pair):
             ratio=(h.sum_value(), h.bucket_counts()),
             tokens_in=reg.counter("serving_tokens_in_total").value(),
             tokens_out=reg.counter("serving_tokens_out_total").value(),
-            spans=[s.name for s in obs.tracer.spans]))
+            # the lifecycle's spans; the port adds wall-clock children
+            spans=[s.name for s in obs.tracer.spans
+                   if s.name in LIFECYCLE]))
     assert values[1] == values[0]
     assert (values[1]["hits"], values[1]["misses"]) == (3, 5)
 
