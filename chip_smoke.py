@@ -18,7 +18,10 @@ Phases, each of which fails the script on error:
    lengths at the flash kernel's 64-row tile edges, cache lengths and
    table widths where the dense and the paged decode kernel's planner
    changes its number of splits and splits that hold no valid slot, a row
-   whose cache slots are all empty, int8 rows and widths about the split-K
+   whose cache slots are all empty, the paged kernel's grouped path at
+   granite-moe-3b-a800m.longdoc's batch beside its per-row launch and at
+   the backlog's, held to one bf16 rounding of the output (`PAGED_TOL`),
+   int8 rows and widths about the split-K
    kernel's tiles, int4 groups of 32, 24 and 8 rows, the MoE kernel test
    shapes of the reference). The MoE, paged, dequant and SSD cases print
    the route the wrapper's planner took (``moe_gemm``: the TMA + wgmma
@@ -77,9 +80,10 @@ Phases, each of which fails the script on error:
    that ran on the card: the calls, less the captures, plus the replays. A
    run fails unless every kernel of its path launched, each dequant
    kernel exactly 196 times a forward (7 linear layers x 28), over int8
-   pools the paged decode kernel not at all,
-   and the MoE kernel exactly 3 times per MoE layer a forward (96 for
-   granite, 78 for deepseek); the SSM serves fail unless the SSD kernel
+   pools the paged decode kernel not at all, its grouped path's prefix
+   kernel never for chatglm3-6b (too few rows x kv heads) and once a paged
+   call for granite-moe-3b-a800m, and the MoE kernel exactly 3 times per
+   MoE layer a forward (96 for granite, 78 for deepseek); the SSM serves fail unless the SSD kernel
    launched once per Mamba layer (at the one prefill: the decode steps take
    the recurrence), the flash kernel once per attention layer, the dense
    decode kernel once per attention layer a decode step and the MoE kernel
@@ -325,6 +329,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# (atol, rtol) of the paged kernel's longdoc, backlog and grouped cases,
+# whose outputs are averages over hundreds to thousands of slots (about
+# 0.03-0.1 in size): one bf16 rounding of the output is up to 7.8e-3 of the
+# value, and f32 read 1.7e-7 on an H100
+PAGED_TOL = {torch.bfloat16: (5e-4, 8e-3), torch.float32: (1e-6, 1e-5)}
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and FLOP/s by type
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -527,6 +536,8 @@ def tensor_core_sass(lib: Path) -> dict:
 SASS_CHECKS = (("flash_attention", "flash_attention_tc_kernel", "HGMMA"),
                ("moe_gemm", "moe_gemm_tc_kernel", "HGMMA"),
                ("decode_attention", "paged_decode_attention_split_kernel",
+                "HMMA"),
+               ("decode_attention", "paged_decode_attention_prefix_kernel",
                 "HMMA"),
                ("dequant_matmul", "dequant_matmul_int8_tc_kernel", "HGMMA"),
                ("ssd_scan", "ssd_scan_chunk_tc_kernel", "HMMA"))
@@ -785,6 +796,47 @@ def paged_route(q, kp, vp, pos, table, q_pos) -> dict:
     return dict(zip(("n_split", "split_slots", "n_hb"), plan))
 
 
+def paged_grouped_case(g, B, H, Hkv, D, bs, plen, max_new, samples, step,
+                       dtype):
+    """`paged_case` with the layout's group descriptor: the grouped path
+    (the prefix kernel over the shared prompt blocks, then the per-row
+    kernel over the tails), its route the per-row split and the prefix
+    kernel's grid, splits and row tiles; held to `PAGED_TOL`."""
+    from repro_torch.kernels.decode_attention.ops import (
+        paged_decode_attention, paged_decode_attention_prefix, prefix_plan)
+    from repro_torch.kernels.decode_attention.split import (
+        group_prefix_splits, groups_engage, groups_taken, min_shared_blocks,
+        prefix_groups, prefix_split_count, row_tiles)
+    case = paged_case(g, B, H, Hkv, D, bs, plen, max_new, samples, step,
+                      dtype)
+    groups_np = prefix_groups([samples] * (B // samples), plen // bs)
+    nb = case["args"][4].shape[1]
+    assert groups_engage(H // Hkv, nb * bs, B * Hkv)
+    assert (groups_taken(groups_np, min_shared_blocks(H // Hkv, bs))[:, 1]
+            > 0).all()
+    groups = torch.as_tensor(groups_np, device="cuda")
+
+    def grouped(*args):
+        return paged_decode_attention(*args, prefix_groups=groups)
+
+    def route(*args):
+        n0 = paged_decode_attention_prefix.launches
+        grouped(*args)
+        if paged_decode_attention_prefix.launches != n0 + 1:
+            raise AssertionError("the grouped call launched no prefix "
+                                 "kernel")
+        r = paged_route(*args)
+        grid, p_cap = prefix_plan(B, r["n_split"], D, D, dtype,
+                                  torch.device("cuda"))
+        tiles = len(row_tiles(groups_np, H // Hkv))
+        n_ps = prefix_split_count(tiles, Hkv, grid, p_cap)
+        return dict(r, prefix_grid=grid, row_tiles=tiles,
+                    prefix_splits=group_prefix_splits(n_ps, plen // bs * bs))
+    case.update(kernel=grouped, route=route, tol=PAGED_TOL[dtype],
+                shape=dict(case["shape"], groups=B // samples))
+    return case
+
+
 def moe_route(x, w) -> dict:
     """The MoE wrapper's plan: the kernel and its tiles."""
     from repro_torch.kernels.moe_gemm.ops import moe_plan
@@ -882,10 +934,11 @@ def run_case(name: str, label: str, case, dtype, iters: int) -> dict:
     outs, refs = ((out, ref) if isinstance(out, tuple)
                   else ((out,), (ref,)))
     tol = case.get("tol", TOL[dtype])
+    atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
     errs = [(o.float() - r.float()).abs() for o, r in zip(outs, refs)]
     err = torch.cat([e.flatten() for e in errs])
     ok = all(bool(torch.isfinite(o.float()).all())
-             and bool((e <= tol + tol * r.float().abs()).all())
+             and bool((e <= atol + rtol * r.float().abs()).all())
              for o, r, e in zip(outs, refs, errs))
     if case["shape"].get("empty_row"):
         ok = ok and bool((out[-1] == 0).all())
@@ -1003,6 +1056,26 @@ def check_kernels(seed: int) -> dict:
              decode_case(g, 32, 2048, H, Hkv, D, 2048, bf), bf, 20)
     run_case("paged_decode_attention", "nb128",
              paged_case(g, 32, H, Hkv, D, 16, 2040, 9, 1, 8, bf), bf, 20)
+    # granite-moe-3b-a800m.longdoc's paged decode: 160 rows, 8 prompts of
+    # 3840 tokens x 20 samples, 4096 slots a row, half the new tokens
+    # decoded; per row (one launch a call) and grouped (two: the prefix
+    # kernel, then the tails), bf16 and f32
+    for dtype in (bf, f32):
+        tag = "" if dtype == bf else "-f32"
+        args = (g, 160, 24, 8, 64, 16, 3840, 256, 20, 128, dtype)
+        run_case("paged_decode_attention", f"longdoc-per-row{tag}",
+                 dict(paged_case(*args), tol=PAGED_TOL[dtype]), dtype, 10)
+        run_case("paged_decode_attention", f"longdoc-grouped{tag}",
+                 paged_grouped_case(*args), dtype, 20)
+    # granite's backlog batch (8 prompts of 128 x 20 samples), and
+    # chatglm3-6b's group of 16 (four rows a row tile) at a 1024-token
+    # prompt, the shortest that planner groups is 512
+    run_case("paged_decode_attention", "backlog-grouped",
+             paged_grouped_case(g, 160, 24, 8, 64, 16, 128, 256, 20, 128,
+                                bf), bf, 50)
+    run_case("paged_decode_attention", "p1024-grouped",
+             paged_grouped_case(g, 160, H, Hkv, D, 16, 1024, 256, 20, 128,
+                                bf), bf, 50)
     # ragged lengths, windows, Dv != D and all-empty rows
     for dtype in (bf, f32):
         run_case("flash_attention", "ragged",
@@ -1116,7 +1189,10 @@ def check_kernels(seed: int) -> dict:
             run_case("ssd_scan", "ragged", ssd_case(g, *shape, dtype), dtype,
                      10)
     check_arch_kernels(g)
-    assert set(main) == set(KERNELS), (sorted(main), sorted(KERNELS))
+    # the grouped path's prefix kernel runs inside the paged wrapper's
+    # grouped cases: a launch count of its own, no main case
+    assert set(main) | {"paged_decode_attention_prefix"} == set(KERNELS), \
+        (sorted(main), sorted(KERNELS))
     return main
 
 
@@ -1236,8 +1312,10 @@ def serve_run(model, params, prompts, seed: int, paged: bool,
         backend.set_obs(None)
     check_results(results, model.cfg, k, new)
     stats = backend.graph_stats
-    # a capture calls model.forward and runs nothing; a replay is a forward
-    fwd = forwards[0] - stats.captures + stats.replays
+    # a capture calls model.forward and runs nothing (twice with tracing on:
+    # the graph and its timed copy); a replay is a forward
+    fwd = (forwards[0] - stats.captures * (2 if obs.tracer.enabled else 1)
+           + stats.replays)
     tokens = np.stack([s for r in results for s in r.samples])
     n_tok = sum(r.decode_tokens for r in results)
     info = dict(requests=R, samples=k, prompt_len=SERVE["prompt_len"],
@@ -1500,6 +1578,12 @@ def serve(seed: int) -> dict:
         for name in want[mode]:
             if counts[mode][name] < 1:
                 raise AssertionError(f"{mode} serving never launched {name}")
+        # chatglm3-6b's 32 rows x 2 kv heads are too few (row, kv head)
+        # pairs for the paged kernel's grouped path
+        if counts[mode]["paged_decode_attention_prefix"]:
+            raise AssertionError(
+                f"{mode} serving launched paged_decode_attention_prefix "
+                f"{counts[mode]['paged_decode_attention_prefix']} times")
     emit("serve-agreement", dict(
         dense_vs_paged_token_match=float((tokens["dense"]
                                           == tokens["paged"]).mean())))
@@ -1580,6 +1664,14 @@ def serve_moe(seed: int) -> dict:
             for name in want:
                 if c[name] < 1:
                     raise AssertionError(f"{run}: never launched {name}")
+            # granite's 32 rows x 8 kv heads, 16 prompt blocks shared by 4
+            # samples: every paged decode call takes the grouped path
+            if mode == "paged" and c["paged_decode_attention_prefix"] != \
+                    c["paged_decode_attention"]:
+                raise AssertionError(
+                    f"{run}: paged_decode_attention_prefix launched "
+                    f"{c['paged_decode_attention_prefix']} times, want one "
+                    f"a paged call ({c['paged_decode_attention']})")
         if len(modes) == 2:
             # information, not a gate: dense prefills the 32 tiled rows and
             # paged the 8 unique prompts, so capacity and drops differ
@@ -3618,6 +3710,12 @@ def main() -> int:
         for key in ("bf16_matmul_ms", "library_note"):
             if key in r:
                 entry[key] = r[key]
+        if name == "paged_decode_attention":
+            # the grouped path's second kernel, launched beside the first
+            by_run = {run: c.get("paged_decode_attention_prefix", 0)
+                      for run, c in counts.items()}
+            entry.update(prefix_launches=sum(by_run.values()),
+                         prefix_launches_by_run=by_run)
         kernels.append(entry)
     emit("done", dict(wall_s=time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}), flush=True)

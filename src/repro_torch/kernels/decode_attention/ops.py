@@ -8,12 +8,15 @@ slot axis across blocks (`split.plan_splits`: the dense ring's W slots, the
 nb * bs logical slots of a block-table row) and merge the splits' partials
 in the same launch through a per-device workspace. Each
 wrapper's ``launches`` attribute counts its kernel's launches, one a call;
-the CPU path does not count.
+a grouped paged call launches the prefix kernel besides, which
+``paged_decode_attention_prefix.launches`` counts. The CPU path does not
+count.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import types
 from typing import Optional, Tuple
 
 import torch
@@ -23,7 +26,8 @@ from repro_torch.kernels.common import (check_launch, check_tensors,
                                         stream_of, workspace)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
-from repro_torch.kernels.decode_attention.split import plan_splits
+from repro_torch.kernels.decode_attention.split import (
+    groups_engage, min_shared_blocks, plan_prefix, plan_splits)
 from repro_torch.obs.profiling import kernel_scope
 
 _P = ctypes.c_void_p
@@ -36,13 +40,17 @@ def _lib() -> ctypes.CDLL:
     lib.decode_attention_fwd.argtypes = [_P] * 8 + [_I] * 6 + [
         ctypes.c_float] + [_I] * 6 + [_P]
     lib.decode_attention_fwd.restype = _I
-    lib.paged_decode_attention_fwd.argtypes = [_P] * 9 + [_I] * 8 + [
-        ctypes.c_float] + [_I] * 4 + [_P]
+    lib.paged_decode_attention_fwd.argtypes = [_P] * 10 + [_I] * 8 + [
+        ctypes.c_float] + [_I] * 7 + [_P]
     lib.paged_decode_attention_fwd.restype = _I
     lib.paged_decode_attention_smem_bytes.argtypes = [_I, _I, _I]
     lib.paged_decode_attention_smem_bytes.restype = ctypes.c_size_t
     lib.paged_decode_attention_blocks_per_sm.argtypes = [_I, _I, _I]
     lib.paged_decode_attention_blocks_per_sm.restype = _I
+    lib.paged_decode_attention_prefix_smem_bytes.argtypes = [_I] * 4
+    lib.paged_decode_attention_prefix_smem_bytes.restype = ctypes.c_size_t
+    lib.paged_decode_attention_prefix_blocks_per_sm.argtypes = [_I] * 4
+    lib.paged_decode_attention_prefix_blocks_per_sm.restype = _I
     lib.decode_attention_split_smem_bytes.argtypes = [_I, _I, _I]
     lib.decode_attention_split_smem_bytes.restype = ctypes.c_size_t
     lib.decode_attention_split_blocks_per_sm.argtypes = [_I, _I, _I, _I]
@@ -85,6 +93,20 @@ def paged_split_plan(B: int, n_slots: int, H: int, Hkv: int, D: int,
     return plan_splits(B, Hkv, n_slots, H // Hkv, _sm_count(device),
                        _paged_blocks_per_sm(D, Dv, dtype == torch.bfloat16))
 
+
+@functools.lru_cache(maxsize=None)
+def _prefix_blocks_per_sm(D: int, Dv: int, is_bf16: bool, B: int) -> int:
+    return _lib().paged_decode_attention_prefix_blocks_per_sm(
+        D, Dv, int(is_bf16), B)
+
+
+def prefix_plan(B: int, n_split: int, D: int, Dv: int, dtype: torch.dtype,
+                device: torch.device) -> Tuple[int, int]:
+    """`plan_prefix` as the paged wrapper calls it on ``device``: the
+    prefix kernel's one-wave grid and its splits' cap."""
+    return plan_prefix(n_split, _sm_count(device),
+                       _prefix_blocks_per_sm(D, Dv,
+                                             dtype == torch.bfloat16, B))
 
 
 def _check_q(op: str, q: torch.Tensor, kv_heads: int, d_k: int) -> None:
@@ -173,7 +195,9 @@ decode_attention_cache.launches = 0
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, pos_pool: torch.Tensor,
                            block_table: torch.Tensor, q_pos: torch.Tensor, *,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           prefix_groups: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """q (B,1,H,D); pools (P,bs,Hkv,D|Dv) of fixed-size KV blocks; pos_pool
     (P,bs) int32 (-1 = empty); block_table (B,nb) int32 physical block per
     logical block; q_pos (B,) int32. Returns (B,1,H,Dv).
@@ -181,7 +205,19 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     Table entries are not range-checked here (that would read the table back
     from the card on every call): the serving backend builds the tables on
     the host from allocator ids below the pool size. The kernel and the
-    plain version both read an entry outside [0, P) as an empty block."""
+    plain version both read an entry outside [0, P) as an empty block.
+
+    ``prefix_groups`` (B,2) int32 on the card (`split.prefix_groups`): each
+    row's group's first row and shared blocks, the rows of a group
+    consecutive and their tables equal over those blocks. With it, where
+    `split.groups_engage` takes the shape (at most 32 query heads a kv
+    head, a table longer than the shortest prefix grouped, enough (row, kv
+    head) pairs), the call takes the grouped path: the shared blocks of a
+    group at least `split.min_shared_blocks` long are read once for every
+    row of a row tile, then each row walks its own tail. The launches
+    depend on shapes only, never on the descriptor's contents, which
+    nothing reads back to the host. Otherwise the per-row kernel alone.
+    The CPU path is the plain version either way."""
     op = "paged_decode_attention"
     if q.device.type == "cpu":
         with kernel_scope(op):
@@ -189,7 +225,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                               block_table, q_pos, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"{op}: no kernel for device {q.device}")
-    check_tensors(op, [q, k_pool, v_pool], [pos_pool, block_table, q_pos])
+    check_tensors(op, [q, k_pool, v_pool],
+                  [pos_pool, block_table, q_pos] +
+                  ([] if prefix_groups is None else [prefix_groups]))
     if k_pool.dim() != 4 or v_pool.dim() != 4 or block_table.dim() != 2:
         raise ValueError(f"{op}: pools must be (P, bs, Hkv, D) and the "
                          "block table (B, nb)")
@@ -220,23 +258,43 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         scale = D ** -0.5
     n_split, split_slots, n_hb = paged_split_plan(B, nb * bs, H, Hkv, D, Dv,
                                                   q.dtype, q.device)
+    grouped = prefix_groups is not None and groups_engage(H // Hkv, nb * bs,
+                                                          B * Hkv)
+    grid, p_cap, min_shared, groups_ptr = 0, 0, 0, None
+    if grouped:
+        if tuple(prefix_groups.shape) != (B, 2):
+            raise ValueError(f"{op}: prefix_groups must be ({B}, 2), got "
+                             f"{tuple(prefix_groups.shape)}")
+        _check_smem(op, lib.paged_decode_attention_prefix_smem_bytes(
+            D, Dv, int(is_bf16), B), H // Hkv, D, Dv)
+        grid, p_cap = prefix_plan(B, n_split, D, Dv, q.dtype, q.device)
+        min_shared = min_shared_blocks(H // Hkv, bs)
+        groups_ptr = prefix_groups.data_ptr()
+    stride = n_split + p_cap
     counters, part = workspace("decode_attention", q.device,
-                               B * Hkv * n_hb, B * H * n_split * (Dv + 2))
+                               B * Hkv * n_hb,
+                               B * H * stride * (Dv + 2) + int(grouped))
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
     with kernel_scope(op, cuda=True):
         err = lib.paged_decode_attention_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            pos_pool.data_ptr(), block_table.data_ptr(), q_pos.data_ptr(),
-            out.data_ptr(), part.data_ptr(), counters.data_ptr(),
-            B, nb, bs, P, H, Hkv, D, Dv, float(scale), n_split, split_slots,
-            n_hb, int(is_bf16), stream_of(q))
+            pos_pool.data_ptr(), block_table.data_ptr(), groups_ptr,
+            q_pos.data_ptr(), out.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), B, nb, bs, P, H, Hkv, D, Dv, float(scale),
+            n_split, split_slots, n_hb, grid, p_cap, min_shared,
+            int(is_bf16), stream_of(q))
     check_launch(op, err)
     paged_decode_attention.launches += 1
+    paged_decode_attention_prefix.launches += int(grouped)
     return out
 
 
 paged_decode_attention.launches = 0
+#: the launches of the grouped path's prefix kernel, which a grouped
+#: `paged_decode_attention` call makes before the per-row kernel's
+paged_decode_attention_prefix = types.SimpleNamespace(launches=0)
 
 __all__ = ["decode_attention_cache", "decode_attention_ref",
-           "paged_decode_attention", "paged_decode_attention_ref",
-           "split_plan", "paged_split_plan"]
+           "paged_decode_attention", "paged_decode_attention_prefix",
+           "paged_decode_attention_ref",
+           "split_plan", "paged_split_plan", "prefix_plan"]

@@ -197,7 +197,9 @@ def gqa_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                 use_kernel: bool = False,
                 block_table: Optional[torch.Tensor] = None,
                 kv_len: Optional[int] = None,
-                decode: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+                decode: bool = False,
+                prefix_groups: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Unified GQA attention.
 
     train/prefill: x (B,S,D), positions (B,S[,3]); cache None (train) or an
@@ -208,6 +210,9 @@ def gqa_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
       pools; position p lives in pool block ``table[b, p // bs]`` row
       ``p % bs``. ``kv_len`` bounds the logical sequence so the gathered
       plain path is element for element the dense cache.
+      ``prefix_groups`` (B, 2): the rows' groups of shared leading blocks,
+      which the paged decode kernel reads once a group
+      (`kernels.decode_attention.split.prefix_groups`).
     ``decode=True`` forces the cache-attending branches at S > 1 (the
       speculative verify and tail prefill); only the S == 1 kernels are gated
       off there.
@@ -262,7 +267,7 @@ def gqa_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
             from repro_torch.kernels.decode_attention import ops as da_ops
             out = da_ops.paged_decode_attention(
                 q, ck, cv, cpos, block_table, pos1d[:, 0].contiguous(),
-                scale=scale)
+                scale=scale, prefix_groups=prefix_groups)
         else:
             # gather the sequence's blocks in logical order and slice to the
             # exact cache length: element for element the dense decode path

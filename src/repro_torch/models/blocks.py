@@ -110,7 +110,8 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                      use_kernel: bool,
                      block_table: Optional[torch.Tensor] = None,
                      kv_len: Optional[int] = None,
-                     decode: bool = False, dp=None, tp=None
+                     decode: bool = False, dp=None, tp=None,
+                     prefix_groups: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Optional[Dict],
                                 Union[torch.Tensor, float]]:
     """Returns (x, cache, aux loss): the MoE FFN's aux loss (a 0-d f32
@@ -147,7 +148,8 @@ def sublayer_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         y, new_cache = attn.gqa_forward(p["attn"], cfg, h, positions, cache,
                                         use_kernel=use_kernel,
                                         block_table=block_table,
-                                        kv_len=kv_len, decode=decode)
+                                        kv_len=kv_len, decode=decode,
+                                        prefix_groups=prefix_groups)
     mark("attn.residual")
     x = x + y
     if cfg.cross_attention and (memory is not None or cross_kv is not None):
@@ -178,7 +180,8 @@ def super_block_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                         memory: Optional[torch.Tensor], use_kernel: bool,
                         block_table: Optional[torch.Tensor] = None,
                         kv_len: Optional[int] = None,
-                        decode: bool = False, dp=None, tp=None
+                        decode: bool = False, dp=None, tp=None,
+                        prefix_groups: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, Optional[Dict],
                                    Union[torch.Tensor, float]]:
     """One period of the layer pattern. cache is {"l{i}": sub-cache} or None;
@@ -191,7 +194,8 @@ def super_block_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
         x, nc, aux = sublayer_forward(p[key], cfg, x, positions, mixer,
                                       sub_cache, memory, use_kernel,
                                       block_table=block_table, kv_len=kv_len,
-                                      decode=decode, dp=dp, tp=tp)
+                                      decode=decode, dp=dp, tp=tp,
+                                      prefix_groups=prefix_groups)
         if new_cache is not None:
             new_cache[key] = nc
         aux_total = aux_total + aux

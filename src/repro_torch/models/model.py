@@ -170,7 +170,9 @@ class Model:
         ``batch["block_table"]`` switches attention caching to the paged
         layout (prefill: one row per unique prompt; decode: one row per
         sequence); ``kv_len`` is the logical cache length the plain paged
-        path slices the gathered pools to. ``decode=True`` forces the
+        path slices the gathered pools to; ``batch["prefix_groups"]`` (B, 2)
+        the decode rows' groups of shared leading table blocks, which the
+        paged decode kernel reads once a group. ``decode=True`` forces the
         cache-attending branches even when S > 1. ``logits_at`` projects
         only that sequence position to the vocabulary (logits (B, 1, V)):
         a caller that reads one position skips the head's product over the
@@ -226,7 +228,8 @@ class Model:
             memory = memory.to(h.dtype)
 
         kw = dict(use_kernel=self.use_kernel, block_table=block_table,
-                  kv_len=kv_len, decode=decode, dp=dp, tp=tp)
+                  kv_len=kv_len, decode=decode, dp=dp, tp=tp,
+                  prefix_groups=batch.get("prefix_groups"))
         aux_total = 0.0            # a tensor once an MoE layer adds to it
         # ---- prefix layers (unrolled; deepseek's leading dense layer)
         for i, (mixer, _ffn) in enumerate(self._prefix_kinds()):

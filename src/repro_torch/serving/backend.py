@@ -108,6 +108,7 @@ from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.kernels.decode_attention.split import prefix_groups
 from repro_torch.models import cache as cache_mod
 from repro_torch.models.model import Model
 from repro_torch.obs import NULL_OBS
@@ -322,6 +323,23 @@ class PagedBatchLayout:
     # ``hit_counts[i]`` prefill blocks are already filled
     pooled: bool = False
     hit_counts: List[int] = field(default_factory=list)
+    # (B, 2) each decode row's group's first row and the table blocks the
+    # group shares (`kernels.decode_attention.split.prefix_groups`)
+    prefix_groups: Optional[np.ndarray] = None
+
+    def prefix_stats(self, context: int) -> Tuple[int, float]:
+        """(groups, share) at a decode step whose rows attend ``context``
+        positions: the groups of rows sharing leading table blocks, and the
+        share of the table's valid logical slots in those blocks, which the
+        paged kernel reads once a group where its grouped path takes the
+        group (`kernels.decode_attention.split.groups_engage` and
+        `min_shared_blocks`) instead of once a row."""
+        g = self.prefix_groups
+        grouped = g[:, 1] > 0
+        shared = np.minimum(g[grouped, 1] * self.block_size, context).sum()
+        return (int(np.unique(g[grouped, 0]).size),
+                float(shared) / (len(g) * context) if len(g) and context
+                else 0.0)
 
 
 def build_paged_layout(allocator: BlockAllocator, plen: int, max_new: int,
@@ -336,6 +354,13 @@ def build_paged_layout(allocator: BlockAllocator, plen: int, max_new: int,
     private. Blocks cover written positions only: the last is
     ``plen + max_new - 2`` (the final sampled token is never cached). The
     caller must have checked ``request_blocks`` against ``blocks_free``.
+
+    The rows of a request form a group over its ``plen // bs`` full prefix
+    blocks (on the resident pool the hit chain and the newly shared blocks
+    alike; the CoW-forked partial block is each row's own):
+    ``prefix_groups``, which the paged decode kernel reads to stream them
+    once for all the request's rows where that pays
+    (`kernels.decode_attention.split.prefix_groups`).
 
     Without ``hit_chains`` the tables hold local ids ``0 .. n_pool_blocks -
     1`` into the batch's own pool. With them (the resident prefix pool),
@@ -411,7 +436,8 @@ def build_paged_layout(allocator: BlockAllocator, plen: int, max_new: int,
         copy_dst=np.asarray(copy_dst, np.int32),
         seq_gids=seq_gids,
         pooled=pooled,
-        hit_counts=[len(h) for h in hit_chains])
+        hit_counts=[len(h) for h in hit_chains],
+        prefix_groups=prefix_groups(repeats, full_prefix))
 
 
 @dataclass
@@ -493,6 +519,7 @@ class InFlightBatch:
     # paged state (None in dense mode)
     paged: Optional[PagedBatchLayout] = None
     block_table: Optional[torch.Tensor] = None  # decode table on device
+    prefix_groups: Optional[torch.Tensor] = None  # its groups, on device
     prefill_bytes_saved: float = 0.0   # KV bytes prefix sharing did not move
     # prefix-pool accounting (pooled batches only)
     pool_hit_blocks: int = 0           # trie-cached blocks this batch reused
@@ -709,6 +736,14 @@ class ExecutionBackend:
                     "serving_prefix_pool_hit_ratio",
                     "Per-batch fraction of full prefix blocks served "
                     "from the trie", buckets=RATIO_BUCKETS),
+                "prefix_groups": reg.gauge(
+                    "serving_decode_prefix_groups",
+                    "Row groups sharing prompt blocks at the last paged "
+                    "decode step"),
+                "prefix_share": reg.gauge(
+                    "serving_decode_prefix_slot_share",
+                    "Share of the last paged decode step's valid table "
+                    "slots in blocks its row groups share"),
             }
 
     def _note_occupancy(self) -> None:
@@ -1125,6 +1160,7 @@ class ExecutionBackend:
                 max_new=max_new, temperature=temperature, noise=noise,
                 extras=decode_extras, arena=arena, tok=None, step=0,
                 paged=layout, block_table=self._tokens(layout.decode_table),
+                prefix_groups=self._tokens(layout.prefix_groups),
                 prefill_bytes_saved=float((B - R) * plen
                                           * self.kv_token_bytes))
             if self.prefill_chunk is not None:
@@ -1224,6 +1260,7 @@ class ExecutionBackend:
                 extras={k: self._tile(v, rep) for k, v in extras.items()},
                 arena=None, tok=None, step=0, paged=layout,
                 block_table=self._tokens(layout.decode_table),
+                prefix_groups=self._tokens(layout.prefix_groups),
                 prefill_bytes_saved=float((B * plen - tail_tokens)
                                           * self.kv_token_bytes),
                 pool_hit_blocks=sum(layout.hit_counts),
@@ -1407,6 +1444,14 @@ class ExecutionBackend:
             h.out_toks.append(toks)
             h.out_lps.append(lps)
             h.step += 1
+            if h.paged is not None and (tracer.enabled
+                                        or self._m is not None):
+                groups, share = h.paged.prefix_stats(step_pos + 1)
+                if tracer.enabled:
+                    span.set(prefix_groups=groups, prefix_slot_share=share)
+                if self._m is not None:
+                    self._m["prefix_groups"].set(groups)
+                    self._m["prefix_share"].set(share)
             if tracer.enabled:
                 span.set(step=h.step, n_sequences=h.n_sequences)
         if timed:
@@ -1468,6 +1513,7 @@ class ExecutionBackend:
         inputs = dict(h.extras)
         if h.block_table is not None:
             inputs["block_table"] = h.block_table
+            inputs["prefix_groups"] = h.prefix_groups
         return inputs
 
     def _decode_fn(self, h: InFlightBatch, inputs: Dict[str, torch.Tensor]):

@@ -100,16 +100,16 @@ def _extras(cfg, n=3):
     return {}
 
 
-def _serve(model, params, kw, graphs, between=None):
-    """One batch of 3 prompts x 4 samples, temperature 0.8, drained;
+def _serve(model, params, kw, graphs, between=None, n=3):
+    """One batch of ``n`` prompts x 4 samples, temperature 0.8, drained;
     ``between(step)`` runs after each decode step. Returns (per-step
     tokens, per-step logprobs, the cache after the last step, launch
     counts, graph stats)."""
     be = ExecutionBackend(model, params, cuda_graphs=graphs, **kw)
     noise = GumbelNoise(torch.Generator(device="cuda").manual_seed(3))
     kernels.reset_launch_counts()
-    h = be.start_batch(_prompts(model.cfg), 4, NEW, 0.8, noise,
-                       _extras(model.cfg))
+    h = be.start_batch(_prompts(model.cfg, n), 4, NEW, 0.8, noise,
+                       _extras(model.cfg, n))
     while be.decode_step(h):
         if between is not None:
             between(h.step)
@@ -247,18 +247,28 @@ def test_a_capture_that_fails_raises(cuda):
 
 def test_profile_attributes_replayed_kernels_by_name(cuda):
     """`profile_summary` over a graphed serve counts each port kernel's
-    launches as the wrappers' counts do, replays included."""
+    launches as the wrappers' counts do, replays included; a grouped paged
+    call (8 prompts x 4 samples: 32 rows x 4 kv heads, each prompt's two
+    full blocks shared) launches the prefix kernel besides the per-row
+    one."""
     model, params, kw = _model("granite-paged")
-    _serve(model, params, kw, graphs=True)                 # warm
+    _serve(model, params, kw, graphs=True, n=8)            # warm
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        _, _, _, counts, stats = _serve(model, params, kw, graphs=True)
+        _, _, _, counts, stats = _serve(model, params, kw, graphs=True, n=8)
     assert stats.replays == NEW - 2
     port = profile_summary(prof, 1.0)["port_kernels"]
-    for src, names in (("decode_attention", ("paged_decode_attention",)),
-                       ("moe_gemm", ("moe_gemm",)),
-                       ("flash_attention", ("flash_attention",))):
+    by_kernel = port["decode_attention"]["by_kernel"]
+    assert by_kernel["paged_decode_attention_split_kernel"]["count"] == \
+        counts["paged_decode_attention"]
+    assert by_kernel["paged_decode_attention_prefix_kernel"]["count"] == \
+        counts["paged_decode_attention_prefix"] > 0
+    for src, names in (
+            ("decode_attention", ("paged_decode_attention",
+                                  "paged_decode_attention_prefix")),
+            ("moe_gemm", ("moe_gemm",)),
+            ("flash_attention", ("flash_attention",))):
         assert port[src]["count"] == sum(counts[n] for n in names), src
 
 

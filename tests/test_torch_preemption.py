@@ -77,13 +77,20 @@ def test_preemption_changes_no_token_inside_the_port(pair, routers, mode,
         assert gs.captures >= 1 and not on.backend._pool_graphs
 
 
+#: attributes the port's ``decode`` spans carry beyond the reference's:
+#: where the paged kernel reads shared prompt blocks once a group
+#: (`test_wall_spans_of_a_drain` pins them)
+PORT_ATTRS = ("prefix_groups", "prefix_slot_share")
+
+
 def _spans(obs, names=None) -> list:
-    """The spans of a drain, less their wall-clock times; with ``names``,
-    only the spans of those names (the port also emits wall-clock spans of
-    its own, which the reference does not: `test_wall_spans_of_a_drain`
-    pins them)."""
+    """The spans of a drain, less their wall-clock times and the port's own
+    attributes; with ``names``, only the spans of those names (the port also
+    emits wall-clock spans of its own, which the reference does not:
+    `test_wall_spans_of_a_drain` pins them)."""
     return [(sp.name, sp.clock, sp.request_id, sp.batch_id, sp.sample,
-             sp.attrs, (sp.t0_s, sp.t1_s) if sp.clock == "sim" else None)
+             {k: v for k, v in sp.attrs.items() if k not in PORT_ATTRS},
+             (sp.t0_s, sp.t1_s) if sp.clock == "sim" else None)
             for sp in obs.tracer.spans if names is None or sp.name in names]
 
 
@@ -173,6 +180,13 @@ def test_wall_spans_of_a_drain(pair, routers, monkeypatch):
     for f in forms:
         (pre,) = [c for c in kids[f.span_id] if c.name == "prefill"]
         assert pre.batch_id == f.batch_id and inside(pre, f)
+    # a paged decode step: the groups of rows sharing prompt blocks (which
+    # the kernel reads once a group where it takes the group), and the
+    # share of the rows' valid slots those blocks hold
+    for dec in named("decode"):
+        groups, share = (dec.attrs[k] for k in PORT_ATTRS)
+        assert 0 <= share < 1 and (groups > 0) == (share > 0)
+    assert any(dec.attrs["prefix_groups"] > 0 for dec in named("decode"))
     for fwd in named("prefill") + named("decode"):
         mine = kids[fwd.span_id]
         enq = [c for c in mine if c.name == "enqueue"]
