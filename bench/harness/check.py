@@ -2,13 +2,28 @@
 plain reference.
 
 After the window closes and the program's state is freed, ``check_batches``
-batches that finished are drawn from the seed. Each is recomputed by
-`reference.model.judge` from its prompts and the program's served tokens
+batches that finished are drawn from the seed. Each is recomputed by the
+reference's ``judge`` from its prompts and the program's served tokens
 (teacher forcing), with the same Gumbel draws the program was handed, and
 every judged token's gap is read: how far the served token's score lies
-below the reference's best. An MoE batch is judged over all of its rows
-(which tokens share a forward decides the expert capacity's drops); a dense
-batch over the rows of one of its requests, drawn from the seed.
+below the reference's best. A batch whose rows share their forwards' result
+(an MoE's expert capacity drops tokens by who else is in the forward) is
+judged over all of its rows; any other batch over the rows of one of its
+requests, drawn from the seed.
+
+The reference is the module ``reference/<module>.py`` that the configuration
+file names with ``"reference": "<module>"``, loaded by path. Its contract:
+
+* ``spec_of(config)`` takes the configuration file's dict and returns an
+  object with ``experts``, non-zero where the rows that share a forward
+  change the result;
+* ``judge(spec, weights, prompts, rows_of, toks, rows, temperature, draw)``
+  takes the benchmark's weights, the batch's prompts (R, L), each row's
+  prompt (B,), the served tokens (B, N), the rows to judge, the temperature
+  and ``draw(j)``, the batch's Gumbel draw for token j, and returns, a list
+  over the judged rows under each key, ``gap_max``, ``gap_sum``,
+  ``misses`` and ``mean_logprob``, and ``tokens``, the tokens a row;
+* it imports nothing of the program.
 
 The numbers, each over the judged rows; ``COMPARED`` names those held to
 their limits in ``limits/<cell>.json``, the rest are printed beside them:
@@ -27,20 +42,41 @@ their limits in ``limits/<cell>.json``, the rest are printed beside them:
 """
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
-from reference.model import judge, spec_of
+from harness.spec import BENCH, load_module
 
 COMPARED = ("gap_mean",)
+#: where the reference modules live
+REFERENCE = BENCH / "reference"
+
+
+def reference(config: Dict[str, Any]) -> ModuleType:
+    """The reference module that the configuration names, loaded from
+    `REFERENCE`."""
+    name = config.get("reference")
+    if not name:
+        raise LookupError(
+            f"configuration {config.get('name')!r} names no reference: its "
+            f"file needs \"reference\": \"<module>\" for "
+            f"{REFERENCE}/<module>.py")
+    path = REFERENCE / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"configuration {config.get('name')!r}: its reference {path} "
+            f"does not exist")
+    return load_module(path, "bench_reference_" + name.replace(".", "_"))
 
 
 def check(runner, run) -> Dict[str, Any]:
     """The check's numbers (module docstring), or ``error``."""
     cell, mix = run.cell, run.cell.traffic
-    spec = spec_of(cell.config)
+    ref = reference(cell.config)
+    spec = ref.spec_of(cell.config)
     rng = np.random.default_rng(np.random.SeedSequence([run.seed, 9]))
     batches = []
     for bid, src in sorted(run.book.batches.items()):
@@ -75,11 +111,11 @@ def check(runner, run) -> Dict[str, Any]:
             rows = np.nonzero(rows_of == r)[0]
         prompts = torch.as_tensor(np.stack([run.prompts[i] for i in idx]),
                                   device=dev)
-        res = judge(spec, runner.weights, prompts,
-                    torch.as_tensor(rows_of, device=dev),
-                    torch.as_tensor(toks, device=dev),
-                    torch.as_tensor(rows, device=dev), mix["temperature"],
-                    src.draw)
+        res = ref.judge(spec, runner.weights, prompts,
+                        torch.as_tensor(rows_of, device=dev),
+                        torch.as_tensor(toks, device=dev),
+                        torch.as_tensor(rows, device=dev),
+                        mix["temperature"], src.draw)
         reported = np.asarray([lp for i in idx
                                for lp in run.results[i].logprobs])[rows]
         rows_all["lp_err"].append(reported

@@ -24,10 +24,12 @@ which its batch formed (the prefill samples it).
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import os
 import sys
 import time
+import typing
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -150,12 +152,33 @@ class Run:
 
 
 def arch_config(port: Dict[str, Any]):
-    """The program's `ArchConfig` of a configuration file's ``port`` group."""
-    from repro_torch.models.config import ArchConfig, MoEConfig
-    kw = dict(port)
-    if kw.get("moe"):
-        kw["moe"] = MoEConfig(**kw["moe"])
-    return ArchConfig(**kw)
+    """The program's `ArchConfig` of a configuration file's ``port`` group:
+    each nested group that a field declares as a dataclass (``mla``,
+    ``moe``, ``ssm``) built as one, each JSON list where a field is a tuple
+    made one. A key that is no field raises."""
+    from repro_torch.models.config import ArchConfig
+    return _dataclass_of(ArchConfig, port)
+
+
+def _dataclass_of(cls, values: Dict[str, Any]):
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(values) - fields)
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no field {unknown}")
+    hints = typing.get_type_hints(cls)
+    return cls(**{k: _field_value(hints[k], v) for k, v in values.items()})
+
+
+def _field_value(hint, value):
+    if value is None:
+        return None
+    if typing.get_origin(hint) is typing.Union:        # Optional[X]
+        hint = next(a for a in typing.get_args(hint) if a is not type(None))
+    if dataclasses.is_dataclass(hint) and isinstance(value, dict):
+        return _dataclass_of(hint, value)
+    if typing.get_origin(hint) is tuple and isinstance(value, list):
+        return tuple(value)
+    return value
 
 
 def request_blocks(plen: int, new: int, samples: int, bs: int) -> int:

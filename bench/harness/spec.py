@@ -10,8 +10,10 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Callable, Dict, List
 
 BENCH = Path(__file__).resolve().parents[1]
@@ -70,12 +72,17 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
                 _metrics(bench["per_layer"], name))
 
 
+def load_module(path: Path, name: str) -> ModuleType:
+    """The Python file ``path`` imported as the module ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod             # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def metric_reader(name: str) -> Callable[[Any], Any]:
     """``read(run)`` of ``metrics/<name>.py``: the metric's value from a
     finished traced run, or None where the run holds nothing to read."""
-    path = BENCH / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(BENCH / "metrics" / f"{name}.py",
+                       "bench_metric_" + name.replace(".", "_")).read

@@ -1,6 +1,6 @@
 """The MoE grouped GEMM's share of its roofline in the traced slice: the
-least time of its three products a layer in every forward of the slice's
-steps (every expert's weights once, each routed row in and out;
+least time of its three products in each MoE layer of every forward of the
+slice's steps (every expert's weights once, each routed row in and out;
 `harness.work.moe_gemm_call`) over the device time of the kernels that
 implement it, in percent."""
 from harness import work
@@ -20,6 +20,6 @@ def read(run):
     for s in run.profile["steps"]:
         for e in s.events:
             tokens = e.prompts * e.plen if e.kind == "prefill" else e.rows
-            least += w.layers * sum(work.least_s(f, b) for f, b in
-                                    work.moe_forward_calls(w, tokens))
+            least += w.moe_layers * sum(work.least_s(f, b) for f, b in
+                                        work.moe_forward_calls(w, tokens))
     return 100.0 * least / spent

@@ -15,7 +15,8 @@ import torch
 
 import tiny
 
-CELLS = ["chatglm3-6b.backlog", "granite-moe-3b-a800m.backlog"]
+#: the first cell of each configuration that names a control
+CELLS = [f"{c}.{t}" for c, t in tiny.CONTROL_CELLS]
 
 
 def _run(cell, seed, *extra):

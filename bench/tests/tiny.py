@@ -1,5 +1,6 @@
-"""Small cells for the CPU tests: the real harness, configurations of the
-two architectures at toy widths, and short mixes."""
+"""Small cells for the CPU tests: the real harness, each configuration at
+the toy widths of its file's ``tiny`` group, and short mixes; and the cases
+that the tests run over, read from BENCHMARK.json."""
 from __future__ import annotations
 
 import copy
@@ -21,27 +22,49 @@ def _json(path):
         return json.load(f)
 
 
+def first_cells(bench: dict) -> list:
+    """Each configuration's first cell of ``bench``, as (configuration,
+    traffic)."""
+    cells = {}
+    for w in bench["workloads"]:
+        cells.setdefault(w["config"], w["traffic"])
+    return list(cells.items())
+
+
+def control_cells(bench: dict, root: Path = ROOT) -> list:
+    """The first cell of each configuration whose file names a ``control``,
+    whatever its traffic: its control runs there."""
+    files = {c["name"]: c["file"] for c in bench["configs"]}
+    return [(c, t) for c, t in first_cells(bench)
+            if _json(root / files[c]).get("control")]
+
+
+BENCHMARK = _json(ROOT / "BENCHMARK.json")
+#: every cell of BENCHMARK.json, as (configuration, traffic)
+CELLS = [(w["config"], w["traffic"]) for w in BENCHMARK["workloads"]]
+FIRST_CELLS = first_cells(BENCHMARK)
+CONTROL_CELLS = control_cells(BENCHMARK)
+
+
+def merged(base: dict, over: dict) -> dict:
+    """``over`` deep-merged over ``base``: groups merged key by key, any
+    other value replaced."""
+    out = copy.deepcopy(base)
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = merged(out[k], v)
+        else:
+            out[k] = copy.deepcopy(v)
+    return out
+
+
 def tiny_config(name: str) -> dict:
-    """A configuration file's dict at toy widths, published and port keys
-    cut alike."""
-    c = copy.deepcopy(_json(BENCH / "configs" / f"{name}.json"))
-    p = c["port"]
-    if c["model_type"] == "chatglm":
-        c.update(num_layers=2, hidden_size=64, num_attention_heads=4,
-                 multi_query_group_num=2, kv_channels=16,
-                 ffn_hidden_size=96, padded_vocab_size=256)
-        c["assumed"]["rotary_dim"] = 8
-        p.update(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=96,
-                 vocab_size=256)
-    else:
-        c.update(num_hidden_layers=2, hidden_size=64, num_attention_heads=4,
-                 num_key_value_heads=2, intermediate_size=32,
-                 num_local_experts=8, num_experts_per_tok=2, vocab_size=250)
-        c["departures"]["attention_multiplier"] = 0.25
-        p.update(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=32,
-                 vocab_size=250)
-        p["moe"] = dict(p["moe"], n_experts=8, top_k=2, d_expert=32)
-    return c
+    """A configuration file's dict at toy widths: its ``tiny`` group (the
+    cut of the published, ``assumed``, ``departures`` and ``port`` keys)
+    deep-merged over it."""
+    files = {c["name"]: c["file"] for c in BENCHMARK["configs"]}
+    c = _json(ROOT / files[name])
+    return merged(c, c.pop("tiny"))
 
 
 def tiny_cell(config: str, traffic: str, **mix) -> Cell:
